@@ -1,0 +1,18 @@
+"""Tile fusion — the paper's contribution as a PyTorch module.
+
+``api.tile_fused_matmul`` is the one fused-matmul entrypoint (inspector
+cache + backend dispatch); the submodules below are its building blocks.
+"""
+from .scheduler import Schedule, Tile, build_schedule
+from .schedule import DeviceSchedule, to_device_schedule
+from . import api, fused_ops, fused_ref
+from .api import (clear_schedule_cache, get_schedule, schedule_cache_stats,
+                  select_backend, tile_fused_matmul)
+from .spec import FusionSpec
+
+__all__ = [
+    "Schedule", "Tile", "build_schedule", "DeviceSchedule",
+    "to_device_schedule", "api", "fused_ops", "fused_ref",
+    "tile_fused_matmul", "get_schedule", "select_backend",
+    "clear_schedule_cache", "schedule_cache_stats", "FusionSpec",
+]

@@ -1,0 +1,171 @@
+"""Card-only checks of the port: each CUDA kernel against its plain PyTorch
+version, and the ``cuda`` arm against the ``torch`` arm.
+
+Every test here carries the ``gpu`` marker and skips, with its reason,
+where there is no CUDA device of compute capability 9.0+ (the decision is
+made in the ``card`` fixture, so every test process collects the same
+tests).  This file imports neither ``jax`` nor ``repro``, so it also runs
+on a machine with only the port installed:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances: f32 results within 1e-4 of the plain version relative to its
+largest magnitude (the kernels sum in another order), bf16 within 2e-2
+(one bf16 rounding of either side).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs.gcn import GCNConfig
+from repro_torch.core.sparse import random as gen
+from repro_torch.core.sparse.formats import CSR
+from repro_torch.core.tilefusion import api
+from repro_torch.kernels import ops, ref
+from repro_torch.models.gcn import GCN
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card")
+    if torch.cuda.get_device_capability(0) < (9, 0):
+        pytest.skip("the kernels are built for sm_90a (H100 or newer)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    scale = max(float(want.abs().max()), 1e-30)
+    return float((got - want).abs().max()) / scale
+
+
+def _ell(gen_, shape, n_targets, device):
+    cols = torch.randint(0, n_targets, shape, generator=gen_,
+                         dtype=torch.int32)
+    vals = torch.randn(shape, generator=gen_)
+    vals[torch.rand(shape, generator=gen_) < 0.2] = 0.0
+    return cols.to(device), vals.to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_rows,w,n,c", [(37, 3, 50, 5), (1000, 13, 777, 128),
+                                          (4099, 2, 4099, 32)])
+def test_spmm_ell_kernel(card, n_rows, w, n, c, dtype):
+    g = torch.Generator().manual_seed(n_rows)
+    cols, vals = _ell(g, (n_rows, w), n, card)
+    x = torch.randn(n, c, generator=g).to(card, dtype)
+    vals = vals.to(dtype)
+    before = ops.spmm_ell.launches
+    got = ops.spmm_ell(cols, vals, x)
+    torch.cuda.synchronize()
+    assert ops.spmm_ell.launches == before + 1
+    assert _rel_err(got, ref.spmm_ell(cols, vals, x)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_tiles,t,j0,w,b_col,c_col",
+                         [(3, 5, 4, 3, 6, 7), (64, 64, 56, 17, 128, 128),
+                          (16, 128, 120, 17, 128, 32), (2, 2048, 300, 9, 128,
+                                                        128)])
+def test_gemm_spmm_wf0_kernel(card, n_tiles, t, j0, w, b_col, c_col, dtype):
+    g = torch.Generator().manual_seed(t)
+    cols0, vals0 = _ell(g, (n_tiles, j0, w), t, card)
+    b = torch.randn(n_tiles * t, b_col, generator=g).to(card, dtype)
+    c = (torch.randn(b_col, c_col, generator=g) / b_col ** 0.5).to(card,
+                                                                   dtype)
+    vals0 = vals0.to(dtype)
+    d1, rows0 = ops.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, t=t)
+    want_d1, want_rows = ref.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, t=t)
+    torch.cuda.synchronize()
+    assert _rel_err(d1, want_d1) <= TOL[dtype]
+    assert _rel_err(rows0, want_rows) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_tiles,t,j0,w0,w1,n,c_col",
+                         [(3, 5, 4, 3, 2, 40, 7), (32, 128, 120, 17, 13,
+                                                   4096, 128)])
+def test_spmm_spmm_wf0_kernel(card, n_tiles, t, j0, w0, w1, n, c_col, dtype):
+    g = torch.Generator().manual_seed(t + n)
+    op1_cols, op1_vals = _ell(g, (n_tiles, t, w1), n, card)
+    cols0, vals0 = _ell(g, (n_tiles, j0, w0), t, card)
+    spill = torch.randn(n_tiles * t, c_col, generator=g).to(card, dtype)
+    c = torch.randn(n, c_col, generator=g).to(card, dtype)
+    args = (op1_cols, op1_vals.to(dtype), spill, cols0, vals0.to(dtype), c)
+    d1, rows0 = ops.tile_fused_spmm_spmm_wf0(*args, t=t)
+    want_d1, want_rows = ref.tile_fused_spmm_spmm_wf0(*args, t=t)
+    torch.cuda.synchronize()
+    assert _rel_err(d1, want_d1) <= TOL[dtype]
+    assert _rel_err(rows0, want_rows) <= TOL[dtype]
+
+
+def test_wrappers_check_their_inputs(card):
+    x = torch.randn(8, 4, device=card)
+    cols = torch.zeros(8, 2, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError, match="int32"):
+        ops.spmm_ell(cols.long(), torch.ones(8, 2, device=card), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.spmm_ell(cols, torch.ones(2, 8, device=card).t(), x)
+    with pytest.raises(TypeError, match="dtype"):
+        ops.spmm_ell(cols, torch.ones(8, 2, device=card), x.double())
+
+
+@pytest.mark.parametrize("op_pair", ["gemm", "spmm"])
+def test_cuda_arm_matches_torch_arm(card, op_pair):
+    a = gen.banded_spd(16384, 8, seed=1)
+    rng = np.random.default_rng(0)
+    c_shape = (a.n_rows, 64) if op_pair == "spmm" else (64, 64)
+    c = torch.from_numpy(rng.standard_normal(c_shape, np.float32)).to(card)
+    b = (a if op_pair == "spmm" else torch.from_numpy(
+        rng.standard_normal((a.n_rows, 64), np.float32)).to(card))
+    entry = api.get_schedule(a, b_col=64, c_col=64,
+                             b_is_sparse=(op_pair == "spmm"))
+    assert api.select_backend(entry, card) == "cuda"
+    ops.reset_launch_counts()
+    got = api.tile_fused_matmul(a, b, c)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    wf0 = ("tile_fused_spmm_spmm_wf0" if op_pair == "spmm"
+           else "tile_fused_gemm_spmm_wf0")
+    assert counts[wf0] == 1
+    assert counts["spmm_ell"] == (1 if entry.dsched.j_rows1.size else 0)
+    want = api.tile_fused_matmul(a, b, c, backend="torch")
+    assert _rel_err(got, want) <= 2e-3
+
+
+def test_auto_raises_for_a_non_uniform_schedule(card):
+    """``uniform_split=False`` on the card: ``auto`` raises rather than run
+    the plain executors; ``backend="torch"`` still runs them."""
+    dense = gen.banded_spd(64, 3, seed=1).to_dense()
+    dense[::2, :] = 0.0                 # the parity matrix's empty-rows cell
+    a = CSR.from_dense(dense)
+    spec = api.FusionSpec(p=2, cache_size=1_000.0, ct_size=32,
+                          uniform_split=False)
+    c = torch.randn(64, 4, device=card)
+    with pytest.raises(ValueError, match="uniform_split"):
+        api.tile_fused_matmul(a, a, c, spec=spec)
+    want = torch.from_numpy(dense @ (dense @ c.cpu().double().numpy()))
+    got = api.tile_fused_matmul(a, a, c, spec=spec, backend="torch")
+    assert _rel_err(got.cpu(), want) <= 2e-3
+
+
+def test_gcn_serves_on_the_card(card):
+    cfg = GCNConfig(n_nodes=16384)
+    for adj, pick in ((gen.banded_spd(cfg.n_nodes, 8, seed=0), "cuda"),
+                      (gen.powerlaw_graph(cfg.n_nodes, 8, seed=0),
+                       "unfused")):
+        model = GCN(cfg, adj)           # default device: the card
+        assert model.weights[0].is_cuda
+        assert model.layer_backends()[0] == pick
+        x = torch.randn(cfg.n_nodes, cfg.in_dim, device=card)
+        ops.reset_launch_counts()
+        got = model(x)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["spmm_ell"] > 0
+        assert _rel_err(got, model(x, backend="torch")) <= 2e-3
