@@ -31,12 +31,39 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                ``backend="torch"`` forward.
   6. trace   — one more request per graph under ``torch.profiler``: device
                time by kernel and the device's busy share of the request.
+  7. LM kernels — flash attention, the fused FFN and the fused MoE FFN
+               through their entry points (``kernels.ops``) at published
+               widths (qwen2.5-3b prefill, hymba-1.5b's window, Whisper's
+               ragged 1500-frame encoder; stablelm-1.6b FFN widths;
+               granite-moe-3b experts), f32 and bf16, each against its
+               plain version (each output row against its own largest
+               value): errors, time, bound (compulsory bytes, and
+               operations over the unmasked (query, key) pairs only),
+               plain time, and a library call as yardstick
+               (``scaled_dot_product_attention``; the unfused
+               ``matmul → act → matmul`` / ``bmm`` chains).
+  8. LM serving — qwen2.5-3b at full width in bf16 (weights from a seeded
+               generator on the card): 4 prompts of 2048 tokens, one
+               batched prefill, 32 greedy decode steps through
+               ``launch.serve``'s step; prefill time and tokens/s, decode
+               p50 and max; the prefill logits held to the same model with
+               the plain attention (``impl="torch"``); the first decode
+               steps replayed on a fresh cache of the serve run's size:
+               their greedy picks must be the served tokens, and their
+               logits are held to a full forward over prompt + served
+               tokens with the plain attention.
+  9. trace   — one prefill and one decode step under ``torch.profiler``:
+               device time by kernel, device kernels per step and the
+               device's busy share.
 
-Phases 4 and 5 are the main path: the kernels' launch counts are set to 0
-just before phase 4 and read just after phase 5, and every kernel must
-have launched there.  The last three lines are the card's
-``nvidia-smi`` name and power limit, the kernels' JSON record and the
-result line.  float32 matrix products run in true f32 (TF32 off).
+Each path is driven with the launch counts set to 0 just before it and
+read just after: phases 4-5 (the GCN path) must launch the three sparse
+kernels, phase 7's entry-point calls the FFN and MoE kernels, and phase 8
+the flash kernel exactly once per layer of the prefill.  Launches made to
+compare a kernel with its plain version, or to time it, are not counted.
+The last three lines are the card's ``nvidia-smi`` name and power limit,
+the kernels' JSON record and the result line.  float32 matrix products run
+in true f32 (TF32 off).
 """
 from __future__ import annotations
 
@@ -53,7 +80,40 @@ REQUESTS = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 CUDA cores; bf16 TC
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}           # kernel vs plain, rel
+# flash attention, bf16, each output row against its own largest value: two
+# bf16 units in the last place (P is rounded to bf16 before the PV product,
+# as in the Pallas kernel, and the output once more)
+ATTN_BF16_TOL = 2.0 ** -6
 MAIN_TOL = 2e-3                                      # path vs references
+
+# phase 7: (name, kernel, shape and options) at published widths
+LM_CASES = [
+    ("flash_attention (qwen2.5-3b prefill)", "flash_attention",
+     dict(b=4, h=16, sq=2048, sk=2048, d=128, causal=True, window=0)),
+    ("flash_attention (hymba-1.5b, window 1024)", "flash_attention",
+     dict(b=1, h=25, sq=4096, sk=4096, d=64, causal=True, window=1024)),
+    ("flash_attention (whisper-medium encoder)", "flash_attention",
+     dict(b=4, h=16, sq=1500, sk=1500, d=64, causal=False, window=0)),
+    ("fused_ffn (stablelm-1.6b widths)", "fused_ffn",
+     dict(e=0, m=8192, d=2048, f=5632, act="gelu")),
+    # a 4096-token row, top-8 of 40 experts, capacity factor 1.25
+    # (repro.models.layers.moe_apply): cap = 1.25 * 4096 * 8 / 40 = 1024
+    ("fused_moe_ffn (granite-moe-3b experts)", "fused_moe_ffn",
+     dict(e=40, m=1024, d=1536, f=512, act="silu")),
+]
+# the case whose numbers stand for each LM kernel in the JSON record
+LM_RECORD = {"flash_attention": "flash_attention (qwen2.5-3b prefill)",
+             "fused_ffn": "fused_ffn (stablelm-1.6b widths)",
+             "fused_moe_ffn": "fused_moe_ffn (granite-moe-3b experts)"}
+# phase 8: qwen2.5-3b at full width; 4 prompts of 2048 tokens, 32 decode
+# steps after the prefill
+LM_ARCH = "qwen2.5-3b"
+LM_REDUCED = False
+LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
+LM_TOL = 5e-2   # bf16 logits, served path vs plain attention, rel
+LM_REPLAY = 4   # decode steps replayed against a full forward
+GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
+               "tile_fused_spmm_spmm_wf0")
 
 
 def fail(msg: str) -> None:
@@ -79,10 +139,12 @@ def main(device: str = "cuda") -> None:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.configs import get_config
     from repro_torch.configs.gcn import CONFIG
     from repro_torch.core.sparse.random import banded_spd, powerlaw_graph
     from repro_torch.core.tilefusion import api, fused_ops, fused_ref
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.launch import serve, steps
     from repro_torch.models.gcn import GCN
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -156,11 +218,18 @@ def main(device: str = "cuda") -> None:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    def rel_err(got, want):
+    def rel_err(got, want, rows=False):
+        """(max abs error, relative error): relative to the largest |want|,
+        or with ``rows`` the largest over rows of each row's error relative
+        to that row's own largest |want| (a row is the last axis)."""
         got, want = got.float(), want.float()
         if not torch.isfinite(got).all():
             fail("non-finite values in a result")
-        err = float((got - want).abs().max())
+        diff = (got - want).abs()
+        err = float(diff.max())
+        if rows:
+            return err, float((diff.amax(-1) / want.abs().amax(-1)
+                               .clamp_min(1e-30)).max())
         return err, err / max(float(want.abs().max()), 1e-30)
 
     # ---- 3. kernels against their plain versions ----
@@ -203,21 +272,25 @@ def main(device: str = "cuda") -> None:
                                                      t=ds.t_pad),
                 moved, n_ops, None)
 
-    def wf1_case(label, entry, dtype, library):
+    def sparse_mm(cols, vals, x):
+        """``torch.sparse.mm`` over the ELL's nonzeros as a CSR: the
+        library yardstick of ``spmm_ell`` (f32 only)."""
+        if x.dtype != torch.float32:
+            return None
+        keep = vals != 0
+        crow = torch.zeros(cols.shape[0] + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(keep.sum(1), 0)
+        csr = torch.sparse_csr_tensor(crow, cols.long()[keep], vals[keep],
+                                      (cols.shape[0], x.shape[0]),
+                                      check_invariants=True)
+        return lambda: torch.sparse.mm(csr, x)
+
+    def wf1_case(label, entry, dtype):
         """``spmm_ell`` as wavefront 1 runs it: over the finished D1."""
         ds = entry.dsched
         st = fused_ops.schedule_tensors(ds, dev, dtype)
         x = randn(ds.n_i, entry.c_col).to(dtype)
-        lib = None
-        if library:
-            keep = st.vals1 != 0
-            crow = torch.zeros(st.cols1.shape[0] + 1, dtype=torch.int64,
-                               device=dev)
-            crow[1:] = torch.cumsum(keep.sum(1), 0)
-            csr = torch.sparse_csr_tensor(
-                crow, st.cols1.long()[keep], st.vals1[keep],
-                (st.cols1.shape[0], ds.n_i), check_invariants=True)
-            lib = lambda: torch.sparse.mm(csr, x)   # noqa: E731
+        lib = sparse_mm(st.cols1, st.vals1, x)
         moved = (nz_bytes(st.cols1, st.vals1)
                  + gathered_bytes(st.cols1, st.vals1, x)
                  + row_bytes(real_rows(ds.j_rows1, ds.n_j), x))
@@ -230,12 +303,11 @@ def main(device: str = "cuda") -> None:
         """(name, kernel call, plain call, compulsory bytes, operations,
         library call or None) at every shape the main path gives each
         kernel: GCN layers 1 and 2, the power-law body, SpMM-SpMM."""
-        f32 = dtype == torch.float32
         layer1, layer2 = models["banded"].entries
         yield gemm_case("", layer1, dtype)
         yield gemm_case(" (GCN layer 2)", layer2, dtype)
-        yield wf1_case("", layer1, dtype, library=f32)
-        yield wf1_case(" (GCN layer 2 wf1)", layer2, dtype, library=False)
+        yield wf1_case("", layer1, dtype)
+        yield wf1_case(" (GCN layer 2 wf1)", layer2, dtype)
 
         pl = models["powerlaw"]
         hell = api._csr_ell(pl.adj, api._resolve_width_cap(pl.adj, "auto"),
@@ -247,7 +319,8 @@ def main(device: str = "cuda") -> None:
                nz_bytes(hell[0], hell[1])
                + gathered_bytes(hell[0], hell[1], x)
                + row_bytes(hell[0].shape[0], x),
-               2.0 * int((hell[1] != 0).sum()) * 128, None)
+               2.0 * int((hell[1] != 0).sum()) * 128,
+               sparse_mm(hell[0], hell[1], x))
 
         ds = e_spmm.dsched
         st = fused_ops.schedule_tensors(ds, dev, dtype)
@@ -374,9 +447,10 @@ def main(device: str = "cuda") -> None:
 
     counts = ops.launch_counts()
     print(f"[main path] kernel launches in phases 4-5: {counts}")
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in GCN_KERNELS if counts[k] == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
+    path_launches = {k: counts[k] for k in GCN_KERNELS}
 
     # ---- 6. trace: where one request's time goes ----
     from torch.autograd import DeviceType
@@ -407,6 +481,213 @@ def main(device: str = "cuda") -> None:
             print(f"[6 trace] {gname}:   {e.self_device_time_total:9.1f} us"
                   f"  x{e.count:<3d} {e.key[:90]}")
 
+    # ---- 7. LM kernels through their entry points ----
+    import torch.nn.functional as F
+
+    def lm_inputs(kernel, dtype, b=0, h=0, sq=0, sk=0, d=0, e=0, m=0, f=0,
+                  **_):
+        if kernel == "flash_attention":
+            return [randn(b, h, sq, d).to(dtype),
+                    randn(b, h, sk, d).to(dtype),
+                    randn(b, h, sk, d).to(dtype)]
+        lead = (e,) if e else ()
+        return [randn(*lead, m, d).to(dtype),
+                randn(*lead, d, f, scale=d ** -0.5).to(dtype),
+                randn(*lead, f, d, scale=f ** -0.5).to(dtype)]
+
+    def lm_calls(kernel, args, opts):
+        """(kernel call, plain call, library call, bytes, operations)."""
+        moved = float(sum(a.numel() * a.element_size() for a in args)
+                      + args[0].numel() * args[0].element_size())  # output
+        if kernel == "flash_attention":
+            q, k, v = args
+            causal, window = opts["causal"], opts["window"]
+            mask = ref.attention_mask(q.shape[2], k.shape[2], causal=causal,
+                                      window=window, device=dev)
+            pairs = int(mask.sum()) * q.shape[0] * q.shape[1]
+            kw = dict(causal=causal, window=window)
+            if window:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, attn_mask=mask)
+            else:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, is_causal=causal)
+            return (lambda: ops.flash_attention(q, k, v, **kw),
+                    lambda: ref.attention(q, k, v, **kw), lib, moved,
+                    4.0 * q.shape[3] * pairs)
+        x, w1, w2 = args
+        act = opts["act"]
+        act_fn = {"gelu": lambda t: F.gelu(t, approximate="tanh"),
+                  "silu": F.silu, "none": lambda t: t}[act]
+        n_ops = 4.0 * x.numel() * w1.shape[-1]
+        if kernel == "fused_ffn":
+            return (lambda: ops.fused_ffn(x, w1, w2, act=act),
+                    lambda: ref.ffn(x, w1, w2, act=act),
+                    lambda: torch.matmul(act_fn(torch.matmul(x, w1)), w2),
+                    moved, n_ops)
+        return (lambda: ops.fused_moe_ffn(x, w1, w2, act=act),
+                lambda: ref.moe_ffn(x, w1, w2, act=act),
+                lambda: torch.bmm(act_fn(torch.bmm(x, w1)), w2),
+                moved, n_ops)
+
+    lm_cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, kernel, opts in LM_CASES:
+            lm_cases.append((label, kernel, opts, dtype,
+                             lm_inputs(kernel, dtype, **opts)))
+    # the kernel entry point is the path of the FFN and MoE kernels (no
+    # model calls them): drive it once per case with the counts from 0
+    ops.reset_launch_counts()
+    entry_out = [lm_calls(kernel, args, opts)[0]()
+                 for _, kernel, opts, _, args in lm_cases]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"[7 lm kernels] launches through the entry points: {counts}")
+    for k in ("fused_ffn", "fused_moe_ffn", "flash_attention"):
+        if counts[k] == 0:
+            fail(f"phase 7: {k} never launched through its entry point")
+    path_launches.update(fused_ffn=counts["fused_ffn"],
+                         fused_moe_ffn=counts["fused_moe_ffn"])
+    for (label, kernel, opts, dtype, args), got in zip(lm_cases, entry_out):
+        dname = str(dtype).split(".")[1]
+        kern, plain, lib, moved, n_ops = lm_calls(kernel, args, opts)
+        want = plain()
+        # row by row: under a causal mask the first rows hold the largest
+        # values, and a global scale would hide errors on the long rows
+        abs_err, rel = rel_err(got, want, rows=True)
+        tol = (ATTN_BF16_TOL if kernel == "flash_attention"
+               and dtype == torch.bfloat16 else TOL[dname])
+        if got.shape != want.shape or rel > tol:
+            fail(f"{label} {dname}: shape {tuple(got.shape)}, row rel err "
+                 f"{rel:.3e} > {tol}")
+        lib_err = rel_err(lib(), want, rows=True)[1]
+        bound_bytes = moved / HBM_BYTES_PER_S * 1e3
+        bound_ops = n_ops / PEAK_OPS[dname] * 1e3
+        ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
+        rec = dict(ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(bound_bytes, bound_ops),
+                   bound_by="bytes" if bound_bytes >= bound_ops
+                   else "operations", library_ms=lib_ms,
+                   max_abs_err=abs_err)
+        print(f"[7 lm kernels] {label} {dname}: max_abs={abs_err:.3e} "
+              f"row_rel={rel:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
+              f"bound={rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+              f"{moved / 1e6:.1f} MB, {n_ops / 1e9:.3f} Gop) "
+              f"share={rec['bound_ms'] / ms:.3f} library={lib_ms:.4f} ms "
+              f"(rel {lib_err:.1e})")
+        records[(label, dname)] = rec
+    del lm_cases, entry_out
+    torch.cuda.empty_cache()
+
+    # ---- 8. LM serving: qwen2.5-3b, batched prefill + greedy decode ----
+    lm_cfg = get_config(LM_ARCH, reduced=LM_REDUCED)
+    t0 = time.perf_counter()
+    lm, prompts = serve.build(lm_cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                              seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"[8 lm serve] {lm_cfg.name}: {n_params / 1e9:.3f} B parameters "
+          f"({lm_cfg.dtype}), {lm_cfg.n_layers} layers, d_model "
+          f"{lm_cfg.d_model}, built on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # prefill logits: flash kernel against the plain attention (this also
+    # warms up the path; its launches are not counted)
+    cache = lm.init_cache(LM_BATCH, LM_PROMPT + LM_DECODE + 1)
+    got, _ = lm.decode_step(prompts, cache, 0)
+    want, _ = lm.decode_step(prompts, cache, 0, impl="torch")
+    torch.cuda.synchronize()
+    abs_err, rel = rel_err(got, want)
+    agree = float((got[:, -1].argmax(-1) == want[:, -1].argmax(-1))
+                  .float().mean())
+    print(f"[8 lm serve] prefill logits {tuple(got.shape)} vs impl=torch: "
+          f"max_abs={abs_err:.3e} rel={rel:.3e} (tolerance {LM_TOL}); "
+          f"next-token agreement {agree:.2f}")
+    if rel > LM_TOL:
+        fail(f"phase 8: prefill logits disagree with the plain attention "
+             f"(rel {rel:.3e} > {LM_TOL})")
+    del got, want, cache
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tokens, timing = serve.generate(lm, prompts, LM_DECODE + 1)
+    counts = ops.launch_counts()
+    dec_ms = [t * 1e3 for t in timing.decode_s]
+    print(f"[8 lm serve] prefill {LM_BATCH} x {LM_PROMPT} tokens in "
+          f"{timing.prefill_s * 1e3:.2f} ms "
+          f"({LM_BATCH * LM_PROMPT / timing.prefill_s:.0f} tokens/s); "
+          f"{len(dec_ms)} decode steps p50={float(np.median(dec_ms)):.3f} ms"
+          f" max={max(dec_ms):.3f} ms "
+          f"({LM_BATCH / (float(np.median(dec_ms)) / 1e3):.1f} tokens/s at "
+          f"p50); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; host clock"
+          f" around each step + synchronize")
+    print(f"[8 lm serve] launches in the serve run: {counts}; "
+          f"sample {tokens[0, :8].tolist()}")
+    if tuple(tokens.shape) != (LM_BATCH, LM_DECODE + 1) or not bool(
+            ((tokens >= 0) & (tokens < lm_cfg.vocab_size)).all()):
+        fail(f"phase 8: tokens {tuple(tokens.shape)} out of range")
+    if counts["flash_attention"] != lm_cfg.n_layers:
+        fail(f"phase 8: {counts['flash_attention']} flash launches for one "
+             f"prefill of {lm_cfg.n_layers} layers")
+    path_launches["flash_attention"] = counts["flash_attention"]
+    # the decode path at full width: replay the first decode steps on a
+    # cache of the serve run's size, fed the served tokens; each step's
+    # greedy pick must be the served token, and its logits must match a
+    # full forward over prompt + served tokens with the plain attention
+    cache = lm.init_cache(LM_BATCH, LM_PROMPT + LM_DECODE + 1)
+    logits, cache = lm.decode_step(prompts, cache, 0)
+    picks, dec_logits = [logits[:, -1].argmax(-1)], []
+    for i in range(LM_REPLAY):
+        logits, cache = lm.decode_step(tokens[:, i:i + 1], cache,
+                                       LM_PROMPT + i)
+        dec_logits.append(logits[:, 0])
+        picks.append(logits[:, 0].argmax(-1))
+    picks = torch.stack(picks, dim=1).to(tokens.dtype)
+    if not torch.equal(picks, tokens[:, :LM_REPLAY + 1]):
+        fail(f"phase 8: replayed greedy picks {picks.tolist()} are not the "
+             f"served tokens {tokens[:, :LM_REPLAY + 1].tolist()}")
+    del cache, logits
+    seq = torch.cat([prompts, tokens[:, :LM_REPLAY].to(prompts.dtype)], 1)
+    want = lm(seq, impl="torch")[:, LM_PROMPT:]
+    got = torch.stack(dec_logits, dim=1)
+    abs_err, rel = rel_err(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"[8 lm serve] {LM_REPLAY} decode steps at cache capacity "
+          f"{LM_PROMPT + LM_DECODE + 1}: greedy picks = served tokens; "
+          f"logits {tuple(got.shape)} vs full forward (impl=torch): "
+          f"max_abs={abs_err:.3e} rel={rel:.3e} (tolerance {LM_TOL}); "
+          f"next-token agreement {agree:.2f}")
+    if rel > LM_TOL:
+        fail(f"phase 8: decode logits disagree with the full forward "
+             f"(rel {rel:.3e} > {LM_TOL})")
+    del got, want, seq, dec_logits
+    torch.cuda.empty_cache()
+
+    # ---- 9. trace: where one prefill's and one decode step's time goes ----
+    cache = lm.init_cache(LM_BATCH, LM_PROMPT + 2)
+    step = steps.make_serve_step(lm)
+    for what, toks, cache_len in (("prefill", prompts, 0),
+                                  ("decode step", tokens[:, :1], LM_PROMPT)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(toks, cache, cache_len)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        device_us = sum(e.self_device_time_total for e in events)
+        launches = sum(e.count for e in events)
+        print(f"[9 trace] {what}: device busy {device_us / 1e3:.3f} ms of "
+              f"{wall_us / 1e3:.3f} ms profiled wall "
+              f"({device_us / wall_us:.3f}), {launches} device kernels")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+            print(f"[9 trace] {what}:   {e.self_device_time_total:10.1f} us "
+                  f"({e.self_device_time_total / device_us:.3f}) "
+                  f"x{e.count:<4d} {e.key[:80]}")
+    del lm, cache
+
     sources = {
         "spmm_ell": ("src/repro_torch/csrc/spmm_ell.cu",
                      "src/repro/kernels/spmm.py:40"),
@@ -416,12 +697,22 @@ def main(device: str = "cuda") -> None:
         "tile_fused_spmm_spmm_wf0": (
             "src/repro_torch/csrc/tile_fused_spmm_spmm.cu",
             "src/repro/kernels/tile_fused_spmm_spmm.py:101"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:87"),
+        "fused_ffn": ("src/repro_torch/csrc/fused_ffn.cu",
+                      "src/repro/kernels/fused_ffn.py:54"),
+        "fused_moe_ffn": ("src/repro_torch/csrc/fused_ffn.cu",
+                          "src/repro/kernels/moe.py:53"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
-        rec = records[(name, "float32")]
+        # the GCN kernels' records are f32 (the GCN path's dtype), the LM
+        # kernels' bf16 (the LM serving dtype)
+        rec = (records[(LM_RECORD[name], "bfloat16")] if name in LM_RECORD
+               else records[(name, "float32")])
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces, launches=counts[name],
+                            replaces=replaces,
+                            launches=path_launches[name],
                             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
                             plain_ms=rec["plain_ms"],
                             bound_ms=rec["bound_ms"],

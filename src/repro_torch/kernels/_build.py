@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 #: build/ at the root of the checkout (src/repro_torch/kernels -> root)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("spmm_ell.cu", "tile_fused_gemm_spmm.cu",
-           "tile_fused_spmm_spmm.cu")
+           "tile_fused_spmm_spmm.cu", "flash_attention.cu", "fused_ffn.cu")
 HEADERS = ("common.cuh",)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -34,11 +34,16 @@ LIBRARY = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
+_F = ctypes.c_float
 #: argtypes of every launcher; each returns the cudaError_t of its launch
 SIGNATURES = {
     "spmm_ell_launch": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "tile_fused_gemm_spmm_wf0_launch": (_P,) * 6 + (_I,) * 8 + (_P,),
     "tile_fused_spmm_spmm_wf0_launch": (_P,) * 8 + (_I,) * 8 + (_P,),
+    "flash_attention_launch": (_P,) * 4 + (_I,) * 5 + (_F,) + (_I,) * 3
+    + (_P,),
+    "fused_ffn_launch": (_P,) * 4 + (_I,) * 5 + (_P,),
+    "fused_moe_ffn_launch": (_P,) * 4 + (_I,) * 6 + (_P,),
 }
 
 

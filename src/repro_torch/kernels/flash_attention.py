@@ -1,0 +1,62 @@
+"""Flash attention with causal and sliding-window masks.
+
+The hand-written CUDA kernel (``csrc/flash_attention.cu``) that replaces
+the TPU kernel ``repro.kernels.flash_attention._flash_attention``.  One
+block per (batch, head, 64-query) tile walks the kv blocks that the masks
+leave open, with K/V tiles in shared memory and the online-softmax state in
+registers; bf16 with a head dim up to 128 runs both products on the tensor
+cores (``mma.sync``), f32 and wider heads on the CUDA cores.  It masks the
+ragged ``Sq``/``Sk`` edges itself, so any length runs (Whisper's 1500
+frames fit no block), and any head dim up to 256.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import config, ref
+
+#: widest head dim the kernel takes (its shared-memory tiles)
+MAX_HEAD_DIM = 256
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    sm_scale: float | None = None,
+                    impl: str = "cuda") -> torch.Tensor:
+    """q ``(B, H, Sq, D)``; k, v ``(B, H, Sk, D)`` → ``(B, H, Sq, D)`` in
+    q's dtype (f32 or bf16), f32 softmax state.
+
+    CPU tensors, or ``impl="torch"``, take the plain PyTorch version; CUDA
+    tensors launch the kernel or raise."""
+    if impl not in ("cuda", "torch"):
+        raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+    if q.device.type == "cpu" or impl == "torch":
+        return ref.attention(q, k, v, causal=causal, window=window,
+                             sm_scale=sm_scale)
+    lib = config.kernel_library(q.device)
+    device = config.check_launch({}, dict(q=q, k=k, v=v))
+    if (q.dim() != 4 or k.shape != v.shape or k.dim() != 4
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
+                         f"(B, H, Sq, D) and (B, H, Sk, D)")
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    out = torch.empty_like(q)
+    err = lib.flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq,
+        sk, d, float(sm_scale), int(causal), int(window),
+        config.DTYPE_CODES[q.dtype], config.stream_of(device))
+    config.raise_on_error(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+#: kernel launches since the count was last set to 0
+flash_attention.launches = 0

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three CUDA kernels.
+"""Plain PyTorch versions of the port's CUDA kernels.
 
 Twins of the oracles in ``repro.kernels.ref``, written for the kernels'
 arithmetic: every sum runs in float32 and the result is cast to the
@@ -12,6 +12,11 @@ no ``(..., w, c)`` gather is ever materialized.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+#: score of a masked (query, key) pair, as in the reference: finite, so a
+#: row whose every key is masked gets the mean of V, never a NaN
+NEG_INF = -1e30
 
 
 def ell_rows_f32(cols: torch.Tensor, vals: torch.Tensor,
@@ -52,3 +57,58 @@ def tile_fused_spmm_spmm_wf0(op1_cols, op1_vals, d1_spill, cols0, vals0, c,
           + d1_spill.float())
     rows = ell_rows_f32(_tile_offsets(cols0, t), vals0, d1)
     return d1.to(c.dtype), rows.to(c.dtype)
+
+
+def activation(h: torch.Tensor, act: str) -> torch.Tensor:
+    """The FFN kernels' activation: ``gelu`` is the tanh approximation
+    (``jax.nn.gelu``'s default), ``silu``, or ``none``."""
+    if act == "gelu":
+        return F.gelu(h, approximate="tanh")
+    if act == "silu":
+        return F.silu(h)
+    if act == "none":
+        return h
+    raise ValueError(f"act must be 'gelu', 'silu' or 'none', got {act!r}")
+
+
+def ffn(x, w1, w2, act: str = "gelu"):
+    """Ungated ``act(x @ w1) @ w2``; H stays f32 (no rounding between the
+    two products)."""
+    h = activation(x.float() @ w1.float(), act)
+    return (h @ w2.float()).to(x.dtype)
+
+
+def moe_ffn(x, w1, w2, act: str = "silu"):
+    """``act(x[e] @ w1[e]) @ w2[e]`` per expert ``e``.  ``act="none"``
+    applies no activation, as the TPU kernel does (the JAX oracle maps it
+    to gelu; ROADMAP Queue 3)."""
+    h = activation(torch.bmm(x.float(), w1.float()), act)
+    return torch.bmm(h, w2.float()).to(x.dtype)
+
+
+def attention_mask(sq: int, sk: int, *, causal: bool, window: int,
+                   device=None) -> torch.Tensor:
+    """``(sq, sk)`` bool, True where query ``i`` may see key ``j``."""
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= (q_pos - k_pos) < window
+    return mask
+
+
+def attention(q, k, v, *, causal: bool = True, window: int = 0,
+              sm_scale: float | None = None):
+    """q ``(B, H, Sq, D)``, k/v ``(B, H, Sk, D)``: softmax attention in f32
+    with masked scores set to ``NEG_INF``."""
+    d = q.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / d ** 0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    mask = attention_mask(q.shape[2], k.shape[2], causal=causal,
+                          window=window, device=q.device)
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

@@ -1,0 +1,208 @@
+"""Shared LM layers: RMS norm, RoPE, GQA attention, the gated FFN and the
+embeddings.
+
+Twins of ``repro.models.layers`` in its functional style: parameters are
+dicts of tensors (an ``nn.ParameterDict`` works as one) and every layer is
+``fn(params, ..., x) -> y``.  Layouts are the reference's: attention
+tensors are ``(B, H, S, D)`` and weights are ``(in, out)``.  Prefill
+attention (``chunked_attention``) runs the hand-written flash kernel on the
+card and its plain version on the CPU; everything else is plain PyTorch
+(products outside any Pallas kernel were left to XLA by the reference).
+Not in this module yet: MLA, cross-attention, the MoE layer and the
+sharding rules (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from ..kernels.ref import NEG_INF
+
+
+def init_weight(gen: torch.Generator, shape, scale=None,
+                dtype=torch.float32, device=None) -> torch.Tensor:
+    """Truncated normal on [-2, 2] times ``scale`` (default
+    ``1/sqrt(shape[0])``), drawn in f32 and cast: the distribution of the
+    reference's ``_init``, not its numbers (the generators differ)."""
+    if scale is None:
+        scale = 1.0 / shape[0] ** 0.5
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w * scale).to(dtype)
+
+
+# ---------------------------------------------------------------- norms ----
+def rms_norm(g, x, eps=1e-5):
+    """Statistics in f32; the normalized ``x`` is cast to its dtype before
+    the gain multiply, as the reference does."""
+    var = x.float().square().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * g
+
+
+# ----------------------------------------------------------------- rope ----
+def apply_rope(x, pos):
+    """x ``(..., S, D)``; pos ``(S,)`` or ``(B, S)`` int positions.  Rotates
+    interleaved pairs ``(x[..., 0::2], x[..., 1::2])`` with θ = 10000, as
+    the reference does (not the rotate-half form)."""
+    d = x.shape[-1]
+    inv = 1.0 / (10000.0 ** (torch.arange(0, d, 2, dtype=torch.float32,
+                                          device=x.device) / d))
+    angles = pos[..., :, None].float() * inv          # (..., S, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    # broadcast over the head axis: x (..., H, S, D) vs angles (..., S, D/2)
+    if x.dim() == cos.dim() + 2:
+        cos, sin = cos[..., None, :, :], sin[..., None, :, :]
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    out = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+# ------------------------------------------------------- chunked attention ----
+def chunked_attention(q, k, v, *, causal=True, window=0, impl="cuda"):
+    """Prefill attention.  q ``(B, H, Sq, D)``; k, v ``(B, Hkv, Sk, D)``
+    with ``H % Hkv == 0``.
+
+    The reference's ``chunked_attention`` is the XLA twin of its flash
+    kernel: it repeats k/v to H heads and runs the same online softmax with
+    the same masks.  Here k/v are repeated the same way and the flash
+    kernel itself runs (its plain version for CPU tensors or
+    ``impl="torch"``)."""
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    return ops.flash_attention(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=causal, window=window,
+                               impl=impl)
+
+
+# ---------------------------------------------------------- GQA attention ----
+def gqa_init(gen, cfg, dtype, device=None) -> dict:
+    d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": init_weight(gen, (d, h * dh), dtype=dtype, device=device),
+        "wk": init_weight(gen, (d, hkv * dh), dtype=dtype, device=device),
+        "wv": init_weight(gen, (d, hkv * dh), dtype=dtype, device=device),
+        "wo": init_weight(gen, (h * dh, d), dtype=dtype, device=device),
+    }
+    if cfg.attn_bias:
+        p["bq"] = torch.zeros(h * dh, dtype=dtype, device=device)
+        p["bk"] = torch.zeros(hkv * dh, dtype=dtype, device=device)
+        p["bv"] = torch.zeros(hkv * dh, dtype=dtype, device=device)
+    return p
+
+
+def gqa_qkv(p, cfg, x, pos):
+    b, s, _ = x.shape
+    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, h, dh).transpose(1, 2)
+    k = k.reshape(b, s, hkv, dh).transpose(1, 2)
+    v = v.reshape(b, s, hkv, dh).transpose(1, 2)
+    if cfg.rope != "none":
+        q = apply_rope(q, pos)
+        k = apply_rope(k, pos)
+    return q, k, v
+
+
+def decode_attention(q, k_cache, v_cache, n_valid):
+    """Single-token attention over a (possibly ring-buffer) KV cache.
+
+    q ``(B, H, 1, dh)``; caches ``(B, Hkv, C, dh)``; ``n_valid`` valid
+    slots.  Plain PyTorch, as the reference's is plain XLA: RoPE was applied
+    before caching, so only validity masking matters."""
+    h, dh = q.shape[1], q.shape[3]
+    hkv, c = k_cache.shape[1], k_cache.shape[2]
+    rep = h // hkv
+    kf = k_cache.repeat_interleave(rep, dim=1).float()
+    vf = v_cache.repeat_interleave(rep, dim=1).float()
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kf) / dh ** 0.5
+    valid = torch.arange(c, device=q.device) < n_valid
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
+
+
+def _write_slots(cache, new, start: int) -> None:
+    """``cache[:, :, start:start + s] = new`` in place, with the start
+    clamped into range as ``jax.lax.dynamic_update_slice_in_dim`` clamps
+    it."""
+    s, c = new.shape[2], cache.shape[2]
+    start = max(0, min(start, c - s))
+    cache[:, :, start:start + s] = new.to(cache.dtype)
+
+
+def gqa_attention(p, cfg, x, *, pos, cache=None, cache_len=None,
+                  window: int = 0, impl: str = "cuda"):
+    """Self-attention.  With ``cache=(k_cache, v_cache)`` (this layer's
+    ``(B, Hkv, C, dh)`` slabs) it runs a batched prefill from an empty cache
+    (S > 1, ``cache_len == 0``) or one decode step (S == 1) and writes the
+    new keys and values into the slabs in place (the reference returns new
+    arrays); returns ``(out, cache)``.  When ``window > 0`` the cache is a
+    ring buffer of ``window`` slots."""
+    b, s, _ = x.shape
+    q, k, v = gqa_qkv(p, cfg, x, pos)
+    if cache is not None:
+        k_cache, v_cache = cache
+        c = k_cache.shape[2]
+        if s > 1:
+            out = chunked_attention(q, k, v, causal=True, window=window,
+                                    impl=impl)
+            if s >= c:
+                # ring buffer: key at absolute position p lands at slot
+                # p % c, a roll of the last c keys
+                k_cache.copy_(torch.roll(k[:, :, -c:], s % c, dims=2))
+                v_cache.copy_(torch.roll(v[:, :, -c:], s % c, dims=2))
+            else:
+                _write_slots(k_cache, k, cache_len)
+                _write_slots(v_cache, v, cache_len)
+        else:
+            slot = cache_len % c if window > 0 else cache_len
+            _write_slots(k_cache, k, slot)
+            _write_slots(v_cache, v, slot)
+            out = decode_attention(q, k_cache, v_cache,
+                                   min(cache_len + 1, c))
+        new_cache = (k_cache, v_cache)
+    else:
+        out = chunked_attention(q, k, v, causal=not cfg.is_encoder,
+                                window=window, impl=impl)
+        new_cache = None
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return out @ p["wo"], new_cache
+
+
+# ------------------------------------------------------------------- FFN ----
+def ffn_init(gen, cfg, dtype, device=None) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "w_gate": init_weight(gen, (d, f), dtype=dtype, device=device),
+        "w_up": init_weight(gen, (d, f), dtype=dtype, device=device),
+        "w_down": init_weight(gen, (f, d), dtype=dtype, device=device),
+    }
+
+
+def _act(cfg):
+    if cfg.act == "silu":
+        return F.silu
+    return lambda h: F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+
+
+def ffn_apply(p, cfg, x):
+    """Gated FFN (SwiGLU / GeGLU): three plain products.  The fused FFN
+    kernel is ungated, so this layer cannot use it (nor does the
+    reference's)."""
+    h = _act(cfg)(x @ p["w_gate"]) * (x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+# ------------------------------------------------------------- embedding ----
+def embed_init(gen, cfg, dtype, device=None) -> dict:
+    return {
+        "embed": init_weight(gen, (cfg.vocab_size, cfg.d_model), scale=0.02,
+                             dtype=dtype, device=device),
+        "lm_head": init_weight(gen, (cfg.d_model, cfg.vocab_size),
+                               dtype=dtype, device=device),
+    }

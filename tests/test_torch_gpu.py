@@ -1,5 +1,6 @@
 """Card-only checks of the port: each CUDA kernel against its plain PyTorch
-version, and the ``cuda`` arm against the ``torch`` arm.
+version, the ``cuda`` arm against the ``torch`` arm, and the LM served on
+the card.
 
 Every test here carries the ``gpu`` marker and skips, with its reason,
 where there is no CUDA device of compute capability 9.0+ (the decision is
@@ -11,22 +12,28 @@ on a machine with only the port installed:
 
 Tolerances: f32 results within 1e-4 of the plain version relative to its
 largest magnitude (the kernels sum in another order), bf16 within 2e-2
-(one bf16 rounding of either side).
+(one bf16 rounding of either side).  Flash attention is held row by row,
+each output row against its own largest magnitude (under a causal mask
+the first rows are the largest), bf16 within two units in the last place.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.configs.gcn import GCNConfig
 from repro_torch.core.sparse import random as gen
 from repro_torch.core.sparse.formats import CSR
 from repro_torch.core.tilefusion import api
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import serve
+from repro_torch.models import transformer as T
 from repro_torch.models.gcn import GCN
 
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 
 
 @pytest.fixture
@@ -43,6 +50,14 @@ def _rel_err(got, want) -> float:
     got, want = got.float(), want.float()
     scale = max(float(want.abs().max()), 1e-30)
     return float((got - want).abs().max()) / scale
+
+
+def _row_rel_err(got, want) -> float:
+    """The largest over rows (last axis) of a row's error relative to the
+    row's own largest magnitude."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(-1)
+    return float((err / want.abs().amax(-1).clamp_min(1e-30)).max())
 
 
 def _ell(gen_, shape, n_targets, device):
@@ -169,3 +184,87 @@ def test_gcn_serves_on_the_card(card):
         torch.cuda.synchronize()
         assert ops.launch_counts()["spmm_ell"] > 0
         assert _rel_err(got, model(x, backend="torch")) <= 2e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,window", [
+    (2, 2, 128, 128, 32, True, 0), (1, 3, 100, 100, 48, True, 0),
+    (2, 2, 256, 256, 64, True, 32), (1, 2, 150, 150, 64, False, 0),
+    (1, 2, 256, 128, 32, True, 32),       # rows q >= 159 see no key
+    (1, 1, 70, 40, 16, True, 7), (1, 4, 512, 512, 128, True, 0),
+    (1, 1, 96, 96, 200, True, 0), (1, 2, 64, 1000, 256, False, 0),
+    (1, 2, 70, 90, 20, False, 9)])        # d % 8 != 0: scalar staging
+def test_flash_attention_kernel(card, b, h, sq, sk, d, causal, window,
+                                dtype):
+    g = torch.Generator().manual_seed(sq * d + sk)
+    q = torch.randn(b, h, sq, d, generator=g).to(card, dtype)
+    k, v = (torch.randn(b, h, sk, d, generator=g).to(card, dtype)
+            for _ in range(2))
+    before = ops.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_attention.launches == before + 1
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    assert _row_rel_err(got, want) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,d,f,act", [
+    (256, 64, 512, "gelu"), (100, 48, 200, "silu"), (64, 2048, 256, "gelu"),
+    (37, 2500, 70, "none")])              # d > 2048: two column tiles
+def test_fused_ffn_kernel(card, m, d, f, act, dtype):
+    g = torch.Generator().manual_seed(m + d + f)
+    x = torch.randn(m, d, generator=g).to(card, dtype)
+    w1 = (torch.randn(d, f, generator=g) / d ** 0.5).to(card, dtype)
+    w2 = (torch.randn(f, d, generator=g) / f ** 0.5).to(card, dtype)
+    before = ops.fused_ffn.launches
+    got = ops.fused_ffn(x, w1, w2, act=act)
+    torch.cuda.synchronize()
+    assert ops.fused_ffn.launches == before + 1
+    assert _rel_err(got, ref.ffn(x, w1, w2, act=act)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,cap,d,f,act", [
+    (4, 128, 64, 512, "silu"), (3, 40, 24, 56, "gelu"),
+    (2, 64, 32, 128, "none")])
+def test_fused_moe_ffn_kernel(card, e, cap, d, f, act, dtype):
+    g = torch.Generator().manual_seed(e * cap + f)
+    x = torch.randn(e, cap, d, generator=g).to(card, dtype)
+    w1 = (torch.randn(e, d, f, generator=g) / d ** 0.5).to(card, dtype)
+    w2 = (torch.randn(e, f, d, generator=g) / f ** 0.5).to(card, dtype)
+    before = ops.fused_moe_ffn.launches
+    got = ops.fused_moe_ffn(x, w1, w2, act=act)
+    torch.cuda.synchronize()
+    assert ops.fused_moe_ffn.launches == before + 1
+    assert _rel_err(got, ref.moe_ffn(x, w1, w2, act=act)) <= TOL[dtype]
+
+
+def test_lm_wrappers_check_their_inputs(card):
+    q = torch.randn(1, 2, 8, 16, device=card)
+    with pytest.raises(ValueError, match="flash_attention"):
+        ops.flash_attention(q, q[:, :1], q[:, :1])
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.randn(1, 1, 4, 300, device=card)
+        ops.flash_attention(big, big, big)
+    x = torch.randn(8, 16, device=card)
+    with pytest.raises(ValueError, match="fused_ffn"):
+        ops.fused_ffn(x, torch.randn(16, 4, device=card),
+                      torch.randn(5, 16, device=card))
+
+
+def test_reduced_lm_serves_on_the_card(card):
+    """The reduced qwen2.5-3b through the serving CLI on its default device;
+    one flash launch per layer per prefill, and the kernel's prefill logits
+    against the plain attention's."""
+    cfg = get_config("qwen2.5-3b", reduced=True)
+    ops.reset_launch_counts()
+    tokens = serve.main(["--reduced", "--batch", "2", "--prompt-len", "40",
+                         "--gen", "5"])
+    assert tokens.is_cuda and tokens.shape == (2, 5)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    model = T.Transformer(cfg, seed=1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=card)
+    got = model(toks)
+    want = model(toks, impl="torch")
+    assert _rel_err(got, want) <= 2e-2

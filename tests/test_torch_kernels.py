@@ -116,9 +116,15 @@ def test_cpu_path_counts_no_launch():
     x = torch.randn(6, 4)
     cols = torch.zeros(6, 2, dtype=torch.int32)
     ops.spmm_ell(cols, torch.ones(6, 2), x)
+    ops.flash_attention(*(torch.randn(1, 2, 5, 4) for _ in range(3)))
+    ops.fused_ffn(x, torch.randn(4, 8), torch.randn(8, 4))
+    ops.fused_moe_ffn(x[None], torch.randn(1, 4, 8), torch.randn(1, 8, 4))
     assert ops.launch_counts() == {"spmm_ell": 0,
                                    "tile_fused_gemm_spmm_wf0": 0,
-                                   "tile_fused_spmm_spmm_wf0": 0}
+                                   "tile_fused_spmm_spmm_wf0": 0,
+                                   "flash_attention": 0,
+                                   "fused_ffn": 0,
+                                   "fused_moe_ffn": 0}
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
@@ -166,7 +172,8 @@ def test_ctypes_signatures_match_the_sources():
 
     from repro_torch.kernels import _build
     c_types = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
-               "int64_t": ctypes.c_int64, "int": ctypes.c_int}
+               "int64_t": ctypes.c_int64, "int": ctypes.c_int,
+               "float": ctypes.c_float}
     found = {}
     for src in _build.SOURCES:
         text = (_build.CSRC / src).read_text()

@@ -1,0 +1,220 @@
+"""The LM kernels' plain PyTorch versions against the TPU kernels they
+replace: flash attention, the fused FFN and the fused MoE FFN.
+
+``repro_torch.kernels.ops.*`` on CPU tensors run the plain versions; the
+JAX side runs the Pallas kernels in interpret mode at the shapes and masks
+of ``tests/test_kernels.py``, and ``repro.kernels.ref`` at ragged shapes
+the Pallas kernels refuse.  Tolerances: attention f32 2e-4 (the
+reference's own bar for its flash kernel); FFNs f32 2e-3; bf16 2e-2 — the
+Pallas flash kernel rounds P to V's dtype before the PV product and the
+Pallas FFNs round H and the running output to the operand dtype, while the
+port's versions keep f32 and round once.  The CUDA kernels are held to
+these plain versions on the card (``test_torch_gpu.py``,
+``chip_smoke.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import flash_attention as pallas_flash
+from repro.kernels import fused_ffn as pallas_ffn
+from repro.kernels import moe as pallas_moe
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops
+
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+ATTN_TOL = {"f32": 2e-4, "bf16": 2e-2}
+FFN_TOL = {"f32": 2e-3, "bf16": 2e-2}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_jit_cache():
+    jax.clear_caches()
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of one dtype."""
+    jdt, tdt = DTYPES[dtype]
+    return (jnp.asarray(x, jnp.float32).astype(jdt),
+            torch.as_tensor(np.asarray(x, np.float32)).to(tdt))
+
+
+def _close(got: torch.Tensor, want, tol: float):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=tol,
+                               atol=tol)
+
+
+def _arrays(seed, *shapes, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s) * sc for s, sc in
+            zip(shapes, scale if isinstance(scale, tuple)
+                else (scale,) * len(shapes))]
+
+
+# ---------------------------------------------------------- attention ----
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 32)])
+@pytest.mark.parametrize("s,dh", [(128, 32), (256, 64)])
+def test_flash_attention_matches_pallas(causal, window, s, dh, dtype):
+    arrs = _arrays(s + dh, *[(2, 2, s, dh)] * 3)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in arrs)
+    want = pallas_flash.flash_attention(jq, jk, jv, block_q=64, block_k=64,
+                                        causal=causal, window=window,
+                                        interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_attention_long_kv_matches_pallas(dtype):
+    """Decode-like: few queries against a long kv, non-causal."""
+    arrs = _arrays(7, (1, 2, 128, 32), (1, 2, 1024, 32), (1, 2, 1024, 32))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in arrs)
+    want = pallas_flash.flash_attention(jq, jk, jv, block_q=128,
+                                        block_k=256, causal=False,
+                                        interpret=True)
+    _close(ops.flash_attention(tq, tk, tv, causal=False), want,
+           ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fully_masked_rows_get_the_mean_of_v(dtype):
+    """Causal, window 32, Sq 256 > Sk 128: rows q >= 159 see no key.  The
+    masks use the finite -1e30, so the reference and the Pallas kernel give
+    such a row the mean of V; the port (and its CUDA kernel, which skips
+    masked kv blocks elsewhere) must too."""
+    arrs = _arrays(11, (1, 2, 256, 32), (1, 2, 128, 32), (1, 2, 128, 32))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in arrs)
+    want = pallas_flash.flash_attention(jq, jk, jv, block_q=64, block_k=64,
+                                        causal=True, window=32,
+                                        interpret=True)
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=32)
+    _close(got, want, ATTN_TOL[dtype])
+    mean_v = tv.float().mean(dim=2, keepdim=True).expand(-1, -1, 256 - 159,
+                                                         -1)
+    _close(got[:, :, 159:], mean_v.numpy(), ATTN_TOL[dtype])
+    assert not torch.allclose(got[:, :, 158].float(),
+                              mean_v[:, :, 0], atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("b,h,sq,sk,dh,causal,window", [
+    (1, 3, 100, 100, 48, True, 0),      # ragged everything
+    (2, 2, 75, 150, 16, False, 0),      # Sk > Sq, no block divides
+    (1, 2, 150, 150, 64, False, 0),     # whisper-like encoder, non-causal
+    (1, 2, 130, 130, 32, True, 20),     # ragged with a window
+    (1, 1, 90, 40, 8, True, 7),         # Sq > Sk with a window: empty rows
+])
+def test_flash_attention_ragged_matches_ref(b, h, sq, sk, dh, causal,
+                                            window, dtype):
+    arrs = _arrays(sq * sk + dh, (b, h, sq, dh), (b, h, sk, dh),
+                   (b, h, sk, dh))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in arrs)
+    want = jref.attention(jq, jk, jv, causal=causal, window=window)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    _close(got, want, ATTN_TOL[dtype])
+
+
+def test_flash_attention_sm_scale():
+    arrs = _arrays(3, *[(1, 2, 64, 16)] * 3)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "f32") for a in arrs)
+    want = jref.attention(jq, jk, jv, causal=True, sm_scale=0.3)
+    _close(ops.flash_attention(tq, tk, tv, sm_scale=0.3), want,
+           ATTN_TOL["f32"])
+
+
+# --------------------------------------------------------------- FFNs ----
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("m,d,f,bm,bf,act", [
+    (256, 64, 512, 128, 256, "gelu"), (128, 32, 256, 128, 128, "silu"),
+    (128, 32, 256, 64, 128, "none")])
+def test_fused_ffn_matches_pallas(m, d, f, bm, bf, act, dtype):
+    arrs = _arrays(m + d + f, (m, d), (d, f), (f, d), scale=(1.0, 0.05, 0.05))
+    (jx, tx), (j1, t1), (j2, t2) = (_pair(a, dtype) for a in arrs)
+    want = pallas_ffn.fused_ffn(jx, j1, j2, block_m=bm, block_f=bf, act=act,
+                                interpret=True)
+    got = ops.fused_ffn(tx, t1, t2, act=act)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    _close(got, want, FFN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("m,d,f,act", [(100, 48, 200, "gelu"),
+                                       (7, 33, 70, "silu"),
+                                       (65, 16, 40, "none")])
+def test_fused_ffn_ragged_matches_ref(m, d, f, act, dtype):
+    arrs = _arrays(m * f, (m, d), (d, f), (f, d), scale=(1.0, 0.1, 0.1))
+    (jx, tx), (j1, t1), (j2, t2) = (_pair(a, dtype) for a in arrs)
+    _close(ops.fused_ffn(tx, t1, t2, act=act), jref.ffn(jx, j1, j2, act=act),
+           FFN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("e,cap,d,f,act", [(4, 128, 64, 512, "silu"),
+                                           (2, 256, 32, 128, "gelu"),
+                                           (2, 128, 32, 128, "none")])
+def test_fused_moe_ffn_matches_pallas(e, cap, d, f, act, dtype):
+    arrs = _arrays(e * cap + f, (e, cap, d), (e, d, f), (e, f, d),
+                   scale=(1.0, 0.05, 0.05))
+    (jx, tx), (j1, t1), (j2, t2) = (_pair(a, dtype) for a in arrs)
+    want = pallas_moe.fused_moe_ffn(jx, j1, j2, block_c=64, block_f=128,
+                                    act=act, interpret=True)
+    got = ops.fused_moe_ffn(tx, t1, t2, act=act)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    _close(got, want, FFN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("e,cap,d,f,act", [(3, 40, 24, 56, "silu"),
+                                           (5, 9, 16, 33, "gelu")])
+def test_fused_moe_ffn_ragged_matches_ref(e, cap, d, f, act, dtype):
+    arrs = _arrays(e + cap * d, (e, cap, d), (e, d, f), (e, f, d),
+                   scale=(1.0, 0.1, 0.1))
+    (jx, tx), (j1, t1), (j2, t2) = (_pair(a, dtype) for a in arrs)
+    _close(ops.fused_moe_ffn(tx, t1, t2, act=act),
+           jref.moe_ffn(jx, j1, j2, act=act), FFN_TOL[dtype])
+
+
+def test_moe_act_none_follows_the_pallas_kernel():
+    """The reference disagrees with itself: ``ref.moe_ffn`` maps
+    ``act="none"`` to gelu, the Pallas kernel applies no activation
+    (ROADMAP Queue 3).  The port follows the kernel."""
+    arrs = _arrays(5, (2, 64, 32), (2, 32, 128), (2, 128, 32),
+                   scale=(1.0, 0.2, 0.2))
+    (jx, tx), (j1, t1), (j2, t2) = (_pair(a, "f32") for a in arrs)
+    got = ops.fused_moe_ffn(tx, t1, t2, act="none")
+    linear = torch.bmm(torch.bmm(tx, t1), t2)
+    _close(got, linear.numpy(), FFN_TOL["f32"])
+    oracle = np.asarray(jref.moe_ffn(jx, j1, j2, act="none"))
+    assert np.abs(got.numpy() - oracle).max() > 1e-2
+
+
+# ----------------------------------------------------------- wrappers ----
+def test_lm_wrappers_never_fall_back_off_the_cpu():
+    """A tensor that is not on the CPU launches the kernel or raises — here
+    (no card) the wrappers raise instead of running their plain versions;
+    ``impl="torch"`` is the explicit way to the plain version."""
+    meta = dict(device="meta")
+    q = torch.empty(1, 2, 8, 4, **meta)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.flash_attention(q, q, q)
+    x, w1, w2 = (torch.empty(8, 4, **meta), torch.empty(4, 6, **meta),
+                 torch.empty(6, 4, **meta))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.fused_ffn(x, w1, w2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.fused_moe_ffn(x[None], w1[None], w2[None])
+    with pytest.raises(ValueError, match="impl"):
+        ops.flash_attention(q, q, q, impl="xla")
+    assert ops.flash_attention(q, q, q, impl="torch").shape == q.shape
+
+
+def test_ffn_rejects_an_unknown_activation():
+    x = torch.randn(4, 8)
+    with pytest.raises(ValueError, match="act"):
+        ops.fused_ffn(x, torch.randn(8, 16), torch.randn(16, 8), act="relu")
