@@ -8,9 +8,14 @@ Run from the root of a checkout, on a machine with the card:
 Phases, in order (any failure exits non-zero; no exception is caught):
 
   1. device  — the card's name, power limit and compute capability (9.0+).
-  2. build   — the three CUDA kernels from ``src/repro_torch/csrc`` (one
+  2. build   — the CUDA kernels from ``src/repro_torch/csrc`` (one
                ``nvcc`` per source, in parallel), with ptxas' register,
-               shared-memory and spill report and the build time.
+               shared-memory and spill report and the build time; then
+               ``cuobjdump -sass`` of the library: the tensor-core
+               instructions (``HGMMA``, ``HMMA``) of each kernel's
+               functions, printed for every function whose name holds
+               ``fused_ffn``; fails when the bf16 FFN kernel has no
+               ``HGMMA``.
   3. kernels — each kernel against its plain PyTorch version at every
                shape the main path gives it (GCN layers 1 and 2, the
                power-law body, SpMM-SpMM; taken from the real schedules
@@ -35,9 +40,11 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                through their entry points (``kernels.ops``) at published
                widths (qwen2.5-3b prefill, hymba-1.5b's window, Whisper's
                ragged 1500-frame encoder; stablelm-1.6b FFN widths;
-               granite-moe-3b experts), f32 and bf16, each against its
-               plain version (each output row against its own largest
-               value): errors, time, bound (compulsory bytes, and
+               granite-moe-3b experts; minitron-8b FFN widths, bf16
+               only: d 4096, two cluster groups), f32 and bf16, each
+               against its plain version (each output row against its
+               own largest value; bf16 within 2^-6, f32 within 1e-4):
+               errors, time, bound (compulsory bytes, and
                operations over the unmasked (query, key) pairs only),
                plain time, and a library call as yardstick
                (``scaled_dot_product_attention``; the unfused
@@ -62,7 +69,8 @@ kernels, phase 7's entry-point calls the FFN and MoE kernels, and phase 8
 the flash kernel exactly once per layer of the prefill.  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
-the kernels' JSON record and the result line.  float32 matrix products run
+the kernels' JSON record (with each kernel's tensor-core instruction count
+from phase 2) and the result line.  float32 matrix products run
 in true f32 (TF32 off).
 """
 from __future__ import annotations
@@ -80,10 +88,12 @@ REQUESTS = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 CUDA cores; bf16 TC
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}           # kernel vs plain, rel
-# flash attention, bf16, each output row against its own largest value: two
-# bf16 units in the last place (P is rounded to bf16 before the PV product,
-# as in the Pallas kernel, and the output once more)
-ATTN_BF16_TOL = 2.0 ** -6
+# the LM kernels in bf16, each output row against its own largest value:
+# flash attention two bf16 units in the last place (P is rounded to bf16
+# before the PV product, as in the Pallas kernel, and the output once more);
+# the FFN / MoE kernels one rounding of the output plus the bf16 rounding of
+# H summed over f (tests/test_torch_lm_kernels.py grounds it)
+LM_BF16_TOL = 2.0 ** -6
 MAIN_TOL = 2e-3                                      # path vs references
 
 # phase 7: (name, kernel, shape and options) at published widths
@@ -100,6 +110,10 @@ LM_CASES = [
     # (repro.models.layers.moe_apply): cap = 1.25 * 4096 * 8 / 40 = 1024
     ("fused_moe_ffn (granite-moe-3b experts)", "fused_moe_ffn",
      dict(e=40, m=1024, d=1536, f=512, act="silu")),
+    # configs/minitron_8b.py FFN widths, 4096 tokens: d > 2048 takes two
+    # cluster groups (X W1 computed twice); bf16 only
+    ("fused_ffn (minitron-8b widths)", "fused_ffn",
+     dict(e=0, m=4096, d=4096, f=16384, act="gelu", bf16_only=True)),
 ]
 # the case whose numbers stand for each LM kernel in the JSON record
 LM_RECORD = {"flash_attention": "flash_attention (qwen2.5-3b prefill)",
@@ -114,6 +128,13 @@ LM_TOL = 5e-2   # bf16 logits, served path vs plain attention, rel
 LM_REPLAY = 4   # decode steps replayed against a full forward
 GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
+# phase 2: the functions of each kernel in the library's SASS (a part of the
+# mangled name); the FFN and MoE launchers share one kernel
+KERNEL_FUNCTIONS = {"spmm_ell": "spmm_ell", "tile_fused_gemm_spmm_wf0":
+                    "gemm_spmm", "tile_fused_spmm_spmm_wf0": "spmm_spmm",
+                    "flash_attention": "flash_attention",
+                    "fused_ffn": "fused_ffn", "fused_moe_ffn": "fused_ffn"}
+TC_OPCODES = ("HGMMA", "HMMA")   # wgmma and mma.sync in SASS
 
 
 def fail(msg: str) -> None:
@@ -127,6 +148,26 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def sass_tensor_ops(library: Path) -> dict:
+    """{function name: number of HGMMA / HMMA instructions} over every
+    function in ``cuobjdump -sass`` of the kernel library."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(library)],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            name = line[len("Function : "):]
+            counts[name] = 0
+        elif name is not None and any(f" {op}." in line or f" {op} " in line
+                                      for op in TC_OPCODES):
+            counts[name] += 1
+    return counts
 
 
 def main(device: str = "cuda") -> None:
@@ -170,8 +211,19 @@ def main(device: str = "cuda") -> None:
           f" (reused: {build.reused})")
     for line in build.log.splitlines():
         if any(k in line for k in ("Compiling entry", "registers", "spill",
-                                   "smem", "error")):
+                                   "smem", "error", "C75")):
             print(f"[2 build] {line.strip()}")
+    sass = sass_tensor_ops(build.path)
+    tensor_core_ops = {k: sum(n for f, n in sass.items() if part in f)
+                       for k, part in KERNEL_FUNCTIONS.items()}
+    for fn, n in sass.items():
+        if "fused_ffn" in fn:
+            print(f"[2 build] SASS {fn}: {n} tensor-core instructions "
+                  f"({'/'.join(TC_OPCODES)})")
+    print(f"[2 build] tensor-core instructions per kernel: {tensor_core_ops}")
+    wgmma_ffn = [n for f, n in sass.items() if "fused_ffn_wgmma" in f]
+    if not wgmma_ffn or min(wgmma_ffn) == 0:
+        fail(f"the bf16 FFN kernel holds no HGMMA instruction: {wgmma_ffn}")
 
     # ---- set-up: graphs, models and their inspections (host) ----
     t0 = time.perf_counter()
@@ -533,6 +585,8 @@ def main(device: str = "cuda") -> None:
     lm_cases = []
     for dtype in (torch.float32, torch.bfloat16):
         for label, kernel, opts in LM_CASES:
+            if opts.get("bf16_only") and dtype != torch.bfloat16:
+                continue
             lm_cases.append((label, kernel, opts, dtype,
                              lm_inputs(kernel, dtype, **opts)))
     # the kernel entry point is the path of the FFN and MoE kernels (no
@@ -555,8 +609,7 @@ def main(device: str = "cuda") -> None:
         # row by row: under a causal mask the first rows hold the largest
         # values, and a global scale would hide errors on the long rows
         abs_err, rel = rel_err(got, want, rows=True)
-        tol = (ATTN_BF16_TOL if kernel == "flash_attention"
-               and dtype == torch.bfloat16 else TOL[dname])
+        tol = LM_BF16_TOL if dtype == torch.bfloat16 else TOL[dname]
         if got.shape != want.shape or rel > tol:
             fail(f"{label} {dname}: shape {tuple(got.shape)}, row rel err "
                  f"{rel:.3e} > {tol}")
@@ -717,7 +770,8 @@ def main(device: str = "cuda") -> None:
                             plain_ms=rec["plain_ms"],
                             bound_ms=rec["bound_ms"],
                             bound_by=rec["bound_by"],
-                            library_ms=rec["library_ms"]))
+                            library_ms=rec["library_ms"],
+                            tensor_core_ops=tensor_core_ops[name]))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

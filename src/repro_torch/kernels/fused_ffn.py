@@ -43,7 +43,9 @@ def launch_ffn(name: str, x: torch.Tensor, w1: torch.Tensor,
 def fused_ffn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
               act: str = "gelu", impl: str = "cuda") -> torch.Tensor:
     """x ``(m, d)``, w1 ``(d, f)``, w2 ``(f, d)`` → ``(m, d)`` in x's dtype;
-    act ∈ {gelu (tanh approximation), silu, none}; f32 sums, one rounding.
+    act ∈ {gelu (tanh approximation), silu, none}; f32 sums, one rounding
+    of the output.  In bf16 the kernel rounds H to bf16 between the two
+    products, as the TPU kernel does; the plain version keeps H in f32.
 
     CPU tensors, or ``impl="torch"``, take the plain PyTorch version; CUDA
     tensors launch the kernel or raise."""

@@ -22,7 +22,7 @@ from repro.kernels import flash_attention as pallas_flash
 from repro.kernels import fused_ffn as pallas_ffn
 from repro.kernels import moe as pallas_moe
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -192,6 +192,75 @@ def test_moe_act_none_follows_the_pallas_kernel():
     _close(got, linear.numpy(), FFN_TOL["f32"])
     oracle = np.asarray(jref.moe_ffn(jx, j1, j2, act="none"))
     assert np.abs(got.numpy() - oracle).max() > 1e-2
+
+
+# ------------------------------------- the bf16 CUDA kernel's numerics ----
+#: row-wise limit of the bf16 FFN / MoE kernels on the card against the plain
+#: versions (``test_torch_gpu.py``, ``chip_smoke.py``): one bf16 rounding of
+#: the output plus the bf16 rounding of H summed over f
+FFN_BF16_ROW_TOL = 2.0 ** -6
+
+
+def _emulate_bf16_kernel(x, w1, w2, act):
+    """The arithmetic of ``csrc/fused_ffn.cu``'s bf16 path in plain torch:
+    X·W1 summed in f32, the activation, H rounded to bf16 (as the Pallas
+    kernels round it), H·W2 summed in f32 over all of f, one rounding."""
+    h = ref.activation(x.float() @ w1.float(), act).to(torch.bfloat16)
+    return (h.float() @ w2.float()).to(x.dtype)
+
+
+def _row_rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    err = (got - want).abs().amax(-1)
+    return float((err / want.abs().amax(-1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("lead,m,d,f,act", [
+    ((), 64, 2048, 5632, "gelu"),        # one stablelm-1.6b row block
+    ((2,), 64, 1536, 512, "silu")])      # granite-moe-3b experts
+def test_bf16_kernel_arithmetic_within_the_row_limit(lead, m, d, f, act):
+    """Rounding H to bf16 keeps every output row within 2^-6 of the plain
+    version (H in f32) at published widths: the limit the card holds the
+    kernel to is not looser than its arithmetic needs."""
+    rng = np.random.default_rng(d + f)
+    x, w1, w2 = (torch.from_numpy(
+        (rng.standard_normal(lead + s) * sc).astype(np.float32)).to(
+            torch.bfloat16) for s, sc in (((m, d), 1.0), ((d, f), d ** -0.5),
+                                          ((f, d), f ** -0.5)))
+    got = _emulate_bf16_kernel(x, w1, w2, act)
+    want = (ref.moe_ffn if lead else ref.ffn)(x, w1, w2, act=act)
+    err = _row_rel_err(got, want)
+    assert 0 < err <= FFN_BF16_ROW_TOL
+
+
+@pytest.mark.parametrize("moe,shape,block,act", [
+    (False, (256, 64, 512), (128, 256), "gelu"),
+    (False, (128, 32, 256), (128, 128), "silu"),
+    (False, (128, 32, 256), (64, 128), "none"),
+    (True, (4, 128, 64, 512), (64, 128), "silu"),
+    (True, (2, 256, 32, 128), (64, 128), "gelu"),
+    (True, (2, 128, 32, 128), (64, 128), "none")])
+def test_bf16_kernel_arithmetic_matches_pallas(moe, shape, block, act):
+    """The same emulation against the TPU kernels in interpret mode, at the
+    shapes and tolerance of the FFN / MoE tests above."""
+    if moe:
+        e, c, d, f = shape
+        arrs = _arrays(e * c + f, (e, c, d), (e, d, f), (e, f, d),
+                       scale=(1.0, 0.05, 0.05))
+    else:
+        m, d, f = shape
+        arrs = _arrays(m + d + f, (m, d), (d, f), (f, d),
+                       scale=(1.0, 0.05, 0.05))
+    (jx, tx), (j1, t1), (j2, t2) = (_pair(a, "bf16") for a in arrs)
+    if moe:
+        want = pallas_moe.fused_moe_ffn(jx, j1, j2, block_c=block[0],
+                                        block_f=block[1], act=act,
+                                        interpret=True)
+    else:
+        want = pallas_ffn.fused_ffn(jx, j1, j2, block_m=block[0],
+                                    block_f=block[1], act=act,
+                                    interpret=True)
+    _close(_emulate_bf16_kernel(tx, t1, t2, act), want, FFN_TOL["bf16"])
 
 
 # ----------------------------------------------------------- wrappers ----
