@@ -14,7 +14,8 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                ``cuobjdump -sass`` of the library: the tensor-core
                instructions (``HGMMA``, ``HMMA``) of each kernel's
                functions, printed for every function whose name holds
-               ``fused_ffn``; fails when the bf16 FFN kernel has no
+               ``fused_ffn`` or ``flash_attention``; fails when the bf16
+               FFN kernel or the bf16 flash ``wgmma`` kernel has no
                ``HGMMA``.
   3. kernels — each kernel against its plain PyTorch version at every
                shape the main path gives it (GCN layers 1 and 2, the
@@ -48,12 +49,18 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                operations over the unmasked (query, key) pairs only),
                plain time, and a library call as yardstick
                (``scaled_dot_product_attention``; the unfused
-               ``matmul → act → matmul`` / ``bmm`` chains).
+               ``matmul → act → matmul`` / ``bmm`` chains).  Flash K/V
+               carry the models' own K/V heads (read in place), and the
+               launcher's record of its dispatch names the device
+               function each flash case ran: bf16 at head dim 64 or 128
+               must run ``flash_attention_wgmma_kernel``.
   8. LM serving — qwen2.5-3b at full width in bf16 (weights from a seeded
                generator on the card): 4 prompts of 2048 tokens, one
                batched prefill, 32 greedy decode steps through
-               ``launch.serve``'s step; prefill time and tokens/s, decode
-               p50 and max; the prefill logits held to the same model with
+               ``launch.serve``'s step; prefill time and tokens/s (after
+               ``empty_cache``, so with ``cudaMalloc``; then three more
+               prefills with the allocator warm), decode p50 and max; the
+               prefill logits held to the same model with
                the plain attention (``impl="torch"``); the first decode
                steps replayed on a fresh cache of the serve run's size:
                their greedy picks must be the served tokens, and their
@@ -99,11 +106,14 @@ MAIN_TOL = 2e-3                                      # path vs references
 # phase 7: (name, kernel, shape and options) at published widths
 LM_CASES = [
     ("flash_attention (qwen2.5-3b prefill)", "flash_attention",
-     dict(b=4, h=16, sq=2048, sk=2048, d=128, causal=True, window=0)),
+     dict(b=4, h=16, hkv=2, sq=2048, sk=2048, d=128, causal=True,
+          window=0)),
     ("flash_attention (hymba-1.5b, window 1024)", "flash_attention",
-     dict(b=1, h=25, sq=4096, sk=4096, d=64, causal=True, window=1024)),
+     dict(b=1, h=25, hkv=5, sq=4096, sk=4096, d=64, causal=True,
+          window=1024)),
     ("flash_attention (whisper-medium encoder)", "flash_attention",
-     dict(b=4, h=16, sq=1500, sk=1500, d=64, causal=False, window=0)),
+     dict(b=4, h=16, hkv=16, sq=1500, sk=1500, d=64, causal=False,
+          window=0)),
     ("fused_ffn (stablelm-1.6b widths)", "fused_ffn",
      dict(e=0, m=8192, d=2048, f=5632, act="gelu")),
     # a 4096-token row, top-8 of 40 experts, capacity factor 1.25
@@ -135,6 +145,8 @@ KERNEL_FUNCTIONS = {"spmm_ell": "spmm_ell", "tile_fused_gemm_spmm_wf0":
                     "flash_attention": "flash_attention",
                     "fused_ffn": "fused_ffn", "fused_moe_ffn": "fused_ffn"}
 TC_OPCODES = ("HGMMA", "HMMA")   # wgmma and mma.sync in SASS
+# the bf16 flash kernel on wgmma (head dim 64 or 128, aligned rows)
+FLASH_WGMMA = "flash_attention_wgmma_kernel"
 
 
 def fail(msg: str) -> None:
@@ -185,6 +197,8 @@ def main(device: str = "cuda") -> None:
     from repro_torch.core.sparse.random import banded_spd, powerlaw_graph
     from repro_torch.core.tilefusion import api, fused_ops, fused_ref
     from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.flash_attention import (
+        last_path as flash_last_path)
     from repro_torch.launch import serve, steps
     from repro_torch.models.gcn import GCN
 
@@ -217,13 +231,15 @@ def main(device: str = "cuda") -> None:
     tensor_core_ops = {k: sum(n for f, n in sass.items() if part in f)
                        for k, part in KERNEL_FUNCTIONS.items()}
     for fn, n in sass.items():
-        if "fused_ffn" in fn:
+        if "fused_ffn" in fn or "flash_attention" in fn:
             print(f"[2 build] SASS {fn}: {n} tensor-core instructions "
                   f"({'/'.join(TC_OPCODES)})")
     print(f"[2 build] tensor-core instructions per kernel: {tensor_core_ops}")
-    wgmma_ffn = [n for f, n in sass.items() if "fused_ffn_wgmma" in f]
-    if not wgmma_ffn or min(wgmma_ffn) == 0:
-        fail(f"the bf16 FFN kernel holds no HGMMA instruction: {wgmma_ffn}")
+    for label, part in (("FFN", "fused_ffn_wgmma"), ("flash", FLASH_WGMMA)):
+        counts = [n for f, n in sass.items() if part in f]
+        if not counts or min(counts) == 0:
+            fail(f"the bf16 {label} kernel holds no HGMMA instruction: "
+                 f"{counts}")
 
     # ---- set-up: graphs, models and their inspections (host) ----
     t0 = time.perf_counter()
@@ -536,12 +552,12 @@ def main(device: str = "cuda") -> None:
     # ---- 7. LM kernels through their entry points ----
     import torch.nn.functional as F
 
-    def lm_inputs(kernel, dtype, b=0, h=0, sq=0, sk=0, d=0, e=0, m=0, f=0,
-                  **_):
+    def lm_inputs(kernel, dtype, b=0, h=0, hkv=0, sq=0, sk=0, d=0, e=0,
+                  m=0, f=0, **_):
         if kernel == "flash_attention":
             return [randn(b, h, sq, d).to(dtype),
-                    randn(b, h, sk, d).to(dtype),
-                    randn(b, h, sk, d).to(dtype)]
+                    randn(b, hkv, sk, d).to(dtype),
+                    randn(b, hkv, sk, d).to(dtype)]
         lead = (e,) if e else ()
         return [randn(*lead, m, d).to(dtype),
                 randn(*lead, d, f, scale=d ** -0.5).to(dtype),
@@ -558,12 +574,13 @@ def main(device: str = "cuda") -> None:
                                       window=window, device=dev)
             pairs = int(mask.sum()) * q.shape[0] * q.shape[1]
             kw = dict(causal=causal, window=window)
+            sdpa = dict(enable_gqa=k.shape[1] != q.shape[1])
             if window:
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    q, k, v, attn_mask=mask)
+                sdpa["attn_mask"] = mask
             else:
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    q, k, v, is_causal=causal)
+                sdpa["is_causal"] = causal
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, **sdpa)
             return (lambda: ops.flash_attention(q, k, v, **kw),
                     lambda: ref.attention(q, k, v, **kw), lib, moved,
                     4.0 * q.shape[3] * pairs)
@@ -614,6 +631,14 @@ def main(device: str = "cuda") -> None:
             fail(f"{label} {dname}: shape {tuple(got.shape)}, row rel err "
                  f"{rel:.3e} > {tol}")
         lib_err = rel_err(lib(), want, rows=True)[1]
+        if kernel == "flash_attention":
+            kern()
+            torch.cuda.synchronize()
+            ran = flash_last_path()
+            print(f"[7 lm kernels] {label} {dname}: ran {ran}")
+            if (dtype == torch.bfloat16 and opts["d"] in (64, 128)
+                    and ran != FLASH_WGMMA):
+                fail(f"{label} {dname}: ran {ran}, not {FLASH_WGMMA}")
         bound_bytes = moved / HBM_BYTES_PER_S * 1e3
         bound_ops = n_ops / PEAK_OPS[dname] * 1e3
         ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
@@ -676,6 +701,23 @@ def main(device: str = "cuda") -> None:
           f" around each step + synchronize")
     print(f"[8 lm serve] launches in the serve run: {counts}; "
           f"sample {tokens[0, :8].tolist()}")
+    # the prefill above follows empty_cache(), so it also pays cudaMalloc
+    # (which synchronizes); a serving process reuses its cached blocks:
+    # time the prefill step again with the allocator warm
+    serve_step = steps.make_serve_step(lm)
+    warm_ms = []
+    for _ in range(3):
+        cache = lm.init_cache(LM_BATCH, LM_PROMPT + LM_DECODE + 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve_step(prompts, cache, 0)
+        torch.cuda.synchronize()
+        warm_ms.append((time.perf_counter() - t0) * 1e3)
+        del cache
+    print(f"[8 lm serve] prefill with the allocator warm: "
+          f"{', '.join(f'{t:.2f}' for t in warm_ms)} ms "
+          f"({LM_BATCH * LM_PROMPT / (min(warm_ms) / 1e3):.0f} tokens/s at "
+          f"the fastest)")
     if tuple(tokens.shape) != (LM_BATCH, LM_DECODE + 1) or not bool(
             ((tokens >= 0) & (tokens < lm_cfg.vocab_size)).all()):
         fail(f"phase 8: tokens {tuple(tokens.shape)} out of range")

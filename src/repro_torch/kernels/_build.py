@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("spmm_ell.cu", "tile_fused_gemm_spmm.cu",
            "tile_fused_spmm_spmm.cu", "flash_attention.cu", "fused_ffn.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "hopper.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIBRARY = "librepro_torch_kernels.so"
@@ -35,13 +35,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
-#: argtypes of every launcher; each returns the cudaError_t of its launch
+#: argtypes of every launcher (each returns the cudaError_t of its launch)
+#: and of flash_attention_last_path
 SIGNATURES = {
     "spmm_ell_launch": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
     "tile_fused_gemm_spmm_wf0_launch": (_P,) * 6 + (_I,) * 8 + (_P,),
     "tile_fused_spmm_spmm_wf0_launch": (_P,) * 8 + (_I,) * 8 + (_P,),
-    "flash_attention_launch": (_P,) * 4 + (_I,) * 5 + (_F,) + (_I,) * 3
+    "flash_attention_launch": (_P,) * 4 + (_I,) * 6 + (_F,) + (_I,) * 3
     + (_P,),
+    "flash_attention_last_path": (),
     "fused_ffn_launch": (_P,) * 4 + (_I,) * 5 + (_P,),
     "fused_moe_ffn_launch": (_P,) * 4 + (_I,) * 6 + (_P,),
 }

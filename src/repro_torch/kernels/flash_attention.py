@@ -1,13 +1,18 @@
-"""Flash attention with causal and sliding-window masks.
+"""Flash attention with causal and sliding-window masks and grouped K/V
+heads.
 
 The hand-written CUDA kernel (``csrc/flash_attention.cu``) that replaces
 the TPU kernel ``repro.kernels.flash_attention._flash_attention``.  One
-block per (batch, head, 64-query) tile walks the kv blocks that the masks
-leave open, with K/V tiles in shared memory and the online-softmax state in
-registers; bf16 with a head dim up to 128 runs both products on the tensor
-cores (``mma.sync``), f32 and wider heads on the CUDA cores.  It masks the
-ragged ``Sq``/``Sk`` edges itself, so any length runs (Whisper's 1500
-frames fit no block), and any head dim up to 256.
+block per (batch, head, q block) walks the kv blocks that the masks leave
+open, with the online-softmax state in registers.  bf16 with a head dim of
+64 or 128 (every model the repo configures) runs on Hopper's ``wgmma``
+with K/V tiles arriving by TMA through a ring in shared memory
+(``flash_attention_wgmma_kernel``); other bf16 head dims up to 128 run on
+``mma.sync``, f32 and wider heads on the CUDA cores.  Query head ``h``
+reads K/V head ``h // (H // Hkv)`` in place, so grouped-query attention
+needs no repeated copy of K and V.  The kernel masks the ragged
+``Sq``/``Sk`` edges itself, so any length runs (Whisper's 1500 frames fit
+no block), and any head dim up to 256.
 """
 from __future__ import annotations
 
@@ -17,31 +22,47 @@ from . import config, ref
 
 #: widest head dim the kernel takes (its shared-memory tiles)
 MAX_HEAD_DIM = 256
+#: the device function of each path the launcher reports
+PATHS = {0: "flash_attention_wgmma_kernel", 1: "flash_attention_mma_kernel",
+         2: "flash_attention_kernel", -1: "none"}
+
+
+def last_path() -> str:
+    """The device function that the last launch on the card ran (the
+    launcher records its dispatch): ``"flash_attention_wgmma_kernel"`` for
+    bf16 at head dim 64 or 128 with 16-byte aligned rows,
+    ``"flash_attention_mma_kernel"`` for other bf16 head dims up to 128,
+    ``"flash_attention_kernel"`` (CUDA cores) for f32 and wider heads,
+    ``"none"`` before any launch or for an empty one."""
+    return PATHS[config.kernel_library("cuda").flash_attention_last_path()]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     sm_scale: float | None = None,
                     impl: str = "cuda") -> torch.Tensor:
-    """q ``(B, H, Sq, D)``; k, v ``(B, H, Sk, D)`` → ``(B, H, Sq, D)`` in
-    q's dtype (f32 or bf16), f32 softmax state.
+    """q ``(B, H, Sq, D)``; k, v ``(B, Hkv, Sk, D)`` with ``H % Hkv == 0``
+    → ``(B, H, Sq, D)`` in q's dtype (f32 or bf16), f32 softmax state.
+    Query head ``h`` attends with K/V head ``h // (H // Hkv)``.
 
     CPU tensors, or ``impl="torch"``, take the plain PyTorch version; CUDA
     tensors launch the kernel or raise."""
     if impl not in ("cuda", "torch"):
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+    if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]
+            or k.shape[1] == 0 or q.shape[1] % k.shape[1]):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
+                         f"(B, H, Sq, D) and (B, Hkv, Sk, D) with H % Hkv "
+                         f"== 0")
     if q.device.type == "cpu" or impl == "torch":
         return ref.attention(q, k, v, causal=causal, window=window,
                              sm_scale=sm_scale)
     lib = config.kernel_library(q.device)
     device = config.check_launch({}, dict(q=q, k=k, v=v))
-    if (q.dim() != 4 or k.shape != v.shape or k.dim() != 4
-            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]):
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
-                         f"(B, H, Sq, D) and (B, H, Sk, D)")
     b, h, sq, d = q.shape
-    sk = k.shape[2]
+    hkv, sk = k.shape[1], k.shape[2]
     if d > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {d} > {MAX_HEAD_DIM}")
     if window < 0:
@@ -50,8 +71,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         sm_scale = 1.0 / d ** 0.5
     out = torch.empty_like(q)
     err = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq,
-        sk, d, float(sm_scale), int(causal), int(window),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+        hkv, sq, sk, d, float(sm_scale), int(causal), int(window),
         config.DTYPE_CODES[q.dtype], config.stream_of(device))
     config.raise_on_error(err, "flash_attention")
     flash_attention.launches += 1

@@ -101,8 +101,14 @@ def attention_mask(sq: int, sk: int, *, causal: bool, window: int,
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               sm_scale: float | None = None):
-    """q ``(B, H, Sq, D)``, k/v ``(B, H, Sk, D)``: softmax attention in f32
-    with masked scores set to ``NEG_INF``."""
+    """q ``(B, H, Sq, D)``, k/v ``(B, Hkv, Sk, D)`` with ``H % Hkv == 0``:
+    softmax attention in f32 with masked scores set to ``NEG_INF``; K/V
+    are repeated to H heads (query head ``h`` reads K/V head
+    ``h // (H // Hkv)``)."""
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
     d = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / d ** 0.5

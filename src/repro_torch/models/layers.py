@@ -65,13 +65,10 @@ def chunked_attention(q, k, v, *, causal=True, window=0, impl="cuda"):
 
     The reference's ``chunked_attention`` is the XLA twin of its flash
     kernel: it repeats k/v to H heads and runs the same online softmax with
-    the same masks.  Here k/v are repeated the same way and the flash
-    kernel itself runs (its plain version for CPU tensors or
-    ``impl="torch"``)."""
-    rep = q.shape[1] // k.shape[1]
-    if rep > 1:
-        k = k.repeat_interleave(rep, dim=1)
-        v = v.repeat_interleave(rep, dim=1)
+    the same masks.  Here the flash kernel itself runs (its plain version
+    for CPU tensors or ``impl="torch"``), and k/v are not repeated: the
+    kernel reads K/V head ``h // (H // Hkv)`` for query head ``h`` in
+    place."""
     return ops.flash_attention(q.contiguous(), k.contiguous(),
                                v.contiguous(), causal=causal, window=window,
                                impl=impl)

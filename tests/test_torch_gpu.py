@@ -29,7 +29,7 @@ from repro_torch.configs.gcn import GCNConfig
 from repro_torch.core.sparse import random as gen
 from repro_torch.core.sparse.formats import CSR
 from repro_torch.core.tilefusion import api
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attention, ops, ref
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
 from repro_torch.models.gcn import GCN
@@ -198,7 +198,16 @@ def test_gcn_serves_on_the_card(card):
     (1, 2, 256, 128, 32, True, 32),       # rows q >= 159 see no key
     (1, 1, 70, 40, 16, True, 7), (1, 4, 512, 512, 128, True, 0),
     (1, 1, 96, 96, 200, True, 0), (1, 2, 64, 1000, 256, False, 0),
-    (1, 2, 70, 90, 20, False, 9)])        # d % 8 != 0: scalar staging
+    (1, 2, 70, 90, 20, False, 9),         # d % 8 != 0: scalar staging
+    # bf16 at D 64 / 128 runs the wgmma kernel (128 queries a CTA, K/V
+    # through the TMA ring)
+    (2, 3, 1500, 1500, 64, False, 0),     # Sq not a multiple of 128
+    (1, 2, 1500, 1500, 128, False, 0),
+    (1, 2, 200, 700, 128, True, 0),       # Sq < Sk
+    (2, 2, 700, 200, 64, True, 0),        # Sq > Sk
+    (1, 2, 333, 777, 64, False, 50),
+    (1, 2, 600, 300, 128, True, 64),      # rows q >= 363 see no key
+    (1, 2, 130, 70, 64, True, 16)])       # rows q >= 85 see no key
 def test_flash_attention_kernel(card, b, h, sq, sk, d, causal, window,
                                 dtype):
     g = torch.Generator().manual_seed(sq * d + sk)
@@ -211,6 +220,60 @@ def test_flash_attention_kernel(card, b, h, sq, sk, d, causal, window,
     assert ops.flash_attention.launches == before + 1
     want = ref.attention(q, k, v, causal=causal, window=window)
     assert _row_rel_err(got, want) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,causal,window", [
+    (2, 16, 2, 300, 300, 128, True, 0),   # rep 8, as qwen2.5-3b
+    (1, 25, 5, 700, 700, 64, True, 128),  # rep 5, as hymba-1.5b
+    (1, 6, 2, 200, 500, 96, False, 0),    # rep 3 on mma.sync
+    (1, 4, 1, 100, 100, 200, True, 0)])   # rep 4 on the CUDA cores
+def test_flash_attention_reads_kv_heads_in_place(card, b, h, hkv, sq, sk, d,
+                                                 causal, window, dtype):
+    """Grouped K/V heads, read in place (query head i reads K/V head
+    i // (H // Hkv)), against the plain version, which repeats them."""
+    g = torch.Generator().manual_seed(h * 100 + hkv)
+    q = torch.randn(b, h, sq, d, generator=g).to(card, dtype)
+    k, v = (torch.randn(b, hkv, sk, d, generator=g).to(card, dtype)
+            for _ in range(2))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    rep = h // hkv
+    want = ref.attention(q, k.repeat_interleave(rep, 1),
+                         v.repeat_interleave(rep, 1), causal=causal,
+                         window=window)
+    assert _row_rel_err(got, want) <= ATTN_TOL[dtype]
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts 2 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype,d,aligned,path", [
+    (torch.bfloat16, 128, True, "flash_attention_wgmma_kernel"),
+    (torch.bfloat16, 64, True, "flash_attention_wgmma_kernel"),
+    (torch.bfloat16, 64, False, "flash_attention_mma_kernel"),
+    (torch.bfloat16, 96, True, "flash_attention_mma_kernel"),
+    (torch.bfloat16, 200, True, "flash_attention_kernel"),
+    (torch.float32, 64, True, "flash_attention_kernel")])
+def test_flash_attention_dispatch_path(card, dtype, d, aligned, path):
+    """Each dispatch path runs its own kernel, as the launcher records it,
+    and agrees with the plain version."""
+    g = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn(1, 2, 200, d, generator=g).to(card, dtype)
+               for _ in range(3))
+    if not aligned:
+        q, k, v = (_misaligned(t) for t in (q, k, v))
+        assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    got = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.last_path() == path
+    assert _row_rel_err(got, ref.attention(q, k, v)) <= ATTN_TOL[dtype]
 
 
 # bf16 runs clusters of C = ceil(min(d, 2048) / 256) CTAs, 128 token rows
@@ -284,7 +347,10 @@ def test_fused_ffn_kernel_is_deterministic_and_allocates_only_out(card,
 def test_lm_wrappers_check_their_inputs(card):
     q = torch.randn(1, 2, 8, 16, device=card)
     with pytest.raises(ValueError, match="flash_attention"):
-        ops.flash_attention(q, q[:, :1], q[:, :1])
+        ops.flash_attention(q, q[..., :8], q[..., :8])
+    with pytest.raises(ValueError, match="H % Hkv"):
+        q3 = torch.randn(1, 3, 8, 16, device=card)
+        ops.flash_attention(q3, q, q)
     with pytest.raises(ValueError, match="head dim"):
         big = torch.randn(1, 1, 4, 300, device=card)
         ops.flash_attention(big, big, big)

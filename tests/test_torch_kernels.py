@@ -180,7 +180,7 @@ def test_ctypes_signatures_match_the_sources():
         for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
                                        text):
             types = [" ".join(p.split()[:-1]).replace(" *", "*")
-                     for p in params.split(",")]
+                     for p in params.split(",") if p.strip()]
             found[name] = tuple(c_types[t] for t in types)
     assert found == dict(_build.SIGNATURES)
 

@@ -22,6 +22,7 @@ from repro.kernels import flash_attention as pallas_flash
 from repro.kernels import fused_ffn as pallas_ffn
 from repro.kernels import moe as pallas_moe
 from repro.kernels import ref as jref
+from repro.models import layers as jlayers
 from repro_torch.kernels import ops, ref
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -126,6 +127,44 @@ def test_flash_attention_sm_scale():
     want = jref.attention(jq, jk, jv, causal=True, sm_scale=0.3)
     _close(ops.flash_attention(tq, tk, tv, sm_scale=0.3), want,
            ATTN_TOL["f32"])
+
+
+# ------------------------------------------------ grouped K/V heads ----
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("h,hkv,causal,window", [
+    (16, 2, True, 0),       # rep 8: qwen2.5-3b's 16 heads over 2 K/V heads
+    (25, 5, True, 32),      # rep 5: hymba-1.5b's 25 heads over 5, windowed
+    (10, 2, False, 0)])
+def test_flash_attention_gqa_matches_jax(h, hkv, causal, window, dtype):
+    """K/V with fewer heads than q, read in place by the port (query head
+    i attends with K/V head i // (H // Hkv)), against the reference's
+    ``chunked_attention`` (which repeats K/V itself) and against the Pallas
+    kernel on K/V repeated to H heads by numpy."""
+    arrs = _arrays(h * 7 + hkv, (1, h, 128, 32), (1, hkv, 128, 32),
+                   (1, hkv, 128, 32))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in arrs)
+    got = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = jlayers.chunked_attention(jq, jk, jv, causal=causal,
+                                     window=window, chunk=64)
+    _close(got, want, ATTN_TOL[dtype])
+    rep_k, rep_v = (np.repeat(a, h // hkv, axis=1) for a in arrs[1:])
+    want = pallas_flash.flash_attention(
+        jq, _pair(rep_k, dtype)[0], _pair(rep_v, dtype)[0], block_q=64,
+        block_k=64, causal=causal, window=window, interpret=True)
+    _close(got, want, ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("impl", ["cuda", "torch"])
+@pytest.mark.parametrize("kv_shape", [(1, 4, 8, 16), (1, 0, 8, 16),
+                                      (2, 2, 8, 16), (1, 2, 8, 8)])
+def test_flash_attention_rejects_kv_that_does_not_group(kv_shape, impl):
+    """H % Hkv != 0 (6 heads over 4), no K/V head, another batch or another
+    head dim: a ValueError on any device and either impl."""
+    q = torch.zeros(1, 6, 8, 16)
+    k = torch.zeros(kv_shape)
+    with pytest.raises(ValueError, match="H % Hkv"):
+        ops.flash_attention(q, k, k, impl=impl)
 
 
 # --------------------------------------------------------------- FFNs ----
