@@ -14,8 +14,9 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                ``cuobjdump -sass`` of the library: the tensor-core
                instructions (``HGMMA``, ``HMMA``) of each kernel's
                functions, printed for every function whose name holds
-               ``fused_ffn`` or ``flash_attention``; fails when the bf16
-               FFN kernel or the bf16 flash ``wgmma`` kernel has no
+               ``fused_ffn``, ``flash_attention`` or ``gemm_spmm``; fails
+               when the bf16 FFN kernel, the bf16 flash ``wgmma`` kernel or
+               any instance of the GeMM-SpMM ``wgmma`` kernel has no
                ``HGMMA``.
   3. kernels — each kernel against its plain PyTorch version at every
                shape the main path gives it (GCN layers 1 and 2, the
@@ -24,13 +25,28 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                and bf16: max abs / relative error, time (CUDA events), the
                bound (larger of compulsory bytes / 3.35 TB/s and operations
                / peak rate: nonzero entries, needed table rows and real
-               output rows, each once; format padding is not counted), the
-               plain version's time, and for ``spmm_ell`` the time of
-               ``torch.sparse.mm`` as a yardstick.
+               output rows, each once; format padding is not counted; f32
+               at 495 / 3 TFLOP/s, the rate of f32-accurate products as
+               three TF32 products on the tensor cores, bf16 at 989), the
+               plain version's time, and a library yardstick in f32:
+               ``torch.sparse.mm`` for ``spmm_ell``; for the two fused
+               kernels the unfused chain that computes the same ``(d1,
+               rows0)`` (``kernels/ref.py``: ``torch.matmul`` or
+               ``torch.sparse.mm`` for op 1, then ``torch.sparse.mm`` of
+               the fused rows).  The GeMM-SpMM cases print the device
+               function the launcher dispatched, and GCN layers 1 and 2
+               must run ``tile_fused_gemm_spmm_wf0_wgmma_kernel`` in f32
+               and bf16.
   4. tile_fused_matmul on ``banded_spd(131072, 8)``, GeMM-SpMM and
                SpMM-SpMM at 128 columns: the ``auto`` pick must be
                ``cuda``; the result must match ``backend="torch"`` on the
-               card and the numpy oracle on the host.
+               card and the numpy oracle on the host.  After the main path
+               has been counted, both op pairs are timed on the fused arm
+               (``backend="cuda"``) and on ``backend="unfused"`` (CUDA
+               events over 20 calls after 3 warm-ups, and the profiler's
+               device time of 5 calls), and the fused/unfused ratios are
+               printed: the paper's Table 2 and Table 3 comparison on the
+               card.
   5. GCN serving at the ``CONFIG`` widths (128 → 128 → 32) on two
                131,072-node graphs, 8 requests each: banded (fused arm) and
                power-law (unfused arm).  Each answer is held to the
@@ -77,7 +93,8 @@ the flash kernel exactly once per layer of the prefill.  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON record (with each kernel's tensor-core instruction count
-from phase 2) and the result line.  float32 matrix products run
+from phase 2 and the device function its record case ran) and the result
+line.  float32 matrix products run
 in true f32 (TF32 off).
 """
 from __future__ import annotations
@@ -93,7 +110,10 @@ ROOT = Path(__file__).resolve().parent
 N_NODES = 131_072          # OGB scale (ogbn-arxiv has 169,343 nodes)
 REQUESTS = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # f32 CUDA cores; bf16 TC
+# f32: 495 TFLOP/s of TF32 over the three products of an f32-accurate
+# 3xTF32 product (the card's fastest f32-accurate rate); bf16 tensor cores
+PEAK_OPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+PEAK_F32_CUDA_CORES = 67e12   # f32 outside the tensor cores (printed only)
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}           # kernel vs plain, rel
 # the LM kernels in bf16, each output row against its own largest value:
 # flash attention two bf16 units in the last place (P is rounded to bf16
@@ -147,6 +167,8 @@ KERNEL_FUNCTIONS = {"spmm_ell": "spmm_ell", "tile_fused_gemm_spmm_wf0":
 TC_OPCODES = ("HGMMA", "HMMA")   # wgmma and mma.sync in SASS
 # the bf16 flash kernel on wgmma (head dim 64 or 128, aligned rows)
 FLASH_WGMMA = "flash_attention_wgmma_kernel"
+# the GeMM-SpMM kernel on wgmma (GCN layers 1 and 2 must run it)
+GEMM_WGMMA = "tile_fused_gemm_spmm_wf0_wgmma_kernel"
 
 
 def fail(msg: str) -> None:
@@ -199,6 +221,8 @@ def main(device: str = "cuda") -> None:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.flash_attention import (
         last_path as flash_last_path)
+    from repro_torch.kernels.tile_fused_gemm_spmm import (
+        last_path as gemm_last_path)
     from repro_torch.launch import serve, steps
     from repro_torch.models.gcn import GCN
 
@@ -231,14 +255,15 @@ def main(device: str = "cuda") -> None:
     tensor_core_ops = {k: sum(n for f, n in sass.items() if part in f)
                        for k, part in KERNEL_FUNCTIONS.items()}
     for fn, n in sass.items():
-        if "fused_ffn" in fn or "flash_attention" in fn:
+        if any(k in fn for k in ("fused_ffn", "flash_attention", "gemm_spmm")):
             print(f"[2 build] SASS {fn}: {n} tensor-core instructions "
                   f"({'/'.join(TC_OPCODES)})")
     print(f"[2 build] tensor-core instructions per kernel: {tensor_core_ops}")
-    for label, part in (("FFN", "fused_ffn_wgmma"), ("flash", FLASH_WGMMA)):
+    for label, part in (("FFN", "fused_ffn_wgmma"), ("flash", FLASH_WGMMA),
+                        ("GeMM-SpMM", GEMM_WGMMA)):
         counts = [n for f, n in sass.items() if part in f]
         if not counts or min(counts) == 0:
-            fail(f"the bf16 {label} kernel holds no HGMMA instruction: "
+            fail(f"the {label} wgmma kernel holds no HGMMA instruction: "
                  f"{counts}")
 
     # ---- set-up: graphs, models and their inspections (host) ----
@@ -333,12 +358,16 @@ def main(device: str = "cuda") -> None:
         moved = (nz_bytes(st.cols0, st.vals0) + row_bytes(ds.n_i, b)
                  + row_bytes(b_col, c) + row_bytes(ds.n_i, c)       # d1
                  + row_bytes(real_rows(ds.j_rows0, ds.n_j), c))    # rows0
+        lib = None
+        if dtype == torch.float32:
+            csr0 = ref.fused_rows_csr(st.cols0, st.vals0, ds.t_pad)
+            lib = lambda: ref.gemm_spmm_wf0_library(csr0, b, c)  # noqa: E731
         return ("tile_fused_gemm_spmm_wf0" + label,
                 lambda: ops.tile_fused_gemm_spmm_wf0(st.cols0, st.vals0, b, c,
                                                      t=ds.t_pad),
                 lambda: ref.tile_fused_gemm_spmm_wf0(st.cols0, st.vals0, b, c,
                                                      t=ds.t_pad),
-                moved, n_ops, None)
+                moved, n_ops, lib)
 
     def sparse_mm(cols, vals, x):
         """``torch.sparse.mm`` over the ELL's nonzeros as a CSR: the
@@ -370,7 +399,9 @@ def main(device: str = "cuda") -> None:
     def kernel_cases(dtype):
         """(name, kernel call, plain call, compulsory bytes, operations,
         library call or None) at every shape the main path gives each
-        kernel: GCN layers 1 and 2, the power-law body, SpMM-SpMM."""
+        kernel: GCN layers 1 and 2, the power-law body, SpMM-SpMM.  A
+        library call returns what the kernel returns, the fused rows
+        flattened to (T0 * j0_max, c_col)."""
         layer1, layer2 = models["banded"].entries
         yield gemm_case("", layer1, dtype)
         yield gemm_case(" (GCN layer 2)", layer2, dtype)
@@ -404,10 +435,17 @@ def main(device: str = "cuda") -> None:
                  + gathered_bytes(ot.cols, ot.vals, cs)
                  + row_bytes(ds.n_i, cs)                               # d1
                  + row_bytes(real_rows(ds.j_rows0, ds.n_j), cs))     # rows0
+        lib = None
+        if dtype == torch.float32:
+            csr1 = ref.ell_csr(ot.cols, ot.vals, N_NODES,
+                               (ot.spill_flat, ot.spill_cols, ot.spill_vals))
+            csr0 = ref.fused_rows_csr(st.cols0, st.vals0, ds.t_pad)
+            lib = lambda: ref.spmm_spmm_wf0_library(  # noqa: E731
+                csr1, csr0, cs)
         yield ("tile_fused_spmm_spmm_wf0",
                lambda: ops.tile_fused_spmm_spmm_wf0(*args, t=ds.t_pad),
                lambda: ref.tile_fused_spmm_spmm_wf0(*args, t=ds.t_pad),
-               moved, ss_ops, None)
+               moved, ss_ops, lib)
 
     records = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -415,6 +453,12 @@ def main(device: str = "cuda") -> None:
         for name, kern, plain, moved, n_ops, lib in kernel_cases(dtype):
             got, want = kern(), plain()
             torch.cuda.synchronize()
+            path = None
+            if name.startswith("tile_fused_gemm_spmm_wf0"):
+                path = gemm_last_path()
+                print(f"[3 kernels] {name} {dname}: ran {path}")
+                if path != GEMM_WGMMA:
+                    fail(f"{name} {dname}: ran {path}, not {GEMM_WGMMA}")
             if isinstance(got, torch.Tensor):
                 got, want = (got,), (want,)
             errs = [rel_err(g, w) for g, w in zip(got, want)]
@@ -426,20 +470,30 @@ def main(device: str = "cuda") -> None:
             plain_ms = time_ms(plain)
             lib_ms = None
             if lib is not None:
-                lib_err = rel_err(lib(), want[0])[1]
+                lib_out = lib()
+                if isinstance(lib_out, torch.Tensor):
+                    lib_out = (lib_out,)
+                lib_err = max(rel_err(g, w.reshape(g.shape))[1]
+                              for g, w in zip(lib_out, want))
                 lib_ms = time_ms(lib)
             rec = dict(ms=ms, plain_ms=plain_ms,
                        bound_ms=max(bound_bytes, bound_ops),
                        bound_by="bytes" if bound_bytes >= bound_ops
                        else "operations", library_ms=lib_ms,
-                       max_abs_err=abs_err)
+                       max_abs_err=abs_err, path=path)
+            cores = ""
+            if dtype == torch.float32:
+                at_67 = max(bound_bytes,
+                            n_ops / PEAK_F32_CUDA_CORES * 1e3)
+                cores = (f" (at 67 TFLOP/s: bound {at_67:.4f} ms, share "
+                         f"{at_67 / ms:.3f})")
             print(f"[3 kernels] {name} {dname}: max_abs={abs_err:.3e} "
                   f"rel={rel:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms"
                   f" bound={rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
                   f"{moved / 1e6:.1f} MB, {n_ops / 1e9:.3f} Gop) "
-                  f"share={rec['bound_ms'] / ms:.3f}"
-                  + (f" torch.sparse.mm={lib_ms:.4f} ms "
-                     f"(rel {lib_err:.1e})" if lib_ms is not None else ""))
+                  f"share={rec['bound_ms'] / ms:.3f}{cores}"
+                  + (f" library={lib_ms:.4f} ms (rel {lib_err:.1e})"
+                     if lib_ms is not None else ""))
             if rel > TOL[dname]:
                 fail(f"{name} {dname}: rel err {rel:.3e} > {TOL[dname]}")
             records[(name, dname)] = rec
@@ -520,9 +574,43 @@ def main(device: str = "cuda") -> None:
         fail(f"kernels never launched on the main path: {missing}")
     path_launches = {k: counts[k] for k in GCN_KERNELS}
 
-    # ---- 6. trace: where one request's time goes ----
+    # ---- 4, continued: the fused arm against the unfused arm ----
+    # (after the main path's counts were read: these launches are not
+    # counted).  CUDA events time the stream, which waits for the host when
+    # the host is slower than the device; the profiler's device time of the
+    # same calls is the device's own work.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(fn, calls=5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+    for name, entry, b_or_a1, c, _ in cases:
+        arms = {}
+        for arm in ("cuda", "unfused"):
+            call = (lambda arm=arm: api.tile_fused_matmul(  # noqa: E731
+                banded, b_or_a1, c, backend=arm))
+            arms[arm] = (time_ms(call), device_ms(call))
+        (ev_f, dev_f), (ev_u, dev_u) = arms["cuda"], arms["unfused"]
+        print(f"[4 arms] {name}: per tile_fused_matmul call, fused arm "
+              f"(backend='cuda') {ev_f:.4f} ms, unfused arm {ev_u:.4f} ms "
+              f"(CUDA events, mean of 20 calls after 3 warm-ups); device "
+              f"time {dev_f:.4f} ms and {dev_u:.4f} ms (profiler, mean of "
+              f"5 calls)")
+        dev_ratio = (f"{dev_f / dev_u:.3f}" if dev_f > 0 and dev_u > 0
+                     else "not measured (the profiler saw no device time)")
+        print(f"[4 arms] {name} fused/unfused = {ev_f / ev_u:.3f} "
+              f"(events), {dev_ratio} (device time)")
+
+    # ---- 6. trace: where one request's time goes ----
     for gname, model in models.items():
         x = torch.from_numpy(np.random.default_rng(200).standard_normal(
             (N_NODES, cfg.in_dim), np.float32)).to(dev)
@@ -619,6 +707,7 @@ def main(device: str = "cuda") -> None:
             fail(f"phase 7: {k} never launched through its entry point")
     path_launches.update(fused_ffn=counts["fused_ffn"],
                          fused_moe_ffn=counts["fused_moe_ffn"])
+    flash_record_path = "none"
     for (label, kernel, opts, dtype, args), got in zip(lm_cases, entry_out):
         dname = str(dtype).split(".")[1]
         kern, plain, lib, moved, n_ops = lm_calls(kernel, args, opts)
@@ -636,6 +725,8 @@ def main(device: str = "cuda") -> None:
             torch.cuda.synchronize()
             ran = flash_last_path()
             print(f"[7 lm kernels] {label} {dname}: ran {ran}")
+            if (label, dname) == (LM_RECORD["flash_attention"], "bfloat16"):
+                flash_record_path = ran
             if (dtype == torch.bfloat16 and opts["d"] in (64, 128)
                     and ran != FLASH_WGMMA):
                 fail(f"{label} {dname}: ran {ran}, not {FLASH_WGMMA}")
@@ -799,6 +890,15 @@ def main(device: str = "cuda") -> None:
         "fused_moe_ffn": ("src/repro_torch/csrc/fused_ffn.cu",
                           "src/repro/kernels/moe.py:53"),
     }
+    # the device function each record's case ran (the launchers' records
+    # for the kernels with several paths)
+    paths = {"spmm_ell": "spmm_ell_kernel",
+             "tile_fused_gemm_spmm_wf0": records[(
+                 "tile_fused_gemm_spmm_wf0", "float32")]["path"],
+             "tile_fused_spmm_spmm_wf0": "tile_fused_spmm_spmm_wf0_kernel",
+             "flash_attention": flash_record_path,
+             "fused_ffn": "fused_ffn_wgmma_kernel",
+             "fused_moe_ffn": "fused_ffn_wgmma_kernel"}
     kernels = []
     for name, (source, replaces) in sources.items():
         # the GCN kernels' records are f32 (the GCN path's dtype), the LM
@@ -813,7 +913,8 @@ def main(device: str = "cuda") -> None:
                             bound_ms=rec["bound_ms"],
                             bound_by=rec["bound_by"],
                             library_ms=rec["library_ms"],
-                            tensor_core_ops=tensor_core_ops[name]))
+                            tensor_core_ops=tensor_core_ops[name],
+                            path=paths[name]))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

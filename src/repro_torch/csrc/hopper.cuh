@@ -1,15 +1,15 @@
 // Hopper building blocks shared by the port's wgmma kernels
-// (fused_ffn.cu, flash_attention.cu): shared-memory addresses, thread-block
-// cluster and mbarrier operations, TMA loads, wgmma descriptors and the
-// wgmma shapes the kernels issue, and on the host the tensor maps TMA reads
-// through.
+// (fused_ffn.cu, flash_attention.cu, tile_fused_gemm_spmm.cu): shared-memory
+// addresses, thread-block cluster and mbarrier operations, TMA loads, wgmma
+// descriptors and the wgmma shapes the kernels issue, and on the host the
+// tensor maps TMA reads through.
 //
 // Every tile a wgmma reads here has rows of 128 bytes under the 128-byte
-// swizzle, as TMA writes it: a K-major operand (A, or B with kTransB 0)
-// advances 32 bytes per 16-deep k step inside its 64-column panel; an
-// MN-major B (kTransB 1) advances 16 rows (2048 bytes) per k step, with
-// LBO the stride between its 64-column panels.  SBO is 1024 bytes (8 rows)
-// for both.
+// swizzle, as TMA writes it (or a kernel's own stores do): a K-major operand
+// (A, or B with kTransB 0) advances 32 bytes per k step (16 bf16, or 8 tf32)
+// inside its 128-byte panel; an MN-major B (kTransB 1) advances 16 rows
+// (2048 bytes) per k step, with LBO the stride between its 64-column
+// panels.  SBO is 1024 bytes (8 rows) for both.
 #pragma once
 
 #include <cuda.h>
@@ -135,6 +135,13 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"((int)on)
       : "memory");
+}
+
+// ask for `bytes` (a multiple of 16) of device memory at `p` (16-byte
+// aligned) to be brought into L2, without waiting and without registers
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
+               :: "l"(reinterpret_cast<uint64_t>(p)), "r"(bytes) : "memory");
 }
 
 // copy `bytes` of this CTA's shared memory to CTA `rank`'s copy of `dst`,
@@ -386,6 +393,109 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
         "r"((int)accumulate));
 }
+
+// tf32 value nearest to x (ties away from zero), as the b32 a tf32 wgmma
+// reads: the low 13 bits of the f32 pattern are zero
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// keeps the registers of a wgmma's A operand live until after the
+// wgmma.wait_group it follows (the asynchronous wgmma reads them late)
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// Register-A wgmmas with a K-major B (each row of B's tile, one output
+// column, holds 128 bytes of k under the 128-byte swizzle), N = 32 or 128:
+//   tf32: D(64 x N, f32) (+)= A(64 x 8) * B(8 x N), 32 bytes of k per step;
+//   bf16: D(64 x N, f32) (+)= A(64 x 16) * B(16 x N), the same 32 bytes.
+// Each warp holds rows 16 w .. 16 w + 15 of A in the m16n8 A-fragment
+// layout, in 32-bit words (one tf32 value, or two bf16 values): a[0] (row
+// g, word t), a[1] (row g + 8, word t), a[2] (row g, word t + 4), a[3]
+// (row g + 8, word t + 4) of the step's 8 words, g = lane / 4, t = lane %
+// 4.  The registers of `a` must not change until the wgmma has retired.
+#define REPRO_WG_D16(o)                                                    \
+  "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),          \
+      "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7]),      \
+      "+f"(d[o + 8]), "+f"(d[o + 9]), "+f"(d[o + 10]), "+f"(d[o + 11]),    \
+      "+f"(d[o + 12]), "+f"(d[o + 13]), "+f"(d[o + 14]), "+f"(d[o + 15])
+#define REPRO_WG_N32_REGS                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
+  "{%16, %17, %18, %19}, %20, p"
+#define REPRO_WG_N128_REGS                                                 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "                              \
+  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "                     \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "                     \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "                     \
+  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "                     \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "                     \
+  "%60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p"
+#define REPRO_WG_RS(shape_types, regs, tail, pred)                         \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, " pred ", 0;\n"                        \
+  "wgmma.mma_async.sync.aligned." shape_types " " regs tail ";\n}\n"
+
+template <int N>
+struct WgmmaKMajorB;
+
+template <>
+struct WgmmaKMajorB<32> {
+  static __device__ __forceinline__ void tf32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b,
+                                              bool accumulate) {
+    asm volatile(REPRO_WG_RS("m64n32k8.f32.tf32.tf32", REPRO_WG_N32_REGS,
+                             ", 1, 1", "%21")
+                 : REPRO_WG_D16(0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"((int)accumulate));
+  }
+  static __device__ __forceinline__ void bf16(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b,
+                                              bool accumulate) {
+    asm volatile(REPRO_WG_RS("m64n32k16.f32.bf16.bf16", REPRO_WG_N32_REGS,
+                             ", 1, 1, 0", "%21")
+                 : REPRO_WG_D16(0)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"((int)accumulate));
+  }
+};
+
+template <>
+struct WgmmaKMajorB<128> {
+  static __device__ __forceinline__ void tf32(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b,
+                                              bool accumulate) {
+    asm volatile(REPRO_WG_RS("m64n128k8.f32.tf32.tf32", REPRO_WG_N128_REGS,
+                             ", 1, 1", "%69")
+                 : REPRO_WG_D16(0), REPRO_WG_D16(16), REPRO_WG_D16(32),
+                   REPRO_WG_D16(48)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"((int)accumulate));
+  }
+  static __device__ __forceinline__ void bf16(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b,
+                                              bool accumulate) {
+    asm volatile(REPRO_WG_RS("m64n128k16.f32.bf16.bf16", REPRO_WG_N128_REGS,
+                             ", 1, 1, 0", "%69")
+                 : REPRO_WG_D16(0), REPRO_WG_D16(16), REPRO_WG_D16(32),
+                   REPRO_WG_D16(48)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"((int)accumulate));
+  }
+};
+
+#undef REPRO_WG_D16
+#undef REPRO_WG_N32_REGS
+#undef REPRO_WG_N128_REGS
+#undef REPRO_WG_RS
 
 // ------------------------------------------------------------ host ----
 

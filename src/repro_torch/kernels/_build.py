@@ -36,10 +36,11 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
 #: argtypes of every launcher (each returns the cudaError_t of its launch)
-#: and of flash_attention_last_path
+#: and of the two dispatch records (``*_last_path``)
 SIGNATURES = {
     "spmm_ell_launch": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
-    "tile_fused_gemm_spmm_wf0_launch": (_P,) * 6 + (_I,) * 8 + (_P,),
+    "tile_fused_gemm_spmm_wf0_launch": (_P,) * 6 + (_I,) * 9 + (_P,),
+    "tile_fused_gemm_spmm_wf0_last_path": (),
     "tile_fused_spmm_spmm_wf0_launch": (_P,) * 8 + (_I,) * 8 + (_P,),
     "flash_attention_launch": (_P,) * 4 + (_I,) * 6 + (_F,) + (_I,) * 3
     + (_P,),

@@ -45,20 +45,25 @@ SMEM_BYTES = 232_448
 MAX_COLUMN_BLOCK = 128
 
 
-def column_block(smem_rows: int, c_col: int) -> int:
+def column_block(smem_rows: int, c_col: int, fixed_bytes: int = 0) -> int:
     """Column block width ``cb`` of a wavefront-0 kernel: the block keeps
     ``smem_rows × cb`` f32 values in shared memory (D1 tile, plus C for
-    GeMM-SpMM).  The widest block up to ``MAX_COLUMN_BLOCK`` that fits,
-    halving down to 8; raises when even that does not fit."""
+    GeMM-SpMM) beside ``fixed_bytes`` that do not depend on ``cb`` (the
+    tile's ELL entries).  The widest block up to ``MAX_COLUMN_BLOCK`` that
+    fits, halving down to 8; raises when even that does not fit."""
     cb = max(min(c_col, MAX_COLUMN_BLOCK), 1)
-    while smem_rows * cb * 4 > SMEM_BYTES and cb > 8:
+
+    def need(cb):
+        return smem_rows * cb * 4 + fixed_bytes
+
+    while need(cb) > SMEM_BYTES and cb > 8:
         cb = max(cb // 2, 8)
-    if smem_rows * cb * 4 > SMEM_BYTES:
+    if need(cb) > SMEM_BYTES:
         raise ValueError(
-            f"a column block of {cb} f32 columns over {smem_rows} rows needs "
-            f"{smem_rows * cb * 4} bytes of shared memory, more than the "
-            f"{SMEM_BYTES} a block may use; inspect with a smaller tile "
-            f"(FusionSpec.ct_size / cache_size)")
+            f"a column block of {cb} f32 columns over {smem_rows} rows and "
+            f"{fixed_bytes} bytes of entries need {need(cb)} bytes of shared "
+            f"memory, more than the {SMEM_BYTES} a block may use; inspect "
+            f"with a smaller tile (FusionSpec.ct_size / cache_size)")
     return cb
 
 

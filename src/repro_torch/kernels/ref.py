@@ -59,6 +59,52 @@ def tile_fused_spmm_spmm_wf0(op1_cols, op1_vals, d1_spill, cols0, vals0, c,
     return d1.to(c.dtype), rows.to(c.dtype)
 
 
+# ---- yardsticks: the unfused library chains of the wavefront-0 kernels ----
+# Nothing in the port calls these; ``chip_smoke.py`` times them beside the
+# kernels as the library call that computes the same ``(d1, rows0)``.
+
+
+def ell_csr(cols, vals, n_cols: int, spill=None):
+    """The nonzero entries of an ELL (its leading axes flattened into rows),
+    plus COO spill lanes ``(rows, cols, vals)`` if given, as one
+    ``torch.sparse_csr_tensor`` of ``n_cols`` columns (duplicates summed)."""
+    w = cols.shape[-1]
+    cols = cols.reshape(-1, w).long()
+    vals = vals.reshape(-1, w)
+    keep = vals != 0
+    rows = torch.arange(cols.shape[0], device=cols.device)[:, None]
+    idx_r, idx_c, v = rows.expand_as(cols)[keep], cols[keep], vals[keep]
+    if spill is not None:
+        sr, sc, sv = spill
+        idx_r = torch.cat([idx_r, sr.long()])
+        idx_c = torch.cat([idx_c, sc.long()])
+        v = torch.cat([v, sv.to(v.dtype)])
+    coo = torch.sparse_coo_tensor(torch.stack([idx_r, idx_c]), v,
+                                  (cols.shape[0], n_cols),
+                                  check_invariants=True)
+    return coo.coalesce().to_sparse_csr()
+
+
+def fused_rows_csr(cols0, vals0, t: int):
+    """The tiles' fused rows as a CSR over the ``T0 * t`` rows of ``d1``
+    (global column ``v * t + col``)."""
+    return ell_csr(_tile_offsets(cols0, t), vals0, cols0.shape[0] * t)
+
+
+def gemm_spmm_wf0_library(csr0, b, c):
+    """``torch.matmul(b, c)``, then ``torch.sparse.mm`` of ``fused_rows_csr``
+    over it: ``d1`` and the fused rows ``(T0 * j0_max, c_col)``."""
+    d1 = torch.matmul(b, c)
+    return d1, torch.sparse.mm(csr0, d1)
+
+
+def spmm_spmm_wf0_library(csr1, csr0, c):
+    """``torch.sparse.mm`` of op-1 (``ell_csr`` of its ELL with its spill
+    lanes) over ``c``, then of ``fused_rows_csr`` over that ``d1``."""
+    d1 = torch.sparse.mm(csr1, c)
+    return d1, torch.sparse.mm(csr0, d1)
+
+
 def activation(h: torch.Tensor, act: str) -> torch.Tensor:
     """The FFN kernels' activation: ``gelu`` is the tanh approximation
     (``jax.nn.gelu``'s default), ``silu``, or ``none``."""

@@ -10,12 +10,68 @@ operand dtype), then the tile's fused rows
 the f32 tile in shared memory.  Wavefront 1 runs after the launch over the
 finished ``d1`` (``spmm.spmm_ell``): the kernel boundary is the paper's
 single barrier.
+
+Two device functions compute it; ``choose_path`` picks one by shape:
+``tile_fused_gemm_spmm_wf0_wgmma_kernel`` runs the product on Hopper's
+tensor cores (``wgmma``; f32 as three TF32 products, bf16 directly) in a
+persistent grid that stages C once per block, and
+``tile_fused_gemm_spmm_wf0_kernel`` runs it on the CUDA cores for the
+shapes the first cannot take.
 """
 from __future__ import annotations
 
 import torch
 
 from . import config, ref
+
+WGMMA_KERNEL = "tile_fused_gemm_spmm_wf0_wgmma_kernel"
+CORE_KERNEL = "tile_fused_gemm_spmm_wf0_kernel"
+#: the device function of each path code the launcher takes and reports
+PATHS = {0: WGMMA_KERNEL, 1: CORE_KERNEL, -1: "none"}
+#: columns of C a block of the wgmma kernel takes at once
+WGMMA_COLUMN_BLOCK = 128
+
+
+def wgmma_smem_bytes(t: int, b_col: int, c_col: int, j0: int, w0: int,
+                     dtype: torch.dtype) -> int:
+    """Dynamic shared memory of the wgmma kernel (``csrc`` twin:
+    ``wgmma_smem_bytes``): C's column block as the K-major B operand, in
+    128-byte blocks of k (1, 2 or 4) over N = 32 or 128 columns, twice for
+    f32 (tf32 hi and lo); a f32 D1 tile of row stride N + 8 and the tile's
+    fused-row entries (8 bytes each) for each of the two warpgroups; 1,024
+    bytes of alignment slack."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    kb = -(-b_col * esize // 128)
+    kb = kb if kb <= 2 else 4
+    n = 32 if c_col <= 32 else 128
+    copies = 2 if dtype == torch.float32 else 1
+    return (copies * kb * n * 128 + 2 * t * (n + 8) * 4 + 2 * j0 * w0 * 8
+            + 1024)
+
+
+def choose_path(t: int, b_col: int, c_col: int, j0: int, w0: int,
+                dtype: torch.dtype, aligned: bool = True) -> str:
+    """The device function that runs the shape: ``WGMMA_KERNEL`` where the
+    tensor-core kernel takes it, else ``CORE_KERNEL``: ``t`` a multiple of
+    64 (the wgmma's rows), ``b_col``
+    and ``c_col`` multiples of 8 (16-byte rows), B's row at most 512 bytes
+    (f32 ``b_col`` ≤ 128, bf16 ≤ 256), the kernel's shared memory within
+    ``config.SMEM_BYTES``, and B and C 16-byte aligned (``aligned``)."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    if (t % 64 or b_col % 8 or c_col % 8 or b_col * esize > 512
+            or not aligned):
+        return CORE_KERNEL
+    if wgmma_smem_bytes(t, b_col, c_col, j0, w0, dtype) > config.SMEM_BYTES:
+        return CORE_KERNEL
+    return WGMMA_KERNEL
+
+
+def last_path() -> str:
+    """The device function that the last launch on the card ran (the
+    launcher records its dispatch), ``"none"`` before any launch or for an
+    empty one."""
+    lib = config.kernel_library("cuda")
+    return PATHS[lib.tile_fused_gemm_spmm_wf0_last_path()]
 
 
 def tile_fused_gemm_spmm_wf0(cols0: torch.Tensor, vals0: torch.Tensor,
@@ -45,13 +101,21 @@ def tile_fused_gemm_spmm_wf0(cols0: torch.Tensor, vals0: torch.Tensor,
             f"tile_fused_gemm_spmm_wf0: cols0 {tuple(cols0.shape)}, vals0 "
             f"{tuple(vals0.shape)}, b {tuple(b.shape)}, c {tuple(c.shape)}, "
             f"t={t}")
-    cb = config.column_block(t + b_col, c_col)
+    aligned = b.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0
+    path = choose_path(t, b_col, c_col, j0, w0, c.dtype, aligned)
+    if path == WGMMA_KERNEL:
+        cb = min(c_col, WGMMA_COLUMN_BLOCK)
+    else:
+        # C and D1 blocks, then the tile's entries on a 16-byte boundary
+        cb = config.column_block(t + b_col, c_col,
+                                 fixed_bytes=j0 * w0 * 8 + 16)
     d1 = torch.empty((n_tiles * t, c_col), dtype=c.dtype, device=device)
     rows0 = torch.empty((n_tiles, j0, c_col), dtype=c.dtype, device=device)
     err = lib.tile_fused_gemm_spmm_wf0_launch(
         cols0.data_ptr(), vals0.data_ptr(), b.data_ptr(), c.data_ptr(),
         d1.data_ptr(), rows0.data_ptr(), n_tiles, t, b_col, c_col, j0, w0,
-        cb, config.DTYPE_CODES[c.dtype], config.stream_of(device))
+        cb, 0 if path == WGMMA_KERNEL else 1, config.DTYPE_CODES[c.dtype],
+        config.stream_of(device))
     config.raise_on_error(err, "tile_fused_gemm_spmm_wf0")
     tile_fused_gemm_spmm_wf0.launches += 1
     return d1, rows0

@@ -7,9 +7,10 @@ replaces the TPU kernel
 ``v`` of ``t`` rows: ``D1_t[k] = Σ_w op1_vals[v, k, w] · C[op1_cols[v, k, w]]
 + d1_spill[v·t + k]`` (op-1 hybrid-ELL body over global rows of ``C``, plus
 the caller's pre-accumulated hub-row tails), written to ``d1``; then the
-fused rows from the f32 tile, as in GeMM-SpMM.  Rows of ``C`` are gathered
-from device memory, so unlike the TPU kernel (which stages all of ``C`` and
-a ``(t, n)`` one-hot on chip) the kernel has no bound on ``n``.
+fused rows from the f32 tile, by the stage the GeMM-SpMM kernel shares.
+A warp computes a D1 row with 16-byte gathers of ``C``'s rows from device
+memory (L2), so unlike the TPU kernel (which stages all of ``C`` and a
+``(t, n)`` one-hot on chip) the kernel has no bound on ``n``.
 """
 from __future__ import annotations
 
@@ -53,7 +54,10 @@ def tile_fused_spmm_spmm_wf0(op1_cols: torch.Tensor, op1_vals: torch.Tensor,
             f"tile_fused_spmm_spmm_wf0: op1 {tuple(op1_cols.shape)}, d1_spill "
             f"{tuple(d1_spill.shape)}, cols0 {tuple(cols0.shape)}, c "
             f"{tuple(c.shape)}, t={t}")
-    cb = config.column_block(t, c_col)
+    # the D1 block, then the tile's op-1 and fused-row entries on a
+    # 16-byte boundary
+    cb = config.column_block(t, c_col,
+                             fixed_bytes=(t * w1 + j0 * w0) * 8 + 16)
     d1 = torch.empty((n_tiles * t, c_col), dtype=c.dtype, device=device)
     rows0 = torch.empty((n_tiles, j0, c_col), dtype=c.dtype, device=device)
     err = lib.tile_fused_spmm_spmm_wf0_launch(

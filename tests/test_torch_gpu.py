@@ -30,6 +30,7 @@ from repro_torch.core.sparse import random as gen
 from repro_torch.core.sparse.formats import CSR
 from repro_torch.core.tilefusion import api
 from repro_torch.kernels import flash_attention, ops, ref
+from repro_torch.kernels import tile_fused_gemm_spmm as gemm_wf0
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
 from repro_torch.models.gcn import GCN
@@ -88,11 +89,20 @@ def test_spmm_ell_kernel(card, n_rows, w, n, c, dtype):
     assert _rel_err(got, ref.spmm_ell(cols, vals, x)) <= TOL[dtype]
 
 
+# (3, 5, ...), t = 2048 and f32 rows of 1 KB (b_col 256) run the CUDA-core
+# kernel; the others the wgmma kernel: N = 128 and N = 32 (GCN layers 1
+# and 2), tile counts that leave warpgroups idle or uneven (7, 37, 300),
+# K = N = 8, c_col > 128 (two column blocks), w0 > 32 with a ragged last k
+# block (b_col 40), 512-byte rows of B in bf16
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_tiles,t,j0,w,b_col,c_col",
                          [(3, 5, 4, 3, 6, 7), (64, 64, 56, 17, 128, 128),
                           (16, 128, 120, 17, 128, 32), (2, 2048, 300, 9, 128,
-                                                        128)])
+                                                        128),
+                          (37, 64, 56, 17, 128, 128), (300, 128, 120, 17, 128,
+                                                        32),
+                          (7, 64, 30, 5, 8, 8), (5, 64, 60, 9, 64, 200),
+                          (3, 64, 60, 33, 40, 48), (9, 128, 100, 9, 256, 64)])
 def test_gemm_spmm_wf0_kernel(card, n_tiles, t, j0, w, b_col, c_col, dtype):
     g = torch.Generator().manual_seed(t)
     cols0, vals0 = _ell(g, (n_tiles, j0, w), t, card)
@@ -103,14 +113,88 @@ def test_gemm_spmm_wf0_kernel(card, n_tiles, t, j0, w, b_col, c_col, dtype):
     d1, rows0 = ops.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, t=t)
     want_d1, want_rows = ref.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, t=t)
     torch.cuda.synchronize()
+    assert gemm_wf0.last_path() == gemm_wf0.choose_path(t, b_col, c_col, j0,
+                                                        w, dtype)
+    assert _rel_err(d1, want_d1) <= TOL[dtype]
+    assert _rel_err(rows0, want_rows) <= TOL[dtype]
+
+
+def _misaligned_copy(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` that starts one element past an aligned
+    address."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+@pytest.mark.parametrize("dtype,t,b_col,c_col,aligned,path", [
+    (torch.float32, 64, 128, 128, True, "tile_fused_gemm_spmm_wf0_wgmma_kernel"),
+    (torch.bfloat16, 64, 128, 128, True,
+     "tile_fused_gemm_spmm_wf0_wgmma_kernel"),
+    (torch.float32, 128, 128, 32, True, "tile_fused_gemm_spmm_wf0_wgmma_kernel"),
+    (torch.bfloat16, 128, 128, 32, True,
+     "tile_fused_gemm_spmm_wf0_wgmma_kernel"),
+    (torch.float32, 64, 128, 128, False, "tile_fused_gemm_spmm_wf0_kernel"),
+    (torch.float32, 96, 128, 128, True, "tile_fused_gemm_spmm_wf0_kernel"),
+    (torch.bfloat16, 64, 128, 36, True, "tile_fused_gemm_spmm_wf0_kernel")])
+def test_gemm_spmm_wf0_dispatch_path(card, dtype, t, b_col, c_col, aligned,
+                                     path):
+    """Each path runs its own device function, as the launcher records it,
+    and agrees with the plain version."""
+    g = torch.Generator().manual_seed(t + c_col)
+    n_tiles, j0, w = 20, t - 8, 17
+    cols0, vals0 = _ell(g, (n_tiles, j0, w), t, card)
+    b = torch.randn(n_tiles * t, b_col, generator=g).to(card, dtype)
+    c = (torch.randn(b_col, c_col, generator=g) / b_col ** 0.5).to(card,
+                                                                   dtype)
+    if not aligned:
+        b = _misaligned_copy(b)
+        assert b.data_ptr() % 16 != 0 and b.is_contiguous()
+    vals0 = vals0.to(dtype)
+    d1, rows0 = ops.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, t=t)
+    torch.cuda.synchronize()
+    assert gemm_wf0.last_path() == path
+    want_d1, want_rows = ref.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, t=t)
     assert _rel_err(d1, want_d1) <= TOL[dtype]
     assert _rel_err(rows0, want_rows) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["gemm", "spmm"])
+def test_wf0_kernels_are_deterministic(card, kernel, dtype):
+    """No float atomics: the same inputs give the same bits, at the GCN
+    layer-1 shape (GeMM-SpMM, wgmma) and the SpMM-SpMM phase-3 shape."""
+    g = torch.Generator().manual_seed(11)
+    if kernel == "gemm":
+        cols0, vals0 = _ell(g, (64, 56, 17), 64, card)
+        args = (cols0, vals0.to(dtype),
+                torch.randn(64 * 64, 128, generator=g).to(card, dtype),
+                (torch.randn(128, 128, generator=g) / 128 ** 0.5).to(card,
+                                                                     dtype))
+        run = lambda: ops.tile_fused_gemm_spmm_wf0(*args, t=64)  # noqa: E731
+    else:
+        op1_cols, op1_vals = _ell(g, (32, 128, 13), 4096, card)
+        cols0, vals0 = _ell(g, (32, 120, 17), 128, card)
+        args = (op1_cols, op1_vals.to(dtype),
+                torch.randn(32 * 128, 128, generator=g).to(card, dtype),
+                cols0, vals0.to(dtype),
+                torch.randn(4096, 128, generator=g).to(card, dtype))
+        run = lambda: ops.tile_fused_spmm_spmm_wf0(*args, t=128)  # noqa: E731
+    first = run()
+    again = run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_tiles,t,j0,w0,w1,n,c_col",
                          [(3, 5, 4, 3, 2, 40, 7), (32, 128, 120, 17, 13,
-                                                   4096, 128)])
+                                                   4096, 128),
+                          # 20 op-1 entries: two rounds of 16 gathers; 32
+                          # columns: 4 rows a warp; 200: two column blocks
+                          (9, 64, 60, 9, 20, 3000, 32), (4, 96, 90, 5, 3, 500,
+                                                         200)])
 def test_spmm_spmm_wf0_kernel(card, n_tiles, t, j0, w0, w1, n, c_col, dtype):
     g = torch.Generator().manual_seed(t + n)
     op1_cols, op1_vals = _ell(g, (n_tiles, t, w1), n, card)
