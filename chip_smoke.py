@@ -17,11 +17,14 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                ``fused_ffn``, ``flash_attention`` or ``gemm_spmm``; fails
                when the bf16 FFN kernel, the bf16 flash ``wgmma`` kernel or
                any instance of the GeMM-SpMM ``wgmma`` kernel has no
-               ``HGMMA``.
+               ``HGMMA``.  The hybrid SpMM's functions print their
+               registers and spills, and the build fails if any of them
+               holds a float atomic (``RED`` / ``ATOM*`` on F32, F16, BF16).
   3. kernels — each kernel against its plain PyTorch version at every
                shape the main path gives it (GCN layers 1 and 2, the
-               power-law body, SpMM-SpMM; taken from the real schedules
-               below, whose device copies the main path then reuses), f32
+               power-law hybrid product, SpMM-SpMM; taken from the real
+               schedules below, whose device copies the main path then
+               reuses), f32
                and bf16: max abs / relative error, time (CUDA events), the
                bound (larger of compulsory bytes / 3.35 TB/s and operations
                / peak rate: nonzero entries, needed table rows and real
@@ -36,7 +39,16 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                the fused rows).  The GeMM-SpMM cases print the device
                function the launcher dispatched, and GCN layers 1 and 2
                must run ``tile_fused_gemm_spmm_wf0_wgmma_kernel`` in f32
-               and bf16.
+               and bf16.  ``spmm_ell`` runs body-only at wavefront 1,
+               then as the path runs it: banded wavefront 1
+               at both layers with its tails, written in place at
+               ``j_rows1``, and the power-law graph's whole hybrid product
+               at 128 and 32 columns; each of those is timed beside the
+               chain it replaced (body-only call, ``index_copy_`` where
+               it applies, ``fused_ops._spill_add``) and ``torch.sparse.mm``
+               of the same matrix (f32); its bound counts tail lanes like
+               body entries.  The power-law cases must take the split-row
+               path (``row+split``) and give the same bits twice.
   4. tile_fused_matmul on ``banded_spd(131072, 8)``, GeMM-SpMM and
                SpMM-SpMM at 128 columns: the ``auto`` pick must be
                ``cuda``; the result must match ``backend="torch"`` on the
@@ -52,7 +64,10 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                power-law (unfused arm).  Each answer is held to the
                ``backend="torch"`` forward.
   6. trace   — one more request per graph under ``torch.profiler``: device
-               time by kernel and the device's busy share of the request.
+               time by kernel and the device's busy share of the request;
+               fails on any ``index_add_`` in either request, or on more
+               ``index_copy_`` calls than fused layers (the scatter of
+               wavefront 0's rows; wavefront 1 is written in place).
   7. LM kernels — flash attention, the fused FFN and the fused MoE FFN
                through their entry points (``kernels.ops``) at published
                widths (qwen2.5-3b prefill, hymba-1.5b's window, Whisper's
@@ -88,8 +103,9 @@ Phases, in order (any failure exits non-zero; no exception is caught):
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after: phases 4-5 (the GCN path) must launch the three sparse
-kernels, phase 7's entry-point calls the FFN and MoE kernels, and phase 8
-the flash kernel exactly once per layer of the prefill.  Launches made to
+kernels, ``spmm_ell`` in every request of both graphs, phase 7's
+entry-point calls the FFN and MoE kernels, and phase 8 the flash kernel
+exactly once per layer of the prefill.  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON record (with each kernel's tensor-core instruction count
@@ -101,6 +117,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -122,6 +139,9 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}           # kernel vs plain, rel
 # H summed over f (tests/test_torch_lm_kernels.py grounds it)
 LM_BF16_TOL = 2.0 ** -6
 MAIN_TOL = 2e-3                                      # path vs references
+# phase 3: the sleep kernel that the queued timings wait behind (about 10
+# ms at the H100's clock), longer than the host takes to queue 20 calls
+SLEEP_CYCLES = 20_000_000
 
 # phase 7: (name, kernel, shape and options) at published widths
 LM_CASES = [
@@ -160,13 +180,17 @@ GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
 # phase 2: the functions of each kernel in the library's SASS (a part of the
 # mangled name); the FFN and MoE launchers share one kernel
-KERNEL_FUNCTIONS = {"spmm_ell": "spmm_ell", "tile_fused_gemm_spmm_wf0":
+KERNEL_FUNCTIONS = {"spmm_ell": "spmm_hybrid", "tile_fused_gemm_spmm_wf0":
                     "gemm_spmm", "tile_fused_spmm_spmm_wf0": "spmm_spmm",
                     "flash_attention": "flash_attention",
                     "fused_ffn": "fused_ffn", "fused_moe_ffn": "fused_ffn"}
 TC_OPCODES = ("HGMMA", "HMMA")   # wgmma and mma.sync in SASS
+FLOAT_ATOMIC_TYPES = ("F32", "F16", "BF16")
 # the bf16 flash kernel on wgmma (head dim 64 or 128, aligned rows)
 FLASH_WGMMA = "flash_attention_wgmma_kernel"
+# the phase-3 case whose numbers stand for spmm_ell in the JSON record: the
+# power-law GCN's layer-1 hybrid product, body and tails (f32)
+SPMM_RECORD = "spmm_ell (power-law hybrid, 128 columns)"
 # the GeMM-SpMM kernel on wgmma (GCN layers 1 and 2 must run it)
 GEMM_WGMMA = "tile_fused_gemm_spmm_wf0_wgmma_kernel"
 
@@ -184,24 +208,55 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def sass_tensor_ops(library: Path) -> dict:
-    """{function name: number of HGMMA / HMMA instructions} over every
-    function in ``cuobjdump -sass`` of the kernel library."""
+def sass_scan(library: Path) -> tuple:
+    """``({function: HGMMA / HMMA instructions}, {function: float atomics})``
+    over every function in ``cuobjdump -sass`` of the kernel library; a
+    float atomic is a ``RED`` or ``ATOM*`` instruction on F32, F16 or
+    BF16."""
     from repro_torch.kernels import _build
     tool = Path(_build.nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(library)],
                          capture_output=True, text=True, check=True,
                          timeout=300).stdout
-    counts, name = {}, None
+    counts, atomics, name = {}, {}, None
     for line in out.splitlines():
         line = line.strip()
         if line.startswith("Function : "):
             name = line[len("Function : "):]
-            counts[name] = 0
-        elif name is not None and any(f" {op}." in line or f" {op} " in line
-                                      for op in TC_OPCODES):
-            counts[name] += 1
-    return counts
+            counts[name] = atomics[name] = 0
+        elif name is not None:
+            if any(f" {op}." in line or f" {op} " in line
+                   for op in TC_OPCODES):
+                counts[name] += 1
+            words = line.split("*/", 1)[-1].split()
+            words = [w for w in words if not w.startswith("@")]
+            op = words[0] if words else ""
+            if (op.startswith(("RED", "ATOM"))
+                    and any(t in op for t in FLOAT_ATOMIC_TYPES)):
+                atomics[name] += 1
+    return counts, atomics
+
+
+def ptxas_report(log: str) -> dict:
+    """{function: (registers, spill store bytes, spill load bytes)} from
+    ``-Xptxas -v`` in the build log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [0, 0, 0]
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def main(device: str = "cuda") -> None:
@@ -221,6 +276,7 @@ def main(device: str = "cuda") -> None:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.flash_attention import (
         last_path as flash_last_path)
+    from repro_torch.kernels.spmm import last_path as spmm_last_path
     from repro_torch.kernels.tile_fused_gemm_spmm import (
         last_path as gemm_last_path)
     from repro_torch.launch import serve, steps
@@ -251,7 +307,18 @@ def main(device: str = "cuda") -> None:
         if any(k in line for k in ("Compiling entry", "registers", "spill",
                                    "smem", "error", "C75")):
             print(f"[2 build] {line.strip()}")
-    sass = sass_tensor_ops(build.path)
+    sass, float_atomics = sass_scan(build.path)
+    for fn, (regs, st, ld) in ptxas_report(build.log).items():
+        if "spmm_hybrid" in fn:
+            print(f"[2 build] ptxas {fn}: {regs} registers, spill stores "
+                  f"{st} bytes, spill loads {ld} bytes")
+    spmm_atomics = {f: n for f, n in float_atomics.items()
+                    if KERNEL_FUNCTIONS["spmm_ell"] in f}
+    print(f"[2 build] float atomics in the {len(spmm_atomics)} spmm "
+          f"functions' SASS: {sum(spmm_atomics.values())}")
+    if not spmm_atomics or any(spmm_atomics.values()):
+        fail(f"spmm functions with float atomics (or none found): "
+             f"{spmm_atomics}")
     tensor_core_ops = {k: sum(n for f, n in sass.items() if part in f)
                        for k, part in KERNEL_FUNCTIONS.items()}
     for fn, n in sass.items():
@@ -325,6 +392,23 @@ def main(device: str = "cuda") -> None:
                                .clamp_min(1e-30)).max())
         return err, err / max(float(want.abs().max()), 1e-30)
 
+    def queued_ms(fn, iters=20):
+        """Like ``time_ms``, with the calls queued behind a sleep kernel of
+        about 10 ms, so the device never waits for the host's wrappers:
+        the device's own pace for a call whose kernels are short."""
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
     # ---- 3. kernels against their plain versions ----
     # The bound counts compulsory bytes only: the index and value of each
     # nonzero ELL entry (pad slots hold value 0 and are not needed), the
@@ -396,30 +480,128 @@ def main(device: str = "cuda") -> None:
                 lambda: ref.spmm_ell(st.cols1, st.vals1, x),
                 moved, 2.0 * int((st.vals1 != 0).sum()) * x.shape[1], lib)
 
+    def tail_rows(tails):
+        """The row of each spill lane of a tail plan (lanes are sorted by
+        row)."""
+        r, ch = tails.ranges.long(), tails.chunks.long()
+        counts = (r[:, 1] - r[:, 0]).clamp_min(0)
+        counts.index_add_(0, ch[:, 0], ch[:, 2] - ch[:, 1])
+        return torch.repeat_interleave(
+            torch.arange(len(counts), device=dev), counts)
+
+    def hybrid_moved(cols, vals, tails, x, n_written, out_rows=None):
+        """Compulsory bytes of a hybrid product: each nonzero body entry and
+        each tail lane (index and value, alike), the tail plan, the
+        target-row map, the rows of x that a nonzero names, and the rows
+        written."""
+        plan = sum(t.numel() * t.element_size() for t in (
+            tails.ranges, tails.chunks, tails.split_rows, tails.split_ptr))
+        named = torch.unique(torch.cat([cols[vals != 0],
+                                        tails.cols[tails.vals != 0]]))
+        return (nz_bytes(cols, vals) + nz_bytes(tails.cols, tails.vals)
+                + plan + (0 if out_rows is None else out_rows.numel() * 4)
+                + row_bytes(named.numel(), x) + row_bytes(n_written, x))
+
+    def hybrid_ops(vals, tails, c):
+        return 2.0 * (int((vals != 0).sum())
+                      + int((tails.vals != 0).sum())) * c
+
+    def hybrid_library(cols, vals, tails, x):
+        """``torch.sparse.mm`` of the same matrix (body nonzeros and tail
+        lanes as one CSR; f32 only)."""
+        if x.dtype != torch.float32:
+            return None
+        csr = ref.ell_csr(cols, vals, x.shape[0],
+                          (tail_rows(tails), tails.cols, tails.vals))
+        return lambda: torch.sparse.mm(csr, x)
+
+    def wf1_hybrid_case(label, entry, dtype):
+        """``spmm_ell`` as the kernel arms run wavefront 1: body and tails
+        over the finished D1, written in place into D at ``j_rows1``; the
+        chain it replaces is the body-only call, ``index_copy_`` and
+        ``_spill_add``."""
+        ds = entry.dsched
+        st = fused_ops.schedule_tensors(ds, dev, dtype)
+        n_j, c = ds.n_j, entry.c_col
+        x = randn(ds.n_i, c).to(dtype)
+        d0 = randn(n_j + 1, c).to(dtype)    # what wavefront 0 left in D
+        outs = {k: d0.clone() for k in ("kernel", "plain", "chain")}
+        kw = dict(tails=st.tails1, out_rows=st.j_rows1_32)
+
+        def chain():
+            d = outs["chain"]
+            d.index_copy_(0, st.j_rows1, ops.spmm_ell(st.cols1, st.vals1, x))
+            return fused_ops._spill_add(d, st.spill_rows1, st.spill_cols1,
+                                        st.spill_vals1, x)[:n_j]
+        return ("spmm_ell" + label,
+                lambda: ops.spmm_ell(st.cols1, st.vals1, x,
+                                     out=outs["kernel"][:n_j], **kw),
+                lambda: ref.spmm_ell(st.cols1, st.vals1, x,
+                                     out=outs["plain"][:n_j], **kw),
+                hybrid_moved(st.cols1, st.vals1, st.tails1, x,
+                             real_rows(ds.j_rows1, n_j), st.j_rows1_32),
+                hybrid_ops(st.vals1, st.tails1, c),
+                hybrid_library(st.cols1, st.vals1, st.tails1, x),
+                # the library product has one row a packed slot (zeros for
+                # pad slots): D's rows at j_rows1
+                dict(chain=chain, lib_rows=lambda w: torch.cat(
+                    [w, torch.zeros_like(w[:1])])[st.j_rows1]))
+
+    def powerlaw_case(c, dtype):
+        """The unfused arm's whole hybrid product on the power-law graph
+        (width cap auto); the chain it replaces is the body-only call and
+        ``_spill_add``."""
+        pl = models["powerlaw"]
+        cap = api._resolve_width_cap(pl.adj, "auto")
+        hell = api._csr_ell(pl.adj, cap, dev, dtype)
+        _, _, srows, scols, svals = fused_ops.csr_to_ell(
+            pl.adj, cap).to_torch(dev, dtype)
+        x = randn(N_NODES, c).to(dtype)
+        return (f"spmm_ell (power-law hybrid, {c} columns)",
+                lambda: ops.spmm_ell(hell.cols, hell.vals, x,
+                                     tails=hell.tails),
+                lambda: ref.spmm_ell(hell.cols, hell.vals, x,
+                                     tails=hell.tails),
+                hybrid_moved(hell.cols, hell.vals, hell.tails, x, N_NODES),
+                hybrid_ops(hell.vals, hell.tails, c),
+                hybrid_library(hell.cols, hell.vals, hell.tails, x),
+                dict(chain=lambda: fused_ops._spill_add(
+                    ops.spmm_ell(hell.cols, hell.vals, x), srows, scols,
+                    svals, x), path="row+split", bitwise=True))
+
     def kernel_cases(dtype):
         """(name, kernel call, plain call, compulsory bytes, operations,
-        library call or None) at every shape the main path gives each
-        kernel: GCN layers 1 and 2, the power-law body, SpMM-SpMM.  A
-        library call returns what the kernel returns, the fused rows
-        flattened to (T0 * j0_max, c_col)."""
+        library call or None[, extra]) at every shape the main path gives
+        each kernel: GCN layers 1 and 2, the power-law hybrid product,
+        SpMM-SpMM.  A library call returns what the kernel returns, the
+        fused rows flattened to (T0 * j0_max, c_col).  ``extra`` may name
+        the chain a kernel replaces (timed beside it), the path the
+        launcher must record, and whether two calls must give the same
+        bits."""
         layer1, layer2 = models["banded"].entries
         yield gemm_case("", layer1, dtype)
         yield gemm_case(" (GCN layer 2)", layer2, dtype)
         yield wf1_case("", layer1, dtype)
         yield wf1_case(" (GCN layer 2 wf1)", layer2, dtype)
+        yield wf1_hybrid_case(" (banded wf1 + tails, layer 1)", layer1,
+                              dtype)
+        yield wf1_hybrid_case(" (banded wf1 + tails, layer 2)", layer2,
+                              dtype)
+        yield powerlaw_case(128, dtype)
+        yield powerlaw_case(32, dtype)
 
         pl = models["powerlaw"]
         hell = api._csr_ell(pl.adj, api._resolve_width_cap(pl.adj, "auto"),
                             dev, dtype)
         x = randn(N_NODES, 128).to(dtype)
         yield ("spmm_ell (power-law unfused body)",
-               lambda: ops.spmm_ell(hell[0], hell[1], x),
-               lambda: ref.spmm_ell(hell[0], hell[1], x),
-               nz_bytes(hell[0], hell[1])
-               + gathered_bytes(hell[0], hell[1], x)
-               + row_bytes(hell[0].shape[0], x),
-               2.0 * int((hell[1] != 0).sum()) * 128,
-               sparse_mm(hell[0], hell[1], x))
+               lambda: ops.spmm_ell(hell.cols, hell.vals, x),
+               lambda: ref.spmm_ell(hell.cols, hell.vals, x),
+               nz_bytes(hell.cols, hell.vals)
+               + gathered_bytes(hell.cols, hell.vals, x)
+               + row_bytes(hell.cols.shape[0], x),
+               2.0 * int((hell.vals != 0).sum()) * 128,
+               sparse_mm(hell.cols, hell.vals, x))
 
         ds = e_spmm.dsched
         st = fused_ops.schedule_tensors(ds, dev, dtype)
@@ -450,7 +632,9 @@ def main(device: str = "cuda") -> None:
     records = {}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[1]
-        for name, kern, plain, moved, n_ops, lib in kernel_cases(dtype):
+        for name, kern, plain, moved, n_ops, lib, *more in kernel_cases(
+                dtype):
+            extra = more[0] if more else {}
             got, want = kern(), plain()
             torch.cuda.synchronize()
             path = None
@@ -459,6 +643,19 @@ def main(device: str = "cuda") -> None:
                 print(f"[3 kernels] {name} {dname}: ran {path}")
                 if path != GEMM_WGMMA:
                     fail(f"{name} {dname}: ran {path}, not {GEMM_WGMMA}")
+            if name.startswith("spmm_ell"):
+                path = spmm_last_path()
+                print(f"[3 kernels] {name} {dname}: ran {path}")
+                if path != extra.get("path", path):
+                    fail(f"{name} {dname}: ran {path}, not {extra['path']}")
+            if extra.get("bitwise"):
+                again = kern()
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    fail(f"{name} {dname}: two calls differ")
+                print(f"[3 kernels] {name} {dname}: two calls give the same "
+                      f"bits")
+                del again
             if isinstance(got, torch.Tensor):
                 got, want = (got,), (want,)
             errs = [rel_err(g, w) for g, w in zip(got, want)]
@@ -473,14 +670,26 @@ def main(device: str = "cuda") -> None:
                 lib_out = lib()
                 if isinstance(lib_out, torch.Tensor):
                     lib_out = (lib_out,)
-                lib_err = max(rel_err(g, w.reshape(g.shape))[1]
+                rows = extra.get("lib_rows", lambda w: w)
+                lib_err = max(rel_err(g, rows(w).reshape(g.shape))[1]
                               for g, w in zip(lib_out, want))
                 lib_ms = time_ms(lib)
+            chain_ms = chain_note = None
+            if "chain" in extra:
+                chain_rel = rel_err(extra["chain"](), want[0])[1]
+                chain_ms = time_ms(extra["chain"])
+                # a short kernel is paced by its host wrapper: the same
+                # calls queued behind a sleep give the device's pace
+                chain_note = (f" replaced chain={chain_ms:.4f} ms (rel "
+                              f"{chain_rel:.1e}); queued: kernel "
+                              f"{queued_ms(kern):.4f} ms, chain "
+                              f"{queued_ms(extra['chain']):.4f} ms")
             rec = dict(ms=ms, plain_ms=plain_ms,
                        bound_ms=max(bound_bytes, bound_ops),
                        bound_by="bytes" if bound_bytes >= bound_ops
                        else "operations", library_ms=lib_ms,
-                       max_abs_err=abs_err, path=path)
+                       max_abs_err=abs_err, path=path,
+                       replaced_chain_ms=chain_ms)
             cores = ""
             if dtype == torch.float32:
                 at_67 = max(bound_bytes,
@@ -493,7 +702,7 @@ def main(device: str = "cuda") -> None:
                   f"{moved / 1e6:.1f} MB, {n_ops / 1e9:.3f} Gop) "
                   f"share={rec['bound_ms'] / ms:.3f}{cores}"
                   + (f" library={lib_ms:.4f} ms (rel {lib_err:.1e})"
-                     if lib_ms is not None else ""))
+                     if lib_ms is not None else "") + (chain_note or ""))
             if rel > TOL[dname]:
                 fail(f"{name} {dname}: rel err {rel:.3e} > {TOL[dname]}")
             records[(name, dname)] = rec
@@ -560,6 +769,8 @@ def main(device: str = "cuda") -> None:
                     or err > MAIN_TOL):
                 fail(f"phase 5 {gname} request {r}: shape "
                      f"{tuple(logits.shape)}, rel err {err:.2e}")
+        if any(p["spmm_ell"] == 0 for p in per_req):
+            fail(f"phase 5 {gname}: a request launched no spmm_ell")
         serve_p50_ms[gname] = float(np.median(lat))
         print(f"[5 gcn] {gname}: {REQUESTS} requests, p50="
               f"{float(np.median(lat)):.3f} ms max={max(lat):.3f} ms "
@@ -633,9 +844,20 @@ def main(device: str = "cuda") -> None:
               f"request: {device_us / wall_us:.3f} of the profiled wall "
               f"({wall_us / 1e3:.3f} ms), {device_us / p50_us:.3f} of the "
               f"phase-5 p50 ({p50_us / 1e3:.3f} ms)")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
             print(f"[6 trace] {gname}:   {e.self_device_time_total:9.1f} us"
                   f"  x{e.count:<3d} {e.key[:90]}")
+        # the spill lanes and wavefront 1 go through the hybrid kernel: no
+        # scatter-add on either path, and index_copy_ only for the scatter
+        # of wavefront 0's fused rows (one a fused layer)
+        calls = {e.key: e.count for e in prof.key_averages()
+                 if e.key in ("aten::index_add_", "aten::index_copy_")}
+        fused_layers = model.layer_backends().count("cuda")
+        print(f"[6 trace] {gname}: {calls or 'no index_add_ / index_copy_'}"
+              f" ({fused_layers} fused layers)")
+        if (calls.get("aten::index_add_", 0)
+                or calls.get("aten::index_copy_", 0) > fused_layers):
+            fail(f"phase 6 {gname}: {calls} in one request")
 
     # ---- 7. LM kernels through their entry points ----
     import torch.nn.functional as F
@@ -892,7 +1114,7 @@ def main(device: str = "cuda") -> None:
     }
     # the device function each record's case ran (the launchers' records
     # for the kernels with several paths)
-    paths = {"spmm_ell": "spmm_ell_kernel",
+    paths = {"spmm_ell": records[(SPMM_RECORD, "float32")]["path"],
              "tile_fused_gemm_spmm_wf0": records[(
                  "tile_fused_gemm_spmm_wf0", "float32")]["path"],
              "tile_fused_spmm_spmm_wf0": "tile_fused_spmm_spmm_wf0_kernel",
@@ -904,7 +1126,11 @@ def main(device: str = "cuda") -> None:
         # the GCN kernels' records are f32 (the GCN path's dtype), the LM
         # kernels' bf16 (the LM serving dtype)
         rec = (records[(LM_RECORD[name], "bfloat16")] if name in LM_RECORD
-               else records[(name, "float32")])
+               else records[(SPMM_RECORD if name == "spmm_ell" else name,
+                             "float32")])
+        extra = ({} if name != "spmm_ell" else
+                 dict(case=SPMM_RECORD,
+                      replaced_chain_ms=rec["replaced_chain_ms"]))
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=path_launches[name],
@@ -914,7 +1140,7 @@ def main(device: str = "cuda") -> None:
                             bound_by=rec["bound_by"],
                             library_ms=rec["library_ms"],
                             tensor_core_ops=tensor_core_ops[name],
-                            path=paths[name]))
+                            path=paths[name], **extra))
     print(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))

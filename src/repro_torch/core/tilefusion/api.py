@@ -24,10 +24,11 @@ Twin of ``repro.core.tilefusion.api``, forward path.
      plain path on the card.
 
 The ``"cuda"`` arm is wavefront 0 in one fused kernel, the kernel boundary
-as the paper's single barrier, then wavefront 1 as the ELL SpMM kernel over
-the finished D1 and the spill lanes as one ``index_add_``.  The unfused arm
-runs ``B @ C`` as a plain matmul and its hybrid-ELL body through the same
-ELL kernel on the card.  The reference's VMEM feasibility check of the
+as the paper's single barrier, then wavefront 1 (hybrid-ELL body and spill
+tails) as one call of the ELL SpMM kernel over the finished D1, written in
+place into D.  The unfused arm runs ``B @ C`` as a plain matmul and each
+hybrid-ELL product, tails included, through the same ELL kernel on the
+card.  The reference's VMEM feasibility check of the
 SpMM-SpMM kernel has no counterpart: the CUDA kernel gathers rows of ``C``
 from device memory instead of staging all of it.
 
@@ -201,10 +202,12 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
     return entry
 
 
-def _csr_ell(a: CSR, width_cap: int | None, device, dtype) -> tuple:
+def _csr_ell(a: CSR, width_cap: int | None, device,
+             dtype) -> fused_ops.HybridTensors:
     """Full-matrix hybrid ELL of ``a`` on ``device`` (the unfused arm's
-    format), memoized per (content, cap); its device copies per (device,
-    dtype) beside it.  Check-and-build happens under one lock hold."""
+    format), memoized per (content, cap); its device copies, with the
+    kernel's tail plan, per (device, dtype) beside it.  Check-and-build
+    happens under one lock hold."""
     key = (csr_content_digest(a), width_cap)
     with _ell_lock:
         hit = _cache_get(_ell_cache, key)
@@ -215,7 +218,8 @@ def _csr_ell(a: CSR, width_cap: int | None, device, dtype) -> tuple:
         dkey = (fused_ops.device_key(device), dtype)
         tensors = on_device.get(dkey)
         if tensors is None:
-            tensors = on_device[dkey] = hell.to_torch(device, dtype)
+            tensors = on_device[dkey] = fused_ops.HybridTensors.upload(
+                hell, device, dtype)
     return tensors
 
 

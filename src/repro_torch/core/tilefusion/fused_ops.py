@@ -4,9 +4,13 @@ Twin of ``repro.core.tilefusion.fused_ops``.  ``fused_gemm_spmm`` /
 ``fused_spmm_spmm`` are the plain PyTorch fused codes (the paper's
 Listing 1 / Listing 3, batched over tiles): the twin of the reference's
 ``"xla"`` arm, which ``api`` runs as ``backend="torch"``.  ``unfused_*``
-are the two-call baselines; their ELL body pass goes through the
-``spmm_ell`` kernel wrapper (the kernel on the card, its plain version on
-the CPU) and their spill lanes through one ``index_add_``.
+are the two-call baselines; each hybrid-ELL product in them (body and spill
+tails) is one call of the ``spmm_ell`` kernel wrapper (the kernel on the
+card, its plain version on the CPU), as is wavefront 1 of the kernel arms,
+written in place into ``D``.  ``index_add_`` of spill lanes remains only on
+``backend="torch"`` (``_spill_add``, the twin of the reference's ``.at[]
+.add``) and in ``op1_spill``, the dense spill input of the SpMM-SpMM
+kernel.
 
 Every executor runs where its operands live.  The schedule's index and
 value arrays are uploaded once per ``(device, dtype)`` and memoized on the
@@ -25,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ...kernels import ops as kops
+from ...kernels import spmm as kspmm
 from ..sparse.formats import (CSR, HybridELL, csr_content_digest,
                               ell_slot_coords)
 from .schedule import DeviceSchedule
@@ -79,6 +84,8 @@ class ScheduleTensors:
     spill_vals1: torch.Tensor  # operand dtype
     tile_rows: torch.Tensor    # (T0, t_pad) int64 D1 row of each tile slot
     tile_valid: torch.Tensor   # (T0, t_pad) bool, slot < i_len
+    #: the host schedule whose wavefront-1 arrays build ``tails1``
+    ds: DeviceSchedule = dataclasses.field(repr=False, compare=False)
 
     @functools.cached_property
     def flat_cols0(self) -> torch.Tensor:
@@ -89,6 +96,32 @@ class ScheduleTensors:
     @functools.cached_property
     def cols1_64(self) -> torch.Tensor:
         return self.cols1.long()
+
+    @functools.cached_property
+    def j_rows1_32(self) -> torch.Tensor:
+        """The ``spmm_ell`` kernel's int32 target rows of wavefront 1."""
+        return self.j_rows1.to(torch.int32)
+
+    @functools.cached_property
+    def tails1(self) -> kspmm.Tails:
+        """Wavefront 1's spill lanes as the kernel's row tails, built and
+        uploaded once."""
+        return kspmm.Tails.upload(wf1_tail_plan(self.ds), self.ds.spill_cols1,
+                                  self.ds.spill_vals1, self.cols1.device,
+                                  self.vals1.dtype)
+
+
+def wf1_tail_plan(ds: DeviceSchedule,
+                  max_chunk: int = kspmm.MAX_CHUNK) -> kspmm.TailPlan:
+    """The tail plan of wavefront 1's packed rows (the flat ``j_rows1``):
+    spill lanes, keyed by D row, map to their row's packed slot; pad slots
+    get empty ranges."""
+    j_flat = np.asarray(ds.j_rows1, np.int64).reshape(-1)
+    slot_of = np.full(ds.n_j + 1, -1, np.int64)
+    real = np.flatnonzero(j_flat != ds.n_j)
+    slot_of[j_flat[real]] = real
+    return kspmm.plan_tails(slot_of[np.asarray(ds.spill_rows1, np.int64)],
+                            j_flat.size, max_chunk)
 
 
 def device_key(device) -> str:
@@ -139,7 +172,8 @@ def schedule_tensors(ds: DeviceSchedule, device, dtype) -> ScheduleTensors:
         tile_rows=idx(np.asarray(ds.i_starts, np.int64)[:, None]
                       + slot[None, :]),
         tile_valid=idx(slot[None, :] < np.asarray(ds.i_lens)[:, None],
-                       torch.bool))
+                       torch.bool),
+        ds=ds)
     memo[key] = st
     return st
 
@@ -170,13 +204,20 @@ def stitch_d1(ds: DeviceSchedule, st: ScheduleTensors,
 
 def _wf1(st: ScheduleTensors, d: torch.Tensor, d1: torch.Tensor, *,
          kernel: bool = False) -> torch.Tensor:
-    """Post-barrier wavefront 1 over the finished D1: the hybrid ELL body
-    (through the ELL SpMM kernel wrapper on the kernel arms, the plain
-    version on the torch arm), then the spill lanes as one scatter-add."""
+    """Post-barrier wavefront 1 over the finished D1, into ``d`` (``n_j +
+    1`` rows, the last one dropped).  The kernel arms make one call of the
+    hybrid-ELL kernel wrapper, which writes body plus tail in place at
+    ``j_rows1`` (pad slots, index ``n_j``, are not written); the torch arm
+    runs the body's plain version, an ``index_copy_`` and the spill lanes'
+    scatter-add.  Overwriting ``d`` there is right because wavefront-1 rows
+    are disjoint from wavefront 0's."""
+    if kernel:
+        if st.j_rows1.numel():
+            kops.spmm_ell(st.cols1, st.vals1, d1, tails=st.tails1,
+                          out=d[: d.shape[0] - 1], out_rows=st.j_rows1_32)
+        return d
     if st.j_rows1.numel():
-        body = (kops.spmm_ell(st.cols1, st.vals1, d1) if kernel
-                else spmm_ell(st.cols1_64, st.vals1, d1))
-        d.index_copy_(0, st.j_rows1, body)
+        d.index_copy_(0, st.j_rows1, spmm_ell(st.cols1_64, st.vals1, d1))
     return _spill_add(d, st.spill_rows1, st.spill_cols1, st.spill_vals1, d1)
 
 
@@ -326,19 +367,41 @@ def spmm_ell(cols, vals, x):
     return _ell_rows(cols.long(), vals.to(x.dtype), x)
 
 
-def spmm_hybrid(cols, vals, srows, scols, svals, x):
-    """Hybrid-ELL SpMM: the body through the ``spmm_ell`` kernel wrapper
-    (the CUDA kernel for CUDA tensors), then the spill-lane scatter-add."""
-    d = kops.spmm_ell(cols, vals, x)
-    return _spill_add(d, srows, scols, svals, x)
+@dataclasses.dataclass(frozen=True)
+class HybridTensors:
+    """A full-matrix ``HybridELL`` on one device, as the kernel takes it:
+    the body (int32 columns) and the spill lanes as row tails."""
+
+    cols: torch.Tensor         # (n_rows, w) int32
+    vals: torch.Tensor         # (n_rows, w) operand dtype
+    tails: kspmm.Tails
+
+    @staticmethod
+    def upload(hell: HybridELL, device, dtype,
+               max_chunk: int = kspmm.MAX_CHUNK) -> "HybridTensors":
+        """Copy ``hell`` to ``device`` (values through f32, as the
+        reference casts them) with its tail plan, built once here."""
+        plan = kspmm.plan_tails(hell.spill_rows, hell.cols.shape[0],
+                                max_chunk)
+        vals = torch.as_tensor(np.asarray(hell.vals, np.float32))
+        return HybridTensors(
+            cols=torch.as_tensor(np.asarray(hell.cols, np.int32)).to(device),
+            vals=vals.to(device, dtype),
+            tails=kspmm.Tails.upload(plan, hell.spill_cols, hell.spill_vals,
+                                     device, dtype))
 
 
-def unfused_gemm_spmm(hell_a: tuple, b, c):
+def spmm_hybrid(hell: HybridTensors, x):
+    """Hybrid-ELL SpMM, body and spill tails in one call of the
+    ``spmm_ell`` kernel wrapper (the CUDA kernel for CUDA tensors)."""
+    return kops.spmm_ell(hell.cols, hell.vals, x, tails=hell.tails)
+
+
+def unfused_gemm_spmm(hell_a: HybridTensors, b, c):
     """``A (B C)``: ``B @ C`` (a plain matmul, outside any kernel in the
-    reference too), then the hybrid SpMM.  ``hell_a`` is
-    ``HybridELL.to_torch``'s tuple."""
-    return spmm_hybrid(*hell_a, b @ c)
+    reference too), then the hybrid SpMM."""
+    return spmm_hybrid(hell_a, b @ c)
 
 
-def unfused_spmm_spmm(hell_a: tuple, hell_a1: tuple, c):
-    return spmm_hybrid(*hell_a, spmm_hybrid(*hell_a1, c))
+def unfused_spmm_spmm(hell_a: HybridTensors, hell_a1: HybridTensors, c):
+    return spmm_hybrid(hell_a, spmm_hybrid(hell_a1, c))

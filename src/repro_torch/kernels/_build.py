@@ -36,9 +36,10 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
 #: argtypes of every launcher (each returns the cudaError_t of its launch)
-#: and of the two dispatch records (``*_last_path``)
+#: and of the three dispatch records (``*_last_path``)
 SIGNATURES = {
-    "spmm_ell_launch": (_P, _P, _P, _P, _I64, _I, _I, _I, _P),
+    "spmm_ell_launch": (_P,) * 12 + (_I64,) + (_I,) * 6 + (_P,),
+    "spmm_ell_last_path": (),
     "tile_fused_gemm_spmm_wf0_launch": (_P,) * 6 + (_I,) * 9 + (_P,),
     "tile_fused_gemm_spmm_wf0_last_path": (),
     "tile_fused_spmm_spmm_wf0_launch": (_P,) * 8 + (_I,) * 8 + (_P,),

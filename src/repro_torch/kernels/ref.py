@@ -36,9 +36,53 @@ def _tile_offsets(cols0: torch.Tensor, t: int) -> torch.Tensor:
     return cols0.long() + base[:, None, None]
 
 
-def spmm_ell(cols, vals, x):
-    """``D[i] = Σ_w vals[i, w] · X[cols[i, w]]``."""
-    return ell_rows_f32(cols, vals, x).to(x.dtype)
+def _segments(bounds: torch.Tensor):
+    """``(segment, element)`` of every element of the ``[start, end)``
+    ranges in ``bounds`` (``(n, 2)``; empty and ``(-1, -1)`` ranges hold
+    none), in range order."""
+    starts = bounds[:, 0].long()
+    lens = (bounds[:, 1].long() - starts).clamp_min(0)
+    seg = torch.repeat_interleave(torch.arange(len(lens),
+                                               device=bounds.device), lens)
+    first = torch.cumsum(lens, 0) - lens
+    pos = torch.arange(len(seg), device=bounds.device) - first[seg]
+    return seg, starts[seg] + pos
+
+
+def spmm_ell(cols, vals, x, *, tails=None, out=None, out_rows=None):
+    """``out[r(i)] = Σ_w vals[i, w] · X[cols[i, w]] + Σ_{k ∈ tail(i)}
+    tail_vals[k] · X[tail_cols[k]]``, walking the kernel's plan: each row's
+    body and tail range in f32; a split row's chunks as f32 partials, added
+    to its body in chunk order; one rounding.  ``r(i)`` is ``out_rows[i]``
+    (a pad target ``out.shape[0]`` is not written) or ``i``."""
+    acc = ell_rows_f32(cols, vals, x)
+    if tails is not None and tails.cols.numel():
+        def products(lanes):
+            return (tails.vals[lanes, None].float()
+                    * x[tails.cols[lanes].long()].float())
+
+        rows, lanes = _segments(tails.ranges)
+        acc.index_add_(0, rows, products(lanes))
+        chunk, lanes = _segments(tails.chunks[:, 1:])
+        partial = torch.zeros((len(tails.chunks), x.shape[1]),
+                              dtype=torch.float32, device=x.device)
+        partial.index_add_(0, chunk, products(lanes))
+        split = tails.split_rows.long()
+        first = tails.split_ptr[:-1].long()
+        n_chunks = tails.split_ptr[1:].long() - first
+        for k in range(int(n_chunks.max()) if len(n_chunks) else 0):
+            on = n_chunks > k
+            acc[split[on]] += partial[first[on] + k]
+    if out_rows is None:
+        if out is None:
+            return acc.to(x.dtype)
+        return out.copy_(acc)
+    target = out_rows.long()
+    if bool(((target < 0) | (target > out.shape[0])).any()):
+        raise ValueError(f"spmm_ell: out_rows outside [0, {out.shape[0]}]")
+    keep = target != out.shape[0]
+    out[target[keep]] = acc[keep].to(out.dtype)
+    return out
 
 
 def tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, *, t: int):

@@ -20,6 +20,8 @@ rounded); for the FFN and MoE kernels one rounding of the output plus
 the bf16 rounding of H summed over f (test_torch_lm_kernels.py grounds
 that limit at published widths).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -28,8 +30,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.gcn import GCNConfig
 from repro_torch.core.sparse import random as gen
 from repro_torch.core.sparse.formats import CSR
-from repro_torch.core.tilefusion import api
-from repro_torch.kernels import flash_attention, ops, ref
+from repro_torch.core.tilefusion import api, fused_ops
+from repro_torch.kernels import flash_attention, ops, ref, spmm
 from repro_torch.kernels import tile_fused_gemm_spmm as gemm_wf0
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
@@ -87,6 +89,63 @@ def test_spmm_ell_kernel(card, n_rows, w, n, c, dtype):
     torch.cuda.synchronize()
     assert ops.spmm_ell.launches == before + 1
     assert _rel_err(got, ref.spmm_ell(cols, vals, x)) <= TOL[dtype]
+
+
+def _hub_hybrid(device, dtype):
+    """``hub_powerlaw(16384, 8)`` as a full-matrix hybrid ELL of width cap
+    2 with the default tail plan: 33 rows' tails are split (the hub's has
+    8,190 entries)."""
+    a = gen.hub_powerlaw(16384, 8, seed=0)
+    return a, fused_ops.HybridTensors.upload(
+        fused_ops.csr_to_ell(a, width_cap=2), device, dtype)
+
+
+# c = 32 and 128 are the GCN's layer widths (8 and 32 lanes a row), 36 takes
+# 16 lanes a row (9 used); mapped rows go to a permuted target in a larger
+# out, with pad targets that must stay unwritten
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mapped", [False, True])
+@pytest.mark.parametrize("c", [32, 128, 36])
+def test_spmm_hybrid_kernel(card, c, mapped, dtype):
+    a, hell = _hub_hybrid(card, dtype)
+    g = torch.Generator().manual_seed(c)
+    x = torch.randn(a.n_cols, c, generator=g).to(card, dtype)
+    kw = dict(tails=hell.tails)
+    n_rows = a.n_rows
+    if mapped:
+        n_out = n_rows + 100
+        target = torch.randperm(n_out, generator=g)[:n_rows]
+        target[torch.rand(n_rows, generator=g) < 0.1] = n_out    # pads
+        kw["out_rows"] = target.to(card, torch.int32)
+
+    def run():
+        if not mapped:
+            return ops.spmm_ell(hell.cols, hell.vals, x, **kw)
+        out = torch.full((n_out, c), -7.0, device=card, dtype=dtype)
+        return ops.spmm_ell(hell.cols, hell.vals, x, out=out, **kw)
+    before = ops.spmm_ell.launches
+    got = run()
+    torch.cuda.synchronize()
+    assert ops.spmm_ell.launches == before + 1     # two device launches
+    assert spmm.last_path() == "row+split"
+    out0 = (None if not mapped else
+            torch.full((n_out, c), -7.0, device=card, dtype=dtype))
+    want = ref.spmm_ell(hell.cols, hell.vals, x, out=out0, **kw)
+    assert _rel_err(got, want) <= TOL[dtype]
+    if mapped:
+        kept = torch.ones(n_out, dtype=torch.bool, device=card)
+        kept[kw["out_rows"].long()[kw["out_rows"] < n_out]] = False
+        assert bool((got[kept] == -7.0).all())
+    assert torch.equal(got, run())               # the same bits again
+
+
+def test_spmm_body_only_runs_one_pass(card):
+    g = torch.Generator().manual_seed(3)
+    cols, vals = _ell(g, (500, 4), 300, card)
+    x = torch.randn(300, 64, generator=g).to(card)
+    ops.spmm_ell(cols, vals, x)
+    torch.cuda.synchronize()
+    assert spmm.last_path() == "row"
 
 
 # (3, 5, ...), t = 2048 and f32 rows of 1 KB (b_col 256) run the CUDA-core
@@ -218,6 +277,26 @@ def test_wrappers_check_their_inputs(card):
         ops.spmm_ell(cols, torch.ones(2, 8, device=card).t(), x)
     with pytest.raises(TypeError, match="dtype"):
         ops.spmm_ell(cols, torch.ones(8, 2, device=card), x.double())
+    vals = torch.ones(8, 2, device=card)
+    plan = spmm.plan_tails(np.array([0, 0, 3]), 8, 2)
+    tails = spmm.Tails.upload(plan, [1, 2, 3], [1.0, 1.0, 1.0], card,
+                              torch.float32)
+    with pytest.raises(TypeError, match="int32"):
+        ops.spmm_ell(cols, vals, x, out=torch.empty(9, 4, device=card),
+                     out_rows=torch.zeros(8, dtype=torch.int64,
+                                          device=card))
+    with pytest.raises(TypeError, match="dtype"):
+        ops.spmm_ell(cols, vals, x, tails=dataclasses.replace(
+            tails, vals=tails.vals.to(torch.bfloat16)))
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.spmm_ell(cols, vals, x, out=torch.empty(4, 8, device=card).t())
+    with pytest.raises(ValueError, match="out_rows needs out"):
+        ops.spmm_ell(cols, vals, x, out_rows=torch.zeros(
+            8, dtype=torch.int32, device=card))
+    with pytest.raises(ValueError, match="tails"):
+        ops.spmm_ell(cols[:5], vals[:5], x, tails=tails)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.spmm_ell(cols, vals, x, out=torch.empty(8, 4))
 
 
 @pytest.mark.parametrize("op_pair", ["gemm", "spmm"])
