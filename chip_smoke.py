@@ -48,7 +48,12 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                it applies, ``fused_ops._spill_add``) and ``torch.sparse.mm``
                of the same matrix (f32); its bound counts tail lanes like
                body entries.  The power-law cases must take the split-row
-               path (``row+split``) and give the same bits twice.
+               path (``row+split``), and every whole hybrid product must
+               give the same bits twice.  The backward's shapes, from the
+               real transpose entries: GeMM-SpMM at the banded GCN's
+               layer-2 ``dB`` (t 64, b_col 32, c_col 128, on the ``wgmma``
+               kernel), and the banded ``Âᵀ`` hybrid product at 128 and
+               32 columns (each layer's ``Âᵀ·Ḋ``).
   4. tile_fused_matmul on ``banded_spd(131072, 8)``, GeMM-SpMM and
                SpMM-SpMM at 128 columns: the ``auto`` pick must be
                ``cuda``; the result must match ``backend="torch"`` on the
@@ -58,10 +63,17 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                events over 20 calls after 3 warm-ups, and the profiler's
                device time of 5 calls), and the fused/unfused ratios are
                printed: the paper's Table 2 and Table 3 comparison on the
-               card.
+               card.  Gradients of both op pairs through the autograd
+               Functions, on ``banded_spd(131072, 8)`` with ``(w·D).sum()``
+               and on the same matrix with its even rows emptied
+               (non-symmetric) with ``D.sum()``: ``auto`` against
+               ``backend="torch"`` (rel. err ≤ 2e-3); each backward must
+               launch its wavefront-0 kernel, and the transpose entry's
+               pick is printed.
   5. GCN serving at the ``CONFIG`` widths (128 → 128 → 32) on two
                131,072-node graphs, 8 requests each: banded (fused arm) and
-               power-law (unfused arm).  Each answer is held to the
+               power-law (unfused arm), under ``torch.inference_mode()``
+               (serving records no graph).  Each answer is held to the
                ``backend="torch"`` forward.
   6. trace   — one more request per graph under ``torch.profiler``: device
                time by kernel and the device's busy share of the request;
@@ -100,10 +112,27 @@ Phases, in order (any failure exits non-zero; no exception is caught):
   9. trace   — one prefill and one decode step under ``torch.profiler``:
                device time by kernel, device kernels per step and the
                device's busy share.
+ 10. GCN training — the ``CONFIG`` model on both phase-5 graphs, f32,
+               10 SGD steps at lr 0.3 through ``launch.steps
+               .make_gcn_train_step``: step 1's weight gradients against
+               ``backend="torch"`` on the card and a float64 host oracle
+               (the same loss through ``torch.sparse.mm`` autograd), ≤
+               2e-3; the loss must fall; no schedule-cache miss after step
+               1, and one transpose entry a graph (layer 2's ``dB``); each
+               step's launches (``spmm_ell`` for each layer's ``Âᵀ·Ḋ``
+               beside the forward's; on the banded graph one GeMM-SpMM
+               launch more than a request, the backward's ``dB`` on the
+               ``wgmma`` kernel); two backward passes give the same bits;
+               one step under the profiler (device time by kernel, busy
+               share; fails on any ``index_add_``); step p50 and max
+               beside two yardsticks: the same step with
+               ``backend="unfused"`` and a ``torch.sparse.mm`` autograd
+               step.
 
 Each path is driven with the launch counts set to 0 just before it and
-read just after: phases 4-5 (the GCN path) must launch the three sparse
-kernels, ``spmm_ell`` in every request of both graphs, phase 7's
+read just after: phases 4-5 (the GCN path, gradients included) must
+launch the three sparse kernels, ``spmm_ell`` in every request of both
+graphs, phase 10's training runs ``spmm_ell`` and GeMM-SpMM, phase 7's
 entry-point calls the FFN and MoE kernels, and phase 8 the flash kernel
 exactly once per layer of the prefill.  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
@@ -176,6 +205,8 @@ LM_REDUCED = False
 LM_BATCH, LM_PROMPT, LM_DECODE = 4, 2048, 32
 LM_TOL = 5e-2   # bf16 logits, served path vs plain attention, rel
 LM_REPLAY = 4   # decode steps replayed against a full forward
+# phase 10: SGD on the GCN
+TRAIN_STEPS, TRAIN_LR = 10, 0.3
 GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
 # phase 2: the functions of each kernel in the library's SASS (a part of the
@@ -259,6 +290,18 @@ def ptxas_report(log: str) -> dict:
     return {k: tuple(v) for k, v in out.items()}
 
 
+def every_other_row(a):
+    """``a`` with its even rows emptied (the parity matrix's empty-rows
+    cell at size): ``Aᵀ != A``, and row and column degrees differ."""
+    import numpy as np
+    lens = np.diff(a.indptr)
+    keep = np.arange(a.n_rows) % 2 == 1
+    flat = np.repeat(keep, lens)
+    indptr = np.concatenate([[0], np.cumsum(np.where(keep, lens, 0))])
+    return type(a)(a.n_rows, a.n_cols, indptr.astype(a.indptr.dtype),
+                   a.indices[flat], a.data[flat])
+
+
 def main(device: str = "cuda") -> None:
     import torch
     if not torch.cuda.is_available():
@@ -271,6 +314,7 @@ def main(device: str = "cuda") -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.configs.gcn import CONFIG
+    from repro_torch.core.sparse.formats import csr_content_digest
     from repro_torch.core.sparse.random import banded_spd, powerlaw_graph
     from repro_torch.core.tilefusion import api, fused_ops, fused_ref
     from repro_torch.kernels import _build, ops, ref
@@ -289,10 +333,10 @@ def main(device: str = "cuda") -> None:
 
     # ---- 1. device ----
     smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     print(f"[1 device] nvidia-smi: {smi}")
-    print(f"[1 device] {kind}, compute capability {cap[0]}.{cap[1]}, "
+    print(f"[1 device] {device_kind}, compute capability {cap[0]}.{cap[1]}, "
           f"{torch.cuda.device_count()} device(s), torch {torch.__version__}"
           f" (CUDA {torch.version.cuda})")
     if cap < (9, 0):
@@ -342,13 +386,20 @@ def main(device: str = "cuda") -> None:
               "powerlaw": GCN(cfg, power, seed=1, device=dev)}
     e_gemm = api.get_schedule(banded, b_col=128, c_col=128)
     e_spmm = api.get_schedule(banded, b_col=128, c_col=128, b_is_sparse=True)
+    # the backward's dB of GCN layer 2 (Âᵀ·(Ḋ₂·W₂ᵀ): 32 -> 128 columns) on
+    # the banded graph's transpose entry; training hits it from step 1 on
+    e_db = api.get_schedule(
+        models["banded"].adj, b_col=CONFIG.out_dim, c_col=CONFIG.hidden_dim,
+        spec=dataclasses.replace(models["banded"].spec, transpose=True,
+                                 dtype_bytes=4))
     print(f"[setup] graphs nnz banded={banded.nnz} powerlaw={power.nnz}; "
           f"{api.schedule_cache_stats()['misses']} inspections in "
           f"{time.perf_counter() - t0:.1f} s host")
     for name, e in [("gcn-banded L1", models["banded"].entries[0]),
                     ("gcn-banded L2", models["banded"].entries[1]),
                     ("gcn-powerlaw L1", models["powerlaw"].entries[0]),
-                    ("banded gemm", e_gemm), ("banded spmm", e_spmm)]:
+                    ("banded gemm", e_gemm), ("banded spmm", e_spmm),
+                    ("gcn-banded L2 dB (transpose)", e_db)]:
         ds = e.dsched
         print(f"[setup] {name}: t={ds.t_pad} T0={ds.n_tiles0} "
               f"j0_max={ds.j_rows0.shape[1]} w0={ds.ell_cols0.shape[2]} "
@@ -547,27 +598,26 @@ def main(device: str = "cuda") -> None:
                 dict(chain=chain, lib_rows=lambda w: torch.cat(
                     [w, torch.zeros_like(w[:1])])[st.j_rows1]))
 
-    def powerlaw_case(c, dtype):
-        """The unfused arm's whole hybrid product on the power-law graph
-        (width cap auto); the chain it replaces is the body-only call and
-        ``_spill_add``."""
-        pl = models["powerlaw"]
-        cap = api._resolve_width_cap(pl.adj, "auto")
-        hell = api._csr_ell(pl.adj, cap, dev, dtype)
+    def full_hybrid_case(label, a, c, dtype, **extra):
+        """A whole full-matrix hybrid product of ``a`` (width cap auto), as
+        the unfused arm and the backward's ``Âᵀ·Ḋ`` run it; the chain it
+        replaces is the body-only call and ``_spill_add``."""
+        cap = api._resolve_width_cap(a, "auto")
+        hell = api._csr_ell(a, cap, dev, dtype)
         _, _, srows, scols, svals = fused_ops.csr_to_ell(
-            pl.adj, cap).to_torch(dev, dtype)
-        x = randn(N_NODES, c).to(dtype)
-        return (f"spmm_ell (power-law hybrid, {c} columns)",
+            a, cap).to_torch(dev, dtype)
+        x = randn(a.n_cols, c).to(dtype)
+        return (label,
                 lambda: ops.spmm_ell(hell.cols, hell.vals, x,
                                      tails=hell.tails),
                 lambda: ref.spmm_ell(hell.cols, hell.vals, x,
                                      tails=hell.tails),
-                hybrid_moved(hell.cols, hell.vals, hell.tails, x, N_NODES),
+                hybrid_moved(hell.cols, hell.vals, hell.tails, x, a.n_rows),
                 hybrid_ops(hell.vals, hell.tails, c),
                 hybrid_library(hell.cols, hell.vals, hell.tails, x),
                 dict(chain=lambda: fused_ops._spill_add(
                     ops.spmm_ell(hell.cols, hell.vals, x), srows, scols,
-                    svals, x), path="row+split", bitwise=True))
+                    svals, x), bitwise=True, **extra))
 
     def kernel_cases(dtype):
         """(name, kernel call, plain call, compulsory bytes, operations,
@@ -581,14 +631,22 @@ def main(device: str = "cuda") -> None:
         layer1, layer2 = models["banded"].entries
         yield gemm_case("", layer1, dtype)
         yield gemm_case(" (GCN layer 2)", layer2, dtype)
+        yield gemm_case(" (GCN layer 2 dB, backward)", e_db, dtype)
         yield wf1_case("", layer1, dtype)
         yield wf1_case(" (GCN layer 2 wf1)", layer2, dtype)
         yield wf1_hybrid_case(" (banded wf1 + tails, layer 1)", layer1,
                               dtype)
         yield wf1_hybrid_case(" (banded wf1 + tails, layer 2)", layer2,
                               dtype)
-        yield powerlaw_case(128, dtype)
-        yield powerlaw_case(32, dtype)
+        for c in (128, 32):
+            yield full_hybrid_case(f"spmm_ell (power-law hybrid, {c} columns)",
+                                   models["powerlaw"].adj, c, dtype,
+                                   path="row+split")
+        # the backward's Âᵀ·Ḋ of the banded GCN, layers 1 and 2
+        for c in (128, 32):
+            yield full_hybrid_case(
+                f"spmm_ell (banded Âᵀ hybrid, backward, {c} columns)",
+                models["banded"].adj.transpose(), c, dtype)
 
         pl = models["powerlaw"]
         hell = api._csr_ell(pl.adj, api._resolve_width_cap(pl.adj, "auto"),
@@ -742,9 +800,67 @@ def main(device: str = "cuda") -> None:
         if sum(launched.values()) == 0:
             fail(f"phase 4 {name}: no kernel launched")
 
+    # ---- 4, gradients: both op pairs through the autograd Functions ----
+    # the backward runs Aᵀ products off transpose entries; a symmetric A
+    # hides a transpose bug, so a non-symmetric matrix runs too (with
+    # D.sum(), whose cotangent has stride 0)
+    nonsym = every_other_row(banded_spd(N_NODES, 8, seed=2))
+    grad_rng = np.random.default_rng(3)
+    grad_np = {"b": grad_rng.standard_normal((N_NODES, 128), np.float32),
+               "c": (grad_rng.standard_normal((128, 128), np.float32)
+                     / np.float32(128 ** 0.5)),
+               "cs": grad_rng.standard_normal((N_NODES, 128), np.float32),
+               "w": grad_rng.standard_normal((N_NODES, 128), np.float32)}
+    w_dev = torch.from_numpy(grad_np["w"]).to(dev)
+
+    def backward_run(a, sparse, weighted, backend):
+        """(gradients, launches of the backward alone) of ``loss(D)``."""
+        leaves = ([grad_np["cs"]] if sparse else [grad_np["b"], grad_np["c"]])
+        leaves = [torch.from_numpy(v).to(dev).requires_grad_()
+                  for v in leaves]
+        d = (api.tile_fused_matmul(a, a, leaves[0], backend=backend)
+             if sparse else
+             api.tile_fused_matmul(a, *leaves, backend=backend))
+        value = (w_dev * d).sum() if weighted else d.sum()
+        torch.cuda.synchronize()
+        before = ops.launch_counts()
+        value.backward()
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        return [x.grad for x in leaves], launched
+
+    for aname, a, weighted in (("banded_spd", banded, True),
+                               ("non-symmetric", nonsym, False)):
+        for name, sparse, wf0 in (("GeMM-SpMM", False,
+                                   "tile_fused_gemm_spmm_wf0"),
+                                  ("SpMM-SpMM", True,
+                                   "tile_fused_spmm_spmm_wf0")):
+            got, launched = backward_run(a, sparse, weighted, "auto")
+            want, _ = backward_run(a, sparse, weighted, "torch")
+            err = max(rel_err(g, w)[1] for g, w in zip(got, want))
+            e_t = api.get_schedule(a, b_col=128, c_col=128,
+                                   b_is_sparse=sparse,
+                                   spec=api.FusionSpec(transpose=True,
+                                                       dtype_bytes=4))
+            loss_name = "(w·D).sum()" if weighted else "D.sum()"
+            print(f"[4 gradients] {name} on {aname} ({a.nnz} nnz), loss "
+                  f"{loss_name}: transpose entry t={e_t.dsched.t_pad} "
+                  f"T0={e_t.dsched.n_tiles0} saving="
+                  f"{e_t.traffic_model['traffic_saving']:.3f} auto pick "
+                  f"{api.select_backend(e_t, dev)!r}; grads rel_err vs "
+                  f"torch={err:.2e}; backward launches {launched}")
+            if err > MAIN_TOL:
+                fail(f"phase 4 {name} on {aname}: gradients disagree "
+                     f"({err:.2e})")
+            if launched[wf0] == 0:
+                fail(f"phase 4 {name} on {aname}: the backward launched no "
+                     f"{wf0}")
+            del got, want
+    del nonsym
+
     # ---- 5. GCN serving ----
     expected_pick = {"banded": "cuda", "powerlaw": "unfused"}
-    serve_p50_ms = {}
+    serve_p50_ms, serve_launches = {}, {}
     for gname, model in models.items():
         picks = model.layer_backends()
         print(f"[5 gcn] {gname}: layer picks {picks}")
@@ -758,12 +874,14 @@ def main(device: str = "cuda") -> None:
             torch.cuda.synchronize()
             before = ops.launch_counts()
             t0 = time.perf_counter()
-            logits = model(x)
-            torch.cuda.synchronize()
+            with torch.inference_mode():
+                logits = model(x)
+                torch.cuda.synchronize()
             lat.append((time.perf_counter() - t0) * 1e3)
             per_req.append({k: v - before[k]
                             for k, v in ops.launch_counts().items()})
-            want = model(x, backend="torch")
+            with torch.inference_mode():
+                want = model(x, backend="torch")
             err = rel_err(logits, want)[1]
             if (tuple(logits.shape) != (N_NODES, cfg.out_dim)
                     or err > MAIN_TOL):
@@ -772,6 +890,7 @@ def main(device: str = "cuda") -> None:
         if any(p["spmm_ell"] == 0 for p in per_req):
             fail(f"phase 5 {gname}: a request launched no spmm_ell")
         serve_p50_ms[gname] = float(np.median(lat))
+        serve_launches[gname] = per_req[-1]
         print(f"[5 gcn] {gname}: {REQUESTS} requests, p50="
               f"{float(np.median(lat)):.3f} ms max={max(lat):.3f} ms "
               f"(host clock around forward + synchronize, features already"
@@ -825,14 +944,15 @@ def main(device: str = "cuda") -> None:
     for gname, model in models.items():
         x = torch.from_numpy(np.random.default_rng(200).standard_normal(
             (N_NODES, cfg.in_dim), np.float32)).to(dev)
-        model(x)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+        with torch.inference_mode():
             model(x)
             torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                model(x)
+                torch.cuda.synchronize()
+                wall_us = (time.perf_counter() - t0) * 1e6
         # device-side events only: an aten op's row repeats the time of
         # the kernels it launched, which would count them twice
         events = [e for e in prof.key_averages()
@@ -1095,6 +1215,246 @@ def main(device: str = "cuda") -> None:
                   f"({e.self_device_time_total / device_us:.3f}) "
                   f"x{e.count:<4d} {e.key[:80]}")
     del lm, cache
+    torch.cuda.empty_cache()
+
+    # ---- 10. GCN training: CONFIG widths, both phase-5 graphs, SGD ----
+    import torch.nn.functional as F
+
+    def sparse_mm_loss(adj, x, y, ws, masks=None):
+        """``(loss, sign changes)``: the GCN loss through ``torch.sparse.mm``
+        autograd, the f64 host oracle and the card's library yardstick
+        (independent of the port's executors).  With ``masks`` (one bool
+        tensor a hidden layer) each ReLU is the linear branch that the
+        checked run took: where a pre-activation lies within f32 rounding
+        of 0, f32 and f64 take different branches and the gradient jumps
+        (one such entry moves ``dW1`` by ~1e-3 of its largest value); the
+        second value counts those entries."""
+        h, flips = x, 0
+        for i, w in enumerate(ws):
+            h = torch.sparse.mm(adj, h @ w)
+            if i == len(ws) - 1:
+                break
+            if masks is None:
+                h = torch.relu(h)
+            else:
+                flips += int((masks[i] != (h > 0)).sum())
+                h = h * masks[i]
+        logp = F.log_softmax(h, dim=-1)
+        return -torch.take_along_dim(logp, y[:, None], dim=1).mean(), flips
+
+    def sparse_adj(a, device, dtype):
+        rows = np.repeat(np.arange(a.n_rows), np.diff(a.indptr))
+        idx = torch.from_numpy(np.stack([rows, a.indices]).astype(np.int64))
+        return torch.sparse_coo_tensor(
+            idx, torch.from_numpy(np.asarray(a.data, np.float64)),
+            (a.n_rows, a.n_cols)).coalesce().to(device, dtype)
+
+    def transpose_entries(adj):
+        """``{(b_col, c_col): entry}`` of ``adj``'s live transpose
+        entries."""
+        digest = csr_content_digest(adj)
+        return {(k[1], k[2]): e for k, e in api._schedule_cache.items()
+                if e.transpose and k[0] == digest}
+
+    def step_ms(step, x, y, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(x, y)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    train_launches = dict.fromkeys(GCN_KERNELS, 0)
+    for gname, model in models.items():
+        n_layers = len(model.weights)
+        data_rng = np.random.default_rng(300)
+        x = torch.from_numpy(data_rng.standard_normal(
+            (N_NODES, cfg.in_dim), np.float32)).to(dev)
+        y = torch.from_numpy(data_rng.integers(0, cfg.out_dim,
+                                               N_NODES)).to(dev)
+        w0 = [w.detach().clone() for w in model.weights]
+
+        def grads_at(weights, backend):
+            with torch.no_grad():
+                for w, v in zip(model.weights, weights):
+                    w.copy_(v)
+            for w in model.weights:
+                w.grad = None
+            loss = model.loss(x, y, backend=backend)
+            loss.backward()
+            return float(loss), [w.grad.clone() for w in model.weights]
+
+        # the references at the initial weights: the plain path on the
+        # card, and the f64 oracle on the host, on the ReLU branches of the
+        # run's own forward
+        want_loss, want = grads_at(w0, "torch")
+        masks, h = [], x
+        with torch.no_grad():
+            for w in w0[:-1]:
+                z = api.tile_fused_matmul(model.adj, h, w)
+                masks.append((z > 0).cpu())
+                h = torch.relu(z)
+        del h, z
+        oracle_ws = [v.cpu().double().requires_grad_() for v in w0]
+        oracle_loss, flips = sparse_mm_loss(
+            sparse_adj(model.adj, "cpu", torch.float64), x.cpu().double(),
+            y.cpu(), oracle_ws, masks)
+        oracle_loss.backward()
+        del masks
+
+        # the training run, counted: 10 SGD steps from w0
+        step = steps.make_gcn_train_step(model, lr=TRAIN_LR)
+        misses = []
+        ops.reset_launch_counts()
+        losses, lat, per_step, bwd_path = [], [], [], []
+        for i in range(TRAIN_STEPS):
+            before = ops.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step(x, y)
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+            per_step.append({k: v - before[k]
+                             for k, v in ops.launch_counts().items()})
+            losses.append(float(loss))
+            misses.append(api.schedule_cache_stats()["misses"])
+            if gname == "banded":
+                bwd_path.append(gemm_last_path())
+            if i == 0:
+                got = [w.grad.clone() for w in model.weights]
+                keys = sorted(transpose_entries(model.adj))
+        counts = ops.launch_counts()
+        for k in GCN_KERNELS:
+            train_launches[k] += counts[k]
+
+        err_t = max(rel_err(g, w)[1] for g, w in zip(got, want))
+        err_o = max(rel_err(g.cpu().double(), w.grad)[1]
+                    for g, w in zip(got, oracle_ws))
+        print(f"[10 gcn train] {gname}: step-1 loss {losses[0]:.6f} (torch "
+              f"{want_loss:.6f}, f64 oracle {float(oracle_loss):.6f}); "
+              f"weight grads rel_err vs torch={err_t:.2e} vs f64 "
+              f"torch.sparse.mm oracle={err_o:.2e} (on the run's ReLU "
+              f"branches; {flips} of {N_NODES * cfg.hidden_dim} "
+              f"pre-activations change sign in f64)")
+        print(f"[10 gcn train] {gname}: losses "
+              f"{', '.join(f'{v:.5f}' for v in losses)}")
+        picks = [api.select_backend(e, dev)
+                 for e in transpose_entries(model.adj).values()]
+        print(f"[10 gcn train] {gname}: transpose entries after step 1 "
+              f"{keys}, auto picks {picks}; schedule-cache misses after "
+              f"each step {misses}")
+        print(f"[10 gcn train] {gname}: launches per step {per_step[-1]} "
+              f"(a serving request: {serve_launches[gname]}); "
+              f"GeMM-SpMM path of each step's last launch (the backward's "
+              f"dB) {sorted(set(bwd_path))}")
+        if max(err_t, err_o) > MAIN_TOL:
+            fail(f"phase 10 {gname}: step-1 gradients disagree "
+                 f"({err_t:.2e} vs torch, {err_o:.2e} vs the oracle)")
+        if not losses[-1] < losses[0]:
+            fail(f"phase 10 {gname}: loss {losses[0]} -> {losses[-1]}")
+        if len(set(misses)) != 1:
+            fail(f"phase 10 {gname}: re-inspected after step 1: {misses}")
+        if keys != [(cfg.out_dim, cfg.hidden_dim)]:
+            fail(f"phase 10 {gname}: transpose entries {keys}, expected "
+                 f"layer 2's dB only")
+        for i, p in enumerate(per_step):
+            # each layer's Âᵀ·Ḋ is one more spmm_ell call than serving makes
+            if p["spmm_ell"] < serve_launches[gname]["spmm_ell"] + n_layers:
+                fail(f"phase 10 {gname} step {i + 1}: {p['spmm_ell']} "
+                     f"spmm_ell launches")
+            if gname == "banded" and p["tile_fused_gemm_spmm_wf0"] != (
+                    serve_launches[gname]["tile_fused_gemm_spmm_wf0"] + 1):
+                fail(f"phase 10 {gname} step {i + 1}: "
+                     f"{p['tile_fused_gemm_spmm_wf0']} GeMM-SpMM launches")
+        if gname == "banded" and set(bwd_path) != {GEMM_WGMMA}:
+            fail(f"phase 10 {gname}: the backward's dB ran {bwd_path}")
+
+        # (not counted from here on) two backward passes from the same
+        # weights give the same bits
+        w_now = [w.detach().clone() for w in model.weights]
+        _, g1 = grads_at(w_now, "auto")
+        _, g2 = grads_at(w_now, "auto")
+        if not all(torch.equal(a, b) for a, b in zip(g1, g2)):
+            fail(f"phase 10 {gname}: two backward passes differ")
+        print(f"[10 gcn train] {gname}: two backward passes from the same "
+              f"weights give the same bits")
+
+        # one step under the profiler: device time by kernel, busy share.
+        # A step traced warm-up first (recorded, then dropped): a session's
+        # first kernels launched through ctypes can go missing from its
+        # trace, as the step's first GeMM-SpMM launch did without it
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(
+                         wait=0, warmup=1, active=1, repeat=1)) as prof:
+            step(x, y)
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            step(x, y)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+        # kernels only: the schedule's step annotation spans the step on
+        # the device's timeline too
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0
+                  and not e.key.startswith("ProfilerStep")]
+        device_us = sum(e.self_device_time_total for e in events)
+        p50 = float(np.median(lat))
+        print(f"[10 gcn train] {gname}: {TRAIN_STEPS} steps, p50="
+              f"{p50:.3f} ms max={max(lat):.3f} ms (host clock around the "
+              f"step + synchronize; step 1 {lat[0]:.3f} ms); device busy "
+              f"{device_us / 1e3:.3f} ms per step: {device_us / wall_us:.3f}"
+              f" of the profiled wall ({wall_us / 1e3:.3f} ms), "
+              f"{device_us / 1e3 / p50:.3f} of the p50")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:14]:
+            print(f"[10 gcn train] {gname}:   {e.self_device_time_total:9.1f}"
+                  f" us  x{e.count:<3d} {e.key[:120]}")
+        adds = sum(e.count for e in prof.key_averages()
+                   if e.key == "aten::index_add_")
+        if adds:
+            fail(f"phase 10 {gname}: {adds} index_add_ in a training step")
+
+        # the host time of Eq-3's pick, which every layer of every step
+        # asks (Schedule.fused_ratio sums over the wavefront-0 tiles)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            for e in model.entries:
+                api.select_backend(e, dev)
+        print(f"[10 gcn train] {gname}: host time of one select_backend "
+              f"call {(time.perf_counter() - t0) / 20 / n_layers * 1e6:.1f} "
+              f"us ({model.entries[0].dsched.n_tiles0} wavefront-0 tiles "
+              f"at layer 1)")
+
+        # yardsticks: the unfused arm, and torch.sparse.mm autograd
+        unfused = step_ms(steps.make_gcn_train_step(
+            model, lr=TRAIN_LR, backend="unfused"), x, y, 5)
+        adj_dev = sparse_adj(model.adj, dev, torch.float32)
+        lib_ws = [v.clone().requires_grad_() for v in w0]
+
+        def library_step(x, y):
+            for w in lib_ws:
+                w.grad = None
+            sparse_mm_loss(adj_dev, x, y, lib_ws)[0].backward()
+            with torch.no_grad():
+                for w in lib_ws:
+                    w.sub_(TRAIN_LR * w.grad)
+        library = step_ms(library_step, x, y, 5)
+        print(f"[10 gcn train] {gname}: step p50 {p50:.3f} ms; yardsticks "
+              f"p50 over 5 steps: backend='unfused' "
+              f"{float(np.median(unfused)):.3f} ms, torch.sparse.mm autograd"
+              f" {float(np.median(library)):.3f} ms")
+        del adj_dev, lib_ws, x, y
+    print(f"[10 gcn train] kernel launches in the training runs: "
+          f"{train_launches}")
+    for k in ("spmm_ell", "tile_fused_gemm_spmm_wf0"):
+        if train_launches[k] == 0:
+            fail(f"phase 10: {k} never launched in training")
+        path_launches[k] += train_launches[k]
 
     sources = {
         "spmm_ell": ("src/repro_torch/csrc/spmm_ell.cu",
@@ -1145,7 +1505,8 @@ def main(device: str = "cuda") -> None:
     print(nvidia_smi())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_kind,
+        "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

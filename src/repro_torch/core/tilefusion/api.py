@@ -1,6 +1,6 @@
 """Unified tile-fusion dispatch of the port — its one fused-matmul entrypoint.
 
-Twin of ``repro.core.tilefusion.api``, forward path.
+Twin of ``repro.core.tilefusion.api``, single-device forward and backward.
 ``tile_fused_matmul(a, b_or_a1, c)`` computes ``D = a @ (b_or_a1 @ c)``
 (GeMM-SpMM when ``b_or_a1`` is a dense tensor, SpMM-SpMM when it is a
 ``CSR``) where its tensors live, and owns two decisions:
@@ -32,10 +32,18 @@ card.  The reference's VMEM feasibility check of the
 SpMM-SpMM kernel has no counterpart: the CUDA kernel gathers rows of ``C``
 from device memory instead of staging all of it.
 
+**Differentiable.**  When grad mode is on and a dense operand requires
+grad, the call runs inside a ``torch.autograd.Function`` (one per op
+pair) whose backward runs the transposed sparse products through this
+same dispatch, off schedule entries cached with ``spec.transpose=True``
+(inspected once per (content, shape), like the forward): on the card
+they launch the same three kernels.  Calls under
+``torch.inference_mode()`` or ``torch.no_grad()`` — the serving path —
+dispatch directly and record nothing.
+
 Knobs outside this slice — ``spec.autotune``, ``spec.mesh``,
-``spec.bucket``, ``spec.reorder``, ``spec.transpose``,
-``backend="sharded"``, and dense operands that require grad while grad
-mode is on — raise ``NotImplementedError`` (see ROADMAP.md, Queue 1).
+``spec.bucket``, ``spec.reorder`` and ``backend="sharded"`` — raise
+``NotImplementedError`` (see ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -47,6 +55,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ...kernels import ops as kops
 from ...kernels.config import kernel_library
@@ -71,8 +80,8 @@ MIN_TRAFFIC_SAVING = 0.10
 #: Entries each of the schedule cache and the ELL cache keeps (LRU).
 CACHE_ENTRIES = 128
 
-_NOT_PORTED = ("is not ported yet (see ROADMAP.md, Queue 1: the port's "
-               "forward slice serves single-device inference)")
+_NOT_PORTED = ("is not ported yet (see ROADMAP.md, Queue 1: the port "
+               "serves single-device inference and training)")
 
 
 # --------------------------------------------------------------------------
@@ -95,6 +104,13 @@ class ScheduleEntry:
     #: resolved hybrid-ELL width cap the schedule was packed with (None =
     #: pad-to-max); part of the cache key
     width_cap: int | None = None
+    #: True when this entry was inspected on ``a.transpose()`` — the
+    #: backward pass's schedule, keyed by the *forward* matrix's digest plus
+    #: this bit, so forward and backward entries live side by side
+    transpose: bool = False
+    #: itemsize of the dense operand the entry prices traffic for; part of
+    #: the cache key
+    dtype_bytes: int = 4
 
 
 _schedule_cache: "collections.OrderedDict" = collections.OrderedDict()
@@ -137,8 +153,7 @@ def _check_slice(spec: FusionSpec) -> None:
     for name, on in (("autotune", spec.autotune),
                      ("mesh", spec.mesh is not None),
                      ("bucket", spec.bucket is not None),
-                     ("reorder", spec.reorder is not None),
-                     ("transpose", spec.transpose)):
+                     ("reorder", spec.reorder is not None)):
         if on:
             raise NotImplementedError(f"FusionSpec.{name} {_NOT_PORTED}")
 
@@ -161,7 +176,8 @@ def _resolve_width_cap(a: CSR, width_cap) -> int | None:
 def _spec_key(spec: FusionSpec, *, cap) -> tuple:
     """The resolved-spec cache-key tail (``spec.dtype_bytes`` resolved)."""
     return (int(spec.p), float(spec.cache_size), int(spec.ct_size),
-            bool(spec.uniform_split), cap, int(spec.dtype_bytes))
+            bool(spec.uniform_split), cap, bool(spec.transpose),
+            int(spec.dtype_bytes))
 
 
 def get_schedule(a: CSR, *, b_col: int, c_col: int,
@@ -170,13 +186,20 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
     """Run Algorithm 1 once per (content, shapes, resolved spec) and
     memoize; later calls with the same key return the cached entry.
     ``spec.dtype_bytes=None`` defaults to 4 here (``tile_fused_matmul``
-    infers it from the operands before it gets here)."""
+    infers it from the operands before it gets here).
+
+    ``spec.transpose=True`` inspects ``a.transpose()`` instead — the
+    backward pass's schedule — with the width cap resolved on the
+    transpose (its row degrees are ``a``'s column degrees).  The key stays
+    on ``a``'s digest plus the transpose bit; ``b_col`` / ``c_col`` are
+    the transposed product's, which the caller passes already swapped."""
     spec = _coerce_spec(spec)
     _check_slice(spec)
     spec = dataclasses.replace(
         spec, dtype_bytes=4 if spec.dtype_bytes is None
         else int(spec.dtype_bytes))
-    cap = _resolve_width_cap(a, spec.width_cap)
+    a_eff = a.transpose() if spec.transpose else a
+    cap = _resolve_width_cap(a_eff, spec.width_cap)
     digest = csr_content_digest(a)
     key = (digest, b_col, c_col, b_is_sparse, _spec_key(spec, cap=cap))
     with _lock:
@@ -186,16 +209,18 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
             _stats["hits"] += 1
             return entry
     t0 = time.perf_counter()
-    sched = build_schedule(a, b_col=b_col, c_col=c_col, p=spec.p,
+    sched = build_schedule(a_eff, b_col=b_col, c_col=c_col, p=spec.p,
                            cache_size=spec.cache_size, ct_size=spec.ct_size,
                            b_is_sparse=b_is_sparse,
                            uniform_split=spec.uniform_split, width_cap=cap)
-    dsched = to_device_schedule(a, sched, width_cap=cap)
+    dsched = to_device_schedule(a_eff, sched, width_cap=cap)
     tm = dsched.hbm_traffic_model(b_col, c_col, dtype_bytes=spec.dtype_bytes)
     entry = ScheduleEntry(sched=sched, dsched=dsched, b_col=b_col,
                           c_col=c_col, b_is_sparse=b_is_sparse,
                           inspector_s=time.perf_counter() - t0,
-                          traffic_model=tm, width_cap=cap)
+                          traffic_model=tm, width_cap=cap,
+                          transpose=spec.transpose,
+                          dtype_bytes=spec.dtype_bytes)
     with _lock:
         _stats["misses"] += 1
         _cache_put(_schedule_cache, key, entry)
@@ -233,11 +258,15 @@ def clear_schedule_cache() -> None:
 
 def schedule_cache_stats() -> dict:
     """Counters plus live entry counts of both caches; ``spec_entries``
-    counts the distinct resolved-spec key tails among live entries."""
+    counts the distinct resolved-spec key tails among live entries, and
+    ``transpose_entries`` the live backward-pass (``transpose=True``)
+    schedules: one per (graph, shape) when the transpose cache amortizes."""
     with _lock, _ell_lock:
         return dict(_stats, entries=len(_schedule_cache),
                     ell_entries=len(_ell_cache),
-                    spec_entries=len({k[-1] for k in _schedule_cache}))
+                    spec_entries=len({k[-1] for k in _schedule_cache}),
+                    transpose_entries=sum(
+                        e.transpose for e in _schedule_cache.values()))
 
 
 # --------------------------------------------------------------------------
@@ -315,15 +344,21 @@ def _spmm_spmm_cuda(entry: ScheduleEntry, a1: CSR,
 # --------------------------------------------------------------------------
 def _dispatch(a: CSR, b_or_a1, c: torch.Tensor, *, backend: str,
               spec: FusionSpec) -> torch.Tensor:
-    """The schedule-then-execute tail of ``tile_fused_matmul``."""
+    """The schedule-then-execute tail of ``tile_fused_matmul``.
+    ``spec.transpose=True`` runs the product with every sparse operand
+    transposed: ``D = aᵀ·(b·c)`` for GeMM-SpMM, ``D = aᵀ·(a1ᵀ·c)`` for
+    SpMM-SpMM, off the transpose-keyed schedule entry."""
     b_is_sparse = isinstance(b_or_a1, CSR)
+    a_run = a.transpose() if spec.transpose else a
+    a1_run = (b_or_a1.transpose() if b_is_sparse and spec.transpose
+              else b_or_a1)
 
     def run_unfused():
-        hell_a = _csr_ell(a, _resolve_width_cap(a, spec.width_cap),
+        hell_a = _csr_ell(a_run, _resolve_width_cap(a_run, spec.width_cap),
                           c.device, c.dtype)
         if b_is_sparse:
-            hell_a1 = _csr_ell(b_or_a1,
-                               _resolve_width_cap(b_or_a1, spec.width_cap),
+            hell_a1 = _csr_ell(a1_run,
+                               _resolve_width_cap(a1_run, spec.width_cap),
                                c.device, c.dtype)
             return fused_ops.unfused_spmm_spmm(hell_a, hell_a1, c)
         return fused_ops.unfused_gemm_spmm(hell_a, b_or_a1, c)
@@ -345,11 +380,92 @@ def _dispatch(a: CSR, b_or_a1, c: torch.Tensor, *, backend: str,
         return run_unfused()
     if b_is_sparse:
         if chosen == "cuda":
-            return _spmm_spmm_cuda(entry, b_or_a1, c)
-        return fused_ops.fused_spmm_spmm(entry.dsched, b_or_a1, c)
+            return _spmm_spmm_cuda(entry, a1_run, c)
+        return fused_ops.fused_spmm_spmm(entry.dsched, a1_run, c)
     if chosen == "cuda":
         return _gemm_spmm_cuda(entry, b_or_a1, c)
     return fused_ops.fused_gemm_spmm(entry.dsched, b_or_a1, c)
+
+
+# --------------------------------------------------------------------------
+# Autograd: the backward runs the transposed products on the same dispatch
+# --------------------------------------------------------------------------
+def _bwd_spec(spec: FusionSpec) -> FusionSpec:
+    """The backward dispatch's spec: the transpose bit flipped, so the
+    backward of an already-transposed product runs on the forward entry
+    ((Aᵀ)ᵀ = A); every other knob carries over, and with it the same
+    Eq-3 ``select_backend``."""
+    return dataclasses.replace(spec, transpose=not spec.transpose)
+
+
+def _transpose_spmm(a: CSR, x: torch.Tensor, *, transpose: bool,
+                    width_cap, backend: str) -> torch.Tensor:
+    """``Aᵀ·x`` (``A·x`` when the forward was transposed): the second
+    sparse product of the GeMM-SpMM backward, one call of the hybrid-ELL
+    kernel wrapper over the same content-keyed full-matrix hybrid ELL the
+    unfused executor uses (its plain version under ``backend="torch"``).
+    ``x`` must be contiguous, as the kernel takes it."""
+    a_eff = a.transpose() if transpose else a
+    return fused_ops.spmm_hybrid(
+        _csr_ell(a_eff, _resolve_width_cap(a_eff, width_cap), x.device,
+                 x.dtype), x, kernel=backend != "torch")
+
+
+class _GemmSpmmFn(torch.autograd.Function):
+    """``D = A·(B·C)`` with its backward:
+
+      ``dB = Aᵀ·(Ḋ·Cᵀ)`` — a GeMM-SpMM against ``Aᵀ``, dispatched through
+      ``tile_fused_matmul`` with the transpose bit flipped, so it hits the
+      cached transpose entry and the same backend selection;
+      ``dC = Bᵀ·(Aᵀ·Ḋ)`` — one full-matrix hybrid SpMM against ``Aᵀ``,
+      then a dense product.
+
+    Only the gradients autograd asks for are computed (a first layer's
+    features need no ``dB``).  One dtype throughout: ``tile_fused_matmul``
+    holds ``b`` and ``c`` to one, and autograd hands ``Ḋ`` in ``D``'s."""
+
+    @staticmethod
+    def forward(ctx, b, c, a, backend, spec):
+        ctx.a, ctx.backend, ctx.spec = a, backend, spec
+        ctx.save_for_backward(b, c)
+        return _dispatch(a, b, c, backend=backend, spec=spec)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dd):
+        b, c = ctx.saved_tensors
+        spec = _bwd_spec(ctx.spec)
+        # the kernels take contiguous tensors; a cotangent may come strided
+        # (``D.sum()`` expands a scalar with stride 0): one copy for both
+        dd = dd.contiguous()
+        db = dc = None
+        if ctx.needs_input_grad[0]:
+            db = tile_fused_matmul(ctx.a, dd, c.t(), backend=ctx.backend,
+                                   spec=spec)
+        if ctx.needs_input_grad[1]:
+            dc = b.t() @ _transpose_spmm(ctx.a, dd, transpose=spec.transpose,
+                                         width_cap=spec.width_cap,
+                                         backend=ctx.backend)
+        return db, dc, None, None, None
+
+
+class _SpmmSpmmFn(torch.autograd.Function):
+    """``D = A·(A1·C)`` with its backward ``dC = A1ᵀ·(Aᵀ·Ḋ)``: itself a
+    SpMM-SpMM with the operand roles swapped, dispatched through
+    ``tile_fused_matmul`` with the transpose bit flipped, so it runs the
+    fused two-wavefront schedule of the cached transpose entry."""
+
+    @staticmethod
+    def forward(ctx, c, a, a1, backend, spec):
+        ctx.a, ctx.a1, ctx.backend, ctx.spec = a, a1, backend, spec
+        return _dispatch(a, a1, c, backend=backend, spec=spec)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dd):
+        dc = tile_fused_matmul(ctx.a1, ctx.a, dd, backend=ctx.backend,
+                               spec=_bwd_spec(ctx.spec))
+        return dc, None, None, None, None
 
 
 def tile_fused_matmul(a: CSR, b_or_a1, c: torch.Tensor, *,
@@ -368,7 +484,12 @@ def tile_fused_matmul(a: CSR, b_or_a1, c: torch.Tensor, *,
         "cuda" / "torch" / "unfused" override.  "cuda" on CPU tensors runs
         the kernel arm's glue with the kernels' plain versions.
       spec: a ``FusionSpec`` (``None`` = the default spec); its resolved
-        form keys the schedule cache.
+        form keys the schedule cache.  ``spec.transpose=True`` computes
+        the product with the sparse operands transposed.
+
+    Differentiable in the dense operands: under grad mode, when one of
+    them requires grad, the backward runs on the transpose entries (see
+    the module docstring).
     """
     spec = _coerce_spec(spec)
     if backend == "sharded":
@@ -378,19 +499,19 @@ def tile_fused_matmul(a: CSR, b_or_a1, c: torch.Tensor, *,
     _check_slice(spec)
     if not isinstance(c, torch.Tensor):
         raise TypeError(f"c must be a torch.Tensor, got {type(c).__name__}")
-    dense = [c]
-    if not isinstance(b_or_a1, CSR):
-        if not isinstance(b_or_a1, torch.Tensor):
-            raise TypeError(f"b_or_a1 must be a torch.Tensor or a CSR, got "
-                            f"{type(b_or_a1).__name__}")
-        if b_or_a1.device != c.device or b_or_a1.dtype != c.dtype:
-            raise ValueError(
-                f"b ({b_or_a1.dtype} on {b_or_a1.device}) and c ({c.dtype} "
-                f"on {c.device}) must share a dtype and a device")
-        b_or_a1 = b_or_a1.contiguous()
-        dense.append(b_or_a1)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in dense):
-        raise NotImplementedError(
-            f"autograd through tile_fused_matmul {_NOT_PORTED}; run under "
-            f"torch.inference_mode() or torch.no_grad()")
-    return _dispatch(a, b_or_a1, c.contiguous(), backend=backend, spec=spec)
+    c = c.contiguous()
+    if isinstance(b_or_a1, CSR):
+        if torch.is_grad_enabled() and c.requires_grad:
+            return _SpmmSpmmFn.apply(c, a, b_or_a1, backend, spec)
+        return _dispatch(a, b_or_a1, c, backend=backend, spec=spec)
+    if not isinstance(b_or_a1, torch.Tensor):
+        raise TypeError(f"b_or_a1 must be a torch.Tensor or a CSR, got "
+                        f"{type(b_or_a1).__name__}")
+    if b_or_a1.device != c.device or b_or_a1.dtype != c.dtype:
+        raise ValueError(
+            f"b ({b_or_a1.dtype} on {b_or_a1.device}) and c ({c.dtype} "
+            f"on {c.device}) must share a dtype and a device")
+    b = b_or_a1.contiguous()
+    if torch.is_grad_enabled() and (b.requires_grad or c.requires_grad):
+        return _GemmSpmmFn.apply(b, c, a, backend, spec)
+    return _dispatch(a, b, c, backend=backend, spec=spec)

@@ -10,8 +10,8 @@ cost(T, bCol, cCol) = (nz(T) + uc(T) + t + |J|) * cCol + idx
   |J|   : fused second-op iterations (rows of D written)
   idx   : indexing cost for the sparse operand(s) (int32 per nonzero)
 
-A copy of ``repro.core.tilefusion.cost_model`` (the parts the forward
-path prices with), keeping the reference's constants for parity.  The unit
+A copy of ``repro.core.tilefusion.cost_model`` (the parts the
+single-device forward and training paths price with), keeping the reference's constants for parity.  The unit
 is *elements* scaled by dtype bytes so the same model serves f32/bf16/f64.
 """
 from __future__ import annotations
@@ -19,6 +19,9 @@ from __future__ import annotations
 import numpy as np
 
 from ..sparse.formats import CSR, csr_gather_rows
+
+#: Bytes of one sparse index (int32), whatever the operand dtype.
+INDEX_BYTES = 4
 
 #: Elements a spilled hybrid-ELL entry streams (row, col, val) vs the 2
 #: (col, val) of a body slot — shared by the packer's cap search
@@ -177,3 +180,36 @@ def tile_costs_batch(
         nz = nnz_a + t * b_col
         idx = nnz_a
     return ((nz + uc + t + sizes) * c_col + idx).astype(np.float64)
+
+
+def spmm_bytes(nnz: int, n_rows: int, n_cols: int, c_col: int,
+               dtype_bytes: int = 4) -> float:
+    """Bytes one plain SpMM ``(n_rows × n_cols) @ (n_cols × c_col)``
+    streams: the dense input and output plus the sparse operand's values
+    (at the operand dtype) and indices (int32)."""
+    return (float(n_cols + n_rows) * c_col + float(nnz)) * dtype_bytes \
+        + float(nnz) * INDEX_BYTES
+
+
+def train_step_traffic(forward_tm: dict, transpose_tm: dict, *, nnz: int,
+                       n_i: int, n_j: int, c_col: int,
+                       dtype_bytes: int = 4) -> dict:
+    """Per-training-step traffic of the differentiable fused path.
+
+    The backward of ``D = A·(B·C)`` is two sparse-dense products against
+    ``Aᵀ``: the fused ``dB = Aᵀ·(Ḋ·Cᵀ)`` — priced by the transpose
+    entry's own Eq-3 model, inspected with the swapped (b_col, c_col) —
+    plus the plain ``g1 = Aᵀ·Ḋ`` SpMM feeding ``dC = Bᵀ·g1``.
+    ``forward_tm`` / ``transpose_tm`` are the two entries'
+    ``traffic_model`` dicts."""
+    g1 = spmm_bytes(nnz, n_i, n_j, c_col, dtype_bytes)
+    fwd = float(forward_tm["fused_bytes"])
+    bwd = float(transpose_tm["fused_bytes"]) + g1
+    bwd_unfused = float(transpose_tm["unfused_bytes"]) + g1
+    return {
+        "forward_bytes": fwd,
+        "backward_bytes": bwd,
+        "backward_unfused_bytes": bwd_unfused,
+        "train_step_bytes": fwd + bwd,
+        "backward_saving": 1.0 - bwd / max(bwd_unfused, 1.0),
+    }

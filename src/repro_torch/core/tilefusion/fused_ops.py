@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ...kernels import ops as kops
+from ...kernels import ref as kref
 from ...kernels import spmm as kspmm
 from ..sparse.formats import (CSR, HybridELL, csr_content_digest,
                               ell_slot_coords)
@@ -391,9 +392,13 @@ class HybridTensors:
                                      device, dtype))
 
 
-def spmm_hybrid(hell: HybridTensors, x):
+def spmm_hybrid(hell: HybridTensors, x, *, kernel: bool = True):
     """Hybrid-ELL SpMM, body and spill tails in one call of the
-    ``spmm_ell`` kernel wrapper (the CUDA kernel for CUDA tensors)."""
+    ``spmm_ell`` kernel wrapper (the CUDA kernel for CUDA tensors); with
+    ``kernel=False`` the kernel's plain version wherever ``x`` lives (the
+    torch arm's backward)."""
+    if not kernel:
+        return kref.spmm_ell(hell.cols, hell.vals, x, tails=hell.tails)
     return kops.spmm_ell(hell.cols, hell.vals, x, tails=hell.tails)
 
 

@@ -6,18 +6,24 @@ through ``core.tilefusion.api.tile_fused_matmul``: the schedule is inspected
 once per (graph, layer shape) when the model is built and served from the
 content-keyed cache for every request (paper §4.2.3 amortization).
 
-This slice serves inference: ``forward`` runs under
-``torch.inference_mode()``.  Training comes with the port's autograd
-(ROADMAP.md, Queue 1).
+``forward`` is differentiable in the weights: under grad mode each
+layer's backward runs the transposed fused products (``api``'s autograd
+Functions) off cached transpose schedules, which ``launch.steps
+.make_gcn_train_step`` trains with.  A serving caller runs it under
+``torch.inference_mode()``, where no graph is recorded and the layers
+dispatch directly.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.sparse.formats import CSR
-from ..core.tilefusion import api
+from ..core.tilefusion import api, cost_model
 from ..core.tilefusion.spec import FusionSpec
 
 
@@ -96,7 +102,22 @@ class GCN(nn.Module):
         device = self.weights[0].device if device is None else device
         return [api.select_backend(e, device) for e in self.entries]
 
-    @torch.inference_mode()
+    def train_step_traffic_models(self) -> list:
+        """Per-layer forward + backward traffic (``cost_model
+        .train_step_traffic``): the transpose entry prices the backward's
+        fused product against Âᵀ, the extra SpMM term its ``Âᵀ·Ḋ``."""
+        out = []
+        for e in self.entries:
+            et = api.get_schedule(
+                self.adj, b_col=e.c_col, c_col=e.b_col,
+                spec=dataclasses.replace(self.spec, transpose=True,
+                                         dtype_bytes=e.dtype_bytes))
+            out.append(cost_model.train_step_traffic(
+                e.traffic_model, et.traffic_model, nnz=self.adj.nnz,
+                n_i=self.adj.n_cols, n_j=self.adj.n_rows, c_col=e.c_col,
+                dtype_bytes=e.dtype_bytes))
+        return out
+
     def forward(self, x: torch.Tensor, *, backend: str = "auto"
                 ) -> torch.Tensor:
         """Logits for node features ``x`` of shape ``(n_nodes, in_dim)``,
@@ -107,3 +128,11 @@ class GCN(nn.Module):
                                       spec=self.spec)
             x = torch.relu(h) if i < last else h
         return x
+
+    def loss(self, x: torch.Tensor, labels: torch.Tensor, *,
+             backend: str = "auto") -> torch.Tensor:
+        """Mean negative log-likelihood of ``labels`` under the softmax of
+        the logits, written as the reference's ``GCN.loss`` (log-softmax,
+        the label's entry of each row, mean)."""
+        logp = F.log_softmax(self(x, backend=backend), dim=-1)
+        return -torch.take_along_dim(logp, labels[:, None], dim=1).mean()

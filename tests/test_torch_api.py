@@ -165,12 +165,11 @@ def test_auto_never_drops_a_device_tensor_to_the_plain_path():
         api.select_backend(uniform, "meta")
 
 
-@pytest.mark.parametrize("knob", ["autotune", "mesh", "bucket", "reorder",
-                                  "transpose"])
+@pytest.mark.parametrize("knob", ["autotune", "mesh", "bucket", "reorder"])
 def test_out_of_slice_knobs_raise(knob):
     _, ta = pattern_pair("banded")
     value = {"autotune": True, "mesh": object(), "bucket": (64, 64, 4),
-             "reorder": "rcm", "transpose": True}[knob]
+             "reorder": "rcm"}[knob]
     spec = dataclasses.replace(api.FusionSpec(**KNOBS), **{knob: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.tile_fused_matmul(ta, torch.randn(64, 8), torch.randn(8, 4),
@@ -180,14 +179,20 @@ def test_out_of_slice_knobs_raise(knob):
 
 
 def test_sharded_backend_and_grad_raise():
+    """``backend="sharded"``, unknown backends and mixed dtypes raise;
+    autograd no longer does: the gradient that comes back equals the
+    plain path's."""
     _, ta = pattern_pair("banded")
     b, c = torch.randn(64, 8), torch.randn(8, 4, requires_grad=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.tile_fused_matmul(ta, b, c.detach(), backend="sharded")
-    with pytest.raises(NotImplementedError, match="autograd"):
-        api.tile_fused_matmul(ta, b, c)
+    api.tile_fused_matmul(ta, b, c).sum().backward()
+    plain = c.detach().clone().requires_grad_()
+    api.tile_fused_matmul(ta, b, plain, backend="torch").sum().backward()
+    assert c.grad is not None
+    torch.testing.assert_close(c.grad, plain.grad, rtol=2e-3, atol=2e-3)
     with torch.no_grad():
-        api.tile_fused_matmul(ta, b, c)
+        assert not api.tile_fused_matmul(ta, b, c).requires_grad
     with pytest.raises(ValueError, match="backend"):
         api.tile_fused_matmul(ta, b, c.detach(), backend="pallas")
     with pytest.raises(ValueError, match="dtype"):

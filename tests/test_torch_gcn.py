@@ -64,7 +64,8 @@ def test_logits_match_reference(graph, n_layers, backend):
         want = np.asarray(ref.forward(params, jnp.asarray(x), backend=rbe))
     model = GCN(cfg, as_port(adj), device="cpu")
     model.params_from_jax([np.asarray(p) for p in params])
-    got = model(torch.from_numpy(x), backend=backend)
+    with torch.inference_mode():        # serving records no graph
+        got = model(torch.from_numpy(x), backend=backend)
     assert got.shape == (cfg.n_nodes, cfg.out_dim)
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
     ref_picks = [ref_api_pick(e) for e in ref.entries]
@@ -108,11 +109,20 @@ def test_gcn_defaults_to_the_card():
 
 
 def test_forward_runs_under_inference_mode():
+    """Serving runs under ``torch.inference_mode()`` and records nothing;
+    with grad on, the same forward builds a graph back to the weights."""
     adj = as_port(powerlaw_graph(REDUCED.n_nodes, 8, seed=0))
     model = GCN(REDUCED, adj, device="cpu", seed=3)
     assert all(w.requires_grad for w in model.weights)
-    out = model(torch.randn(REDUCED.n_nodes, REDUCED.in_dim))
-    assert out.is_inference()
+    x = torch.randn(REDUCED.n_nodes, REDUCED.in_dim)
+    with torch.inference_mode():
+        out = model(x)
+    assert out.is_inference() and out.grad_fn is None
+    logits = model(x)
+    assert not logits.is_inference() and logits.grad_fn is not None
+    torch.testing.assert_close(logits.detach(), out.clone())
+    logits.sum().backward()
+    assert all(w.grad is not None for w in model.weights)
     same = GCN(REDUCED, adj, device="cpu", seed=3)
     for w, v in zip(model.weights, same.weights):
         assert torch.equal(w, v)

@@ -1,6 +1,6 @@
 """Card-only checks of the port: each CUDA kernel against its plain PyTorch
-version, the ``cuda`` arm against the ``torch`` arm, and the LM served on
-the card.
+version, the ``cuda`` arm against the ``torch`` arm (forward, gradients
+and a GCN training step), and the LM served on the card.
 
 Every test here carries the ``gpu`` marker and skips, with its reason,
 where there is no CUDA device of compute capability 9.0+ (the decision is
@@ -152,7 +152,8 @@ def test_spmm_body_only_runs_one_pass(card):
 # kernel; the others the wgmma kernel: N = 128 and N = 32 (GCN layers 1
 # and 2), tile counts that leave warpgroups idle or uneven (7, 37, 300),
 # K = N = 8, c_col > 128 (two column blocks), w0 > 32 with a ragged last k
-# block (b_col 40), 512-byte rows of B in bf16
+# block (b_col 40), 512-byte rows of B in bf16, and one k block at N = 128
+# over 2,048 tiles (b_col 32: the backward's dB of GCN layer 2)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_tiles,t,j0,w,b_col,c_col",
                          [(3, 5, 4, 3, 6, 7), (64, 64, 56, 17, 128, 128),
@@ -161,7 +162,8 @@ def test_spmm_body_only_runs_one_pass(card):
                           (37, 64, 56, 17, 128, 128), (300, 128, 120, 17, 128,
                                                         32),
                           (7, 64, 30, 5, 8, 8), (5, 64, 60, 9, 64, 200),
-                          (3, 64, 60, 33, 40, 48), (9, 128, 100, 9, 256, 64)])
+                          (3, 64, 60, 33, 40, 48), (9, 128, 100, 9, 256, 64),
+                          (2048, 64, 56, 9, 32, 128)])
 def test_gemm_spmm_wf0_kernel(card, n_tiles, t, j0, w, b_col, c_col, dtype):
     g = torch.Generator().manual_seed(t)
     cols0, vals0 = _ell(g, (n_tiles, j0, w), t, card)
@@ -193,6 +195,10 @@ def _misaligned_copy(x: torch.Tensor) -> torch.Tensor:
      "tile_fused_gemm_spmm_wf0_wgmma_kernel"),
     (torch.float32, 128, 128, 32, True, "tile_fused_gemm_spmm_wf0_wgmma_kernel"),
     (torch.bfloat16, 128, 128, 32, True,
+     "tile_fused_gemm_spmm_wf0_wgmma_kernel"),
+    # the backward's dB of GCN layer 2: one k block at N = 128
+    (torch.float32, 64, 32, 128, True, "tile_fused_gemm_spmm_wf0_wgmma_kernel"),
+    (torch.bfloat16, 64, 32, 128, True,
      "tile_fused_gemm_spmm_wf0_wgmma_kernel"),
     (torch.float32, 64, 128, 128, False, "tile_fused_gemm_spmm_wf0_kernel"),
     (torch.float32, 96, 128, 128, True, "tile_fused_gemm_spmm_wf0_kernel"),
@@ -348,10 +354,117 @@ def test_gcn_serves_on_the_card(card):
         assert model.layer_backends()[0] == pick
         x = torch.randn(cfg.n_nodes, cfg.in_dim, device=card)
         ops.reset_launch_counts()
-        got = model(x)
+        with torch.inference_mode():
+            got = model(x)
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["spmm_ell"] > 0
+            assert _rel_err(got, model(x, backend="torch")) <= 2e-3
+
+
+def _non_symmetric(n: int) -> CSR:
+    """``banded_spd(n, 8)`` with every other row emptied (the parity
+    matrix's empty-rows cell at size): ``Aᵀ != A``, and the row and column
+    degrees differ."""
+    a = gen.banded_spd(n, 8, seed=2)
+    lens = np.diff(a.indptr)
+    keep = np.arange(a.n_rows) % 2 == 1
+    flat = np.repeat(keep, lens)
+    indptr = np.concatenate([[0], np.cumsum(np.where(keep, lens, 0))])
+    return CSR(a.n_rows, a.n_cols, indptr.astype(a.indptr.dtype),
+               a.indices[flat], a.data[flat])
+
+
+def _grads(a, op_pair, backend, loss, card):
+    """Gradients of ``loss(D)`` w.r.t. the dense operands, and the kernel
+    launches of the backward alone."""
+    rng = np.random.default_rng(4)
+
+    def leaf(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(
+            card).requires_grad_()
+    if op_pair == "spmm":
+        leaves = [leaf(a.n_cols, 64)]
+        d = api.tile_fused_matmul(a, a, leaves[0], backend=backend)
+    else:
+        leaves = [leaf(a.n_cols, 64), leaf(64, 64)]
+        d = api.tile_fused_matmul(a, *leaves, backend=backend)
+    w = torch.from_numpy(rng.standard_normal(tuple(d.shape),
+                                             np.float32)).to(card)
+    value = d.sum() if loss == "sum" else (w * d).sum()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    value.backward()
+    torch.cuda.synchronize()
+    return [x.grad for x in leaves], ops.launch_counts()
+
+
+@pytest.mark.parametrize("loss", ["sum", "weighted"])
+@pytest.mark.parametrize("pattern", ["banded", "non-symmetric"])
+@pytest.mark.parametrize("op_pair", ["gemm", "spmm"])
+def test_grads_match_torch_arm(card, op_pair, pattern, loss):
+    """The backward on the card (transpose entries; the wavefront-0 kernel
+    where Eq-3 fuses the transpose entry; ``spmm_ell`` for ``Aᵀ·Ḋ``)
+    against ``backend="torch"``; ``D.sum()`` hands it a stride-0
+    cotangent."""
+    a = (gen.banded_spd(4096, 8, seed=1) if pattern == "banded"
+         else _non_symmetric(4096))
+    got, counts = _grads(a, op_pair, "auto", loss, card)
+    want, _ = _grads(a, op_pair, "torch", loss, card)
+    for g, w in zip(got, want, strict=True):
+        assert _rel_err(g, w) <= 2e-3
+    entry = api.get_schedule(a, b_col=64, c_col=64,
+                             b_is_sparse=op_pair == "spmm",
+                             spec=api.FusionSpec(transpose=True))
+    wf0 = ("tile_fused_spmm_spmm_wf0" if op_pair == "spmm"
+           else "tile_fused_gemm_spmm_wf0")
+    fused = api.select_backend(entry, card) == "cuda"
+    assert counts[wf0] == (1 if fused else 0)
+    if pattern == "banded":
+        assert fused
+    if op_pair == "gemm":
+        assert counts["spmm_ell"] >= 1          # Aᵀ·Ḋ
+
+
+@pytest.mark.parametrize("graph", ["banded", "powerlaw"])
+def test_gcn_train_step_matches_plain_path(card, graph):
+    """One SGD step of the CONFIG-width GCN on the card against the same
+    step with ``backend="torch"``: the loss and the updated weights."""
+    from repro_torch.launch.steps import make_gcn_train_step
+    cfg = GCNConfig(n_nodes=8192)
+    adj = (gen.banded_spd(cfg.n_nodes, 8, seed=0) if graph == "banded"
+           else gen.powerlaw_graph(cfg.n_nodes, 8, seed=0))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((cfg.n_nodes, cfg.in_dim),
+                                             np.float32)).to(card)
+    y = torch.from_numpy(rng.integers(0, cfg.out_dim, cfg.n_nodes)).to(card)
+    out = {}
+    for backend in ("auto", "torch"):
+        model = GCN(cfg, adj, seed=3)
+        ops.reset_launch_counts()
+        loss = make_gcn_train_step(model, backend=backend)(x, y)
         torch.cuda.synchronize()
-        assert ops.launch_counts()["spmm_ell"] > 0
-        assert _rel_err(got, model(x, backend="torch")) <= 2e-3
+        out[backend] = (float(loss), [w.detach() for w in model.weights],
+                        ops.launch_counts())
+    (loss, weights, counts), (want, want_w, _) = out["auto"], out["torch"]
+    assert abs(loss - want) <= 2e-3 * abs(want)
+    for w, v in zip(weights, want_w, strict=True):
+        assert _rel_err(w, v) <= 2e-3
+    # each layer's Aᵀ·Ḋ runs the hybrid SpMM kernel, besides the forward's
+    assert counts["spmm_ell"] >= 2 * cfg.n_layers
+    if graph == "banded":
+        # two forward layers and layer 2's dB; that dB ran last
+        assert counts["tile_fused_gemm_spmm_wf0"] == cfg.n_layers + 1
+        assert gemm_wf0.last_path() == gemm_wf0.WGMMA_KERNEL
+
+
+def test_backward_gives_the_same_bits_twice(card):
+    """The GeMM-SpMM backward (the GCN's) has no float atomics.  SpMM-SpMM
+    does not promise this: its dense op-1 spill delta is a scatter-add
+    (``fused_ops.op1_spill``; ROADMAP Queue 2 item D)."""
+    a = gen.banded_spd(4096, 8, seed=1)
+    first, _ = _grads(a, "gemm", "auto", "weighted", card)
+    again, _ = _grads(a, "gemm", "auto", "weighted", card)
+    assert all(torch.equal(x, y) for x, y in zip(first, again, strict=True))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
