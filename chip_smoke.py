@@ -129,10 +129,45 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                ``backend="unfused"`` and a ``torch.sparse.mm`` autograd
                step.
 
+ 11. schedule transforms and the hetero stack (``phase_11``).
+               11a reorder: ``banded_spd(131072, 8)``, normalized, under a
+               seeded symmetric permutation — bandwidth before and after
+               ``rcm_order``; GeMM-SpMM (B 131072 × 128, C 128 × 128) and
+               SpMM-SpMM at 128 columns must pick ``unfused`` without
+               reorder and ``cuda`` with ``reorder="auto"``, launch their
+               wavefront-0 kernel (GeMM-SpMM on the device function its
+               rule picks), agree with ``backend="torch"`` and with the
+               product on the unshuffled matrix, un-permuted; the fused and
+               reordered arm timed against ``backend="unfused"``; both op
+               pairs' gradients against ``backend="torch"``; the kernels at
+               the reordered shapes against their plain versions; the
+               power-law graph under ``reorder="auto"`` (no ordering
+               expected to clear the floor).  11b autotune: the banded
+               GCN's two layer shapes and the banded SpMM-SpMM under
+               ``autotune=True`` (winner, candidates, sweep seconds, pick,
+               device function; result against ``backend="torch"``; a
+               second call must not sweep), and a ``GCN`` built with
+               ``FusionSpec(autotune=True)`` serving 8 requests.  11c
+               hetero: ``HeteroGCNLayer`` on a typed graph shaped like
+               ogbn-mag at 1/8 of its node and edge counts (8 relations,
+               935,520 stacked rows, b_col 1024): one stacked inspection
+               and none in the forwards, the Eq-3 pick, ``backend="auto"``
+               and ``"cuda"`` (the
+               CUDA-core GeMM-SpMM kernel) against the per-relation loop
+               and ``backend="torch"``, weight gradients, p50 of the stack
+               against ``hetero_loop_matmul``, peak device memory, the
+               kernels at the stack's shapes; then a SpMM-SpMM stack of 16
+               power-law relations of 8,192 nodes on ``backend="cuda"``
+               against the loop on ``backend="torch"``, and the SpMM-SpMM
+               kernel at the stack's own schedule and stacked op 1 against
+               its plain version.
+
 Each path is driven with the launch counts set to 0 just before it and
 read just after: phases 4-5 (the GCN path, gradients included) must
 launch the three sparse kernels, ``spmm_ell`` in every request of both
-graphs, phase 10's training runs ``spmm_ell`` and GeMM-SpMM, phase 7's
+graphs, phase 10's training runs ``spmm_ell`` and GeMM-SpMM, phase 11's
+paths (each call counted on its own) add to the three sparse kernels'
+launches, phase 7's
 entry-point calls the FFN and MoE kernels, and phase 8 the flash kernel
 exactly once per layer of the prefill.  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
@@ -207,6 +242,22 @@ LM_TOL = 5e-2   # bf16 logits, served path vs plain attention, rel
 LM_REPLAY = 4   # decode steps replayed against a full forward
 # phase 10: SGD on the GCN
 TRAIN_STEPS, TRAIN_LR = 10, 0.3
+# phase 11: the seed of the banded graph's shuffle, and the typed graph
+# shaped like ogbn-mag (OGB, Hu et al. 2020; node and edge counts of its
+# four relations) cut to 1/MAG_CUT of its node and edge counts, so the
+# average degrees are kept; every relation also runs reversed (8
+# relations, as the RGCN of Schlichtkrull et al. 2018 runs them)
+SHUFFLE_SEED = 11
+MAG_CUT = 8
+MAG_NODES = {"paper": 736_389, "author": 1_134_649, "institution": 8_740,
+             "field_of_study": 59_965}
+MAG_EDGES = {("author", "writes", "paper"): 7_145_660,
+             ("paper", "cites", "paper"): 5_416_271,
+             ("paper", "has_topic", "field_of_study"): 7_505_078,
+             ("author", "affiliated_with", "institution"): 1_043_998}
+MAG_WIDTH = 128            # input width of every node type, and the output
+# the SpMM-SpMM stack: power-law relations of HETERO_NODES nodes each
+HETERO_RELATIONS, HETERO_NODES = 16, 8_192
 GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
 # phase 2: the functions of each kernel in the library's SASS (a part of the
@@ -300,6 +351,40 @@ def every_other_row(a):
     indptr = np.concatenate([[0], np.cumsum(np.where(keep, lens, 0))])
     return type(a)(a.n_rows, a.n_cols, indptr.astype(a.indptr.dtype),
                    a.indices[flat], a.data[flat])
+
+
+def mag_relation(rng, n_src: int, n_dst: int, n_edges: int):
+    """``n_edges`` distinct ``(dst, src)`` edges as an ``(n_dst, n_src)``
+    CSR of ones: sources drawn with Pareto(2) weights (heavy-tailed
+    out-degrees), destinations uniform."""
+    import numpy as np
+    from repro_torch.core.sparse.formats import CSR
+    w = rng.pareto(2.0, n_src) + 1.0
+    p = w / w.sum()
+    keys = np.zeros(0, np.int64)
+    while keys.size < n_edges:
+        m = int(1.25 * (n_edges - keys.size)) + 16
+        src = rng.choice(n_src, m, p=p)
+        dst = rng.integers(0, n_dst, m)
+        keys = np.union1d(keys, dst.astype(np.int64) * n_src + src)
+    keys = np.sort(rng.choice(keys, n_edges, replace=False))
+    return CSR.from_coo(n_dst, n_src, keys // n_src, keys % n_src,
+                        np.ones(n_edges, np.float32))
+
+
+def mag_graph(seed: int = 0):
+    """The typed graph shaped like ogbn-mag at 1/MAG_CUT of its node and
+    edge counts: the four relations and their reverses."""
+    import numpy as np
+    from repro_torch.models.hetero_gcn import HeteroGraph
+    rng = np.random.default_rng(seed)
+    nodes = {t: int(n / MAG_CUT + 0.5) for t, n in MAG_NODES.items()}
+    relations = {}
+    for (src, name, dst), n in MAG_EDGES.items():
+        a = mag_relation(rng, nodes[src], nodes[dst], int(n / MAG_CUT + 0.5))
+        relations[(src, name, dst)] = a
+        relations[(dst, "rev_" + name, src)] = a.transpose()
+    return HeteroGraph(nodes, relations)
 
 
 def main(device: str = "cuda") -> None:
@@ -619,6 +704,36 @@ def main(device: str = "cuda") -> None:
                     ops.spmm_ell(hell.cols, hell.vals, x), srows, scols,
                     svals, x), bitwise=True, **extra))
 
+    def spmm_spmm_case(label, entry, a1, dtype):
+        """The fused SpMM-SpMM kernel on ``entry``'s schedule with op 1
+        ``a1`` (already in the schedule's row order)."""
+        ds, c_col = entry.dsched, entry.c_col
+        st = fused_ops.schedule_tensors(ds, dev, dtype)
+        cs = randn(a1.n_cols, c_col, scale=0.1).to(dtype)
+        ot = fused_ops.op1_tensors(a1, ds, dev, dtype)
+        spill = fused_ops.op1_spill(ot, cs, ds.n_tiles0 * ds.t_pad)
+        args = (ot.cols, ot.vals, spill, st.cols0, st.vals0, cs)
+        spill_rows = torch.unique(ot.spill_flat).numel()
+        ss_ops = (2.0 * int((ot.vals != 0).sum()) * c_col
+                  + spill_rows * c_col
+                  + 2.0 * int((st.vals0 != 0).sum()) * c_col)
+        moved = (nz_bytes(ot.cols, ot.vals) + row_bytes(spill_rows, spill)
+                 + nz_bytes(st.cols0, st.vals0)
+                 + gathered_bytes(ot.cols, ot.vals, cs)
+                 + row_bytes(ds.n_i, cs)                               # d1
+                 + row_bytes(real_rows(ds.j_rows0, ds.n_j), cs))     # rows0
+        lib = None
+        if dtype == torch.float32:
+            csr1 = ref.ell_csr(ot.cols, ot.vals, a1.n_cols,
+                               (ot.spill_flat, ot.spill_cols, ot.spill_vals))
+            csr0 = ref.fused_rows_csr(st.cols0, st.vals0, ds.t_pad)
+            lib = lambda: ref.spmm_spmm_wf0_library(  # noqa: E731
+                csr1, csr0, cs)
+        return ("tile_fused_spmm_spmm_wf0" + label,
+                lambda: ops.tile_fused_spmm_spmm_wf0(*args, t=ds.t_pad),
+                lambda: ref.tile_fused_spmm_spmm_wf0(*args, t=ds.t_pad),
+                moved, ss_ops, lib)
+
     def kernel_cases(dtype):
         """(name, kernel call, plain call, compulsory bytes, operations,
         library call or None[, extra]) at every shape the main path gives
@@ -661,109 +776,95 @@ def main(device: str = "cuda") -> None:
                2.0 * int((hell.vals != 0).sum()) * 128,
                sparse_mm(hell.cols, hell.vals, x))
 
-        ds = e_spmm.dsched
-        st = fused_ops.schedule_tensors(ds, dev, dtype)
-        cs = randn(N_NODES, 128, scale=0.1).to(dtype)
-        ot = fused_ops.op1_tensors(banded, ds, dev, dtype)
-        spill = fused_ops.op1_spill(ot, cs, ds.n_tiles0 * ds.t_pad)
-        args = (ot.cols, ot.vals, spill, st.cols0, st.vals0, cs)
-        spill_rows = torch.unique(ot.spill_flat).numel()
-        ss_ops = (2.0 * int((ot.vals != 0).sum()) * 128 + spill_rows * 128
-                  + 2.0 * int((st.vals0 != 0).sum()) * 128)
-        moved = (nz_bytes(ot.cols, ot.vals) + row_bytes(spill_rows, spill)
-                 + nz_bytes(st.cols0, st.vals0)
-                 + gathered_bytes(ot.cols, ot.vals, cs)
-                 + row_bytes(ds.n_i, cs)                               # d1
-                 + row_bytes(real_rows(ds.j_rows0, ds.n_j), cs))     # rows0
-        lib = None
-        if dtype == torch.float32:
-            csr1 = ref.ell_csr(ot.cols, ot.vals, N_NODES,
-                               (ot.spill_flat, ot.spill_cols, ot.spill_vals))
-            csr0 = ref.fused_rows_csr(st.cols0, st.vals0, ds.t_pad)
-            lib = lambda: ref.spmm_spmm_wf0_library(  # noqa: E731
-                csr1, csr0, cs)
-        yield ("tile_fused_spmm_spmm_wf0",
-               lambda: ops.tile_fused_spmm_spmm_wf0(*args, t=ds.t_pad),
-               lambda: ref.tile_fused_spmm_spmm_wf0(*args, t=ds.t_pad),
-               moved, ss_ops, lib)
+        yield spmm_spmm_case("", e_spmm, banded, dtype)
 
     records = {}
-    for dtype in (torch.float32, torch.bfloat16):
+
+    def check_case(name, kern, plain, moved, n_ops, lib, extra=None, *,
+                   dtype, tag="3 kernels"):
+        """One kernel case against its plain version: errors, the path
+        the launcher took (GeMM-SpMM: ``extra["path"]``, the ``wgmma``
+        kernel unless it says otherwise), times, bound and library
+        yardstick; prints it under ``tag``, fails past the tolerance and
+        returns its record."""
+        extra = extra or {}
         dname = str(dtype).split(".")[1]
-        for name, kern, plain, moved, n_ops, lib, *more in kernel_cases(
-                dtype):
-            extra = more[0] if more else {}
-            got, want = kern(), plain()
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        path = None
+        if name.startswith("tile_fused_gemm_spmm_wf0"):
+            path = gemm_last_path()
+            want_path = extra.get("path", GEMM_WGMMA)
+            print(f"[{tag}] {name} {dname}: ran {path}")
+            if path != want_path:
+                fail(f"{name} {dname}: ran {path}, not {want_path}")
+        if name.startswith("spmm_ell"):
+            path = spmm_last_path()
+            print(f"[{tag}] {name} {dname}: ran {path}")
+            if path != extra.get("path", path):
+                fail(f"{name} {dname}: ran {path}, not {extra['path']}")
+        if extra.get("bitwise"):
+            again = kern()
             torch.cuda.synchronize()
-            path = None
-            if name.startswith("tile_fused_gemm_spmm_wf0"):
-                path = gemm_last_path()
-                print(f"[3 kernels] {name} {dname}: ran {path}")
-                if path != GEMM_WGMMA:
-                    fail(f"{name} {dname}: ran {path}, not {GEMM_WGMMA}")
-            if name.startswith("spmm_ell"):
-                path = spmm_last_path()
-                print(f"[3 kernels] {name} {dname}: ran {path}")
-                if path != extra.get("path", path):
-                    fail(f"{name} {dname}: ran {path}, not {extra['path']}")
-            if extra.get("bitwise"):
-                again = kern()
-                torch.cuda.synchronize()
-                if not torch.equal(got, again):
-                    fail(f"{name} {dname}: two calls differ")
-                print(f"[3 kernels] {name} {dname}: two calls give the same "
-                      f"bits")
-                del again
-            if isinstance(got, torch.Tensor):
-                got, want = (got,), (want,)
-            errs = [rel_err(g, w) for g, w in zip(got, want)]
-            abs_err = max(e[0] for e in errs)
-            rel = max(e[1] for e in errs)
-            bound_bytes = moved / HBM_BYTES_PER_S * 1e3
-            bound_ops = n_ops / PEAK_OPS[dname] * 1e3
-            ms = time_ms(kern)
-            plain_ms = time_ms(plain)
-            lib_ms = None
-            if lib is not None:
-                lib_out = lib()
-                if isinstance(lib_out, torch.Tensor):
-                    lib_out = (lib_out,)
-                rows = extra.get("lib_rows", lambda w: w)
-                lib_err = max(rel_err(g, rows(w).reshape(g.shape))[1]
-                              for g, w in zip(lib_out, want))
-                lib_ms = time_ms(lib)
-            chain_ms = chain_note = None
-            if "chain" in extra:
-                chain_rel = rel_err(extra["chain"](), want[0])[1]
-                chain_ms = time_ms(extra["chain"])
-                # a short kernel is paced by its host wrapper: the same
-                # calls queued behind a sleep give the device's pace
-                chain_note = (f" replaced chain={chain_ms:.4f} ms (rel "
-                              f"{chain_rel:.1e}); queued: kernel "
-                              f"{queued_ms(kern):.4f} ms, chain "
-                              f"{queued_ms(extra['chain']):.4f} ms")
-            rec = dict(ms=ms, plain_ms=plain_ms,
-                       bound_ms=max(bound_bytes, bound_ops),
-                       bound_by="bytes" if bound_bytes >= bound_ops
-                       else "operations", library_ms=lib_ms,
-                       max_abs_err=abs_err, path=path,
-                       replaced_chain_ms=chain_ms)
-            cores = ""
-            if dtype == torch.float32:
-                at_67 = max(bound_bytes,
-                            n_ops / PEAK_F32_CUDA_CORES * 1e3)
-                cores = (f" (at 67 TFLOP/s: bound {at_67:.4f} ms, share "
-                         f"{at_67 / ms:.3f})")
-            print(f"[3 kernels] {name} {dname}: max_abs={abs_err:.3e} "
-                  f"rel={rel:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms"
-                  f" bound={rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
-                  f"{moved / 1e6:.1f} MB, {n_ops / 1e9:.3f} Gop) "
-                  f"share={rec['bound_ms'] / ms:.3f}{cores}"
-                  + (f" library={lib_ms:.4f} ms (rel {lib_err:.1e})"
-                     if lib_ms is not None else "") + (chain_note or ""))
-            if rel > TOL[dname]:
-                fail(f"{name} {dname}: rel err {rel:.3e} > {TOL[dname]}")
-            records[(name, dname)] = rec
+            if not torch.equal(got, again):
+                fail(f"{name} {dname}: two calls differ")
+            print(f"[{tag}] {name} {dname}: two calls give the same bits")
+            del again
+        if isinstance(got, torch.Tensor):
+            got, want = (got,), (want,)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        abs_err = max(e[0] for e in errs)
+        rel = max(e[1] for e in errs)
+        bound_bytes = moved / HBM_BYTES_PER_S * 1e3
+        bound_ops = n_ops / PEAK_OPS[dname] * 1e3
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain)
+        lib_ms = None
+        if lib is not None:
+            lib_out = lib()
+            if isinstance(lib_out, torch.Tensor):
+                lib_out = (lib_out,)
+            rows = extra.get("lib_rows", lambda w: w)
+            lib_err = max(rel_err(g, rows(w).reshape(g.shape))[1]
+                          for g, w in zip(lib_out, want))
+            lib_ms = time_ms(lib)
+        chain_ms = chain_note = None
+        if "chain" in extra:
+            chain_rel = rel_err(extra["chain"](), want[0])[1]
+            chain_ms = time_ms(extra["chain"])
+            # a short kernel is paced by its host wrapper: the same
+            # calls queued behind a sleep give the device's pace
+            chain_note = (f" replaced chain={chain_ms:.4f} ms (rel "
+                          f"{chain_rel:.1e}); queued: kernel "
+                          f"{queued_ms(kern):.4f} ms, chain "
+                          f"{queued_ms(extra['chain']):.4f} ms")
+        rec = dict(ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(bound_bytes, bound_ops),
+                   bound_by="bytes" if bound_bytes >= bound_ops
+                   else "operations", library_ms=lib_ms,
+                   max_abs_err=abs_err, path=path,
+                   replaced_chain_ms=chain_ms)
+        cores = ""
+        if dtype == torch.float32:
+            at_67 = max(bound_bytes,
+                        n_ops / PEAK_F32_CUDA_CORES * 1e3)
+            cores = (f" (at 67 TFLOP/s: bound {at_67:.4f} ms, share "
+                     f"{at_67 / ms:.3f})")
+        print(f"[{tag}] {name} {dname}: max_abs={abs_err:.3e} "
+              f"rel={rel:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms"
+              f" bound={rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+              f"{moved / 1e6:.1f} MB, {n_ops / 1e9:.3f} Gop) "
+              f"share={rec['bound_ms'] / ms:.3f}{cores}"
+              + (f" library={lib_ms:.4f} ms (rel {lib_err:.1e})"
+                 if lib_ms is not None else "") + (chain_note or ""))
+        if rel > TOL[dname]:
+            fail(f"{name} {dname}: rel err {rel:.3e} > {TOL[dname]}")
+        return rec
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in kernel_cases(dtype):
+            records[(case[0], str(dtype).split(".")[1])] = check_case(
+                *case, dtype=dtype)
 
     # ---- 4 + 5: the main path, with the launch counts from 0 ----
     ops.reset_launch_counts()
@@ -1455,6 +1556,459 @@ def main(device: str = "cuda") -> None:
         if train_launches[k] == 0:
             fail(f"phase 10: {k} never launched in training")
         path_launches[k] += train_launches[k]
+
+    # ---- 11. schedule transforms and the hetero stack ----
+    # the reorder and autotune transforms and the hetero stack on the card;
+    # the counts are set to 0 around each counted call and add to the
+    # phase's launches
+    t11 = time.perf_counter()
+    from repro_torch.core.tilefusion import hetero, reorder
+    from repro_torch.kernels import tile_fused_gemm_spmm as gemm_wf0
+    from repro_torch.models.gcn import normalize_adjacency
+    from repro_torch.models.hetero_gcn import HeteroGCNLayer
+    launches = dict.fromkeys(GCN_KERNELS, 0)
+
+    def counted(fn):
+        """``(fn(), launches)`` with the counts set to 0 just before and
+        read just after; they add to the phase's launches."""
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: ops.launch_counts()[k] for k in GCN_KERNELS}
+        for k, v in counts.items():
+            launches[k] += v
+        return out, counts
+
+    def dev_tensor(gen, *shape, scale=1.0):
+        return torch.from_numpy(gen.standard_normal(shape, np.float32)
+                                * np.float32(scale)).to(dev)
+
+    def shape_of(entry):
+        ds = entry.dsched
+        return (f"t={ds.t_pad} T0={ds.n_tiles0} j0_max={ds.j_rows0.shape[1]}"
+                f" w0={ds.ell_cols0.shape[2]} fused_ratio="
+                f"{entry.sched.fused_ratio:.3f} saving="
+                f"{entry.traffic_model['traffic_saving']:.3f}")
+
+    def gemm_path(entry, dtype=torch.float32):
+        """(the path the launcher took, the path its rule picks)."""
+        ds = entry.dsched
+        return gemm_wf0.last_path(), gemm_wf0.choose_path(
+            ds.t_pad, entry.b_col, entry.c_col, ds.j_rows0.shape[1],
+            ds.ell_cols0.shape[2], dtype)
+
+    def trace(tag, label, fn):
+        """One call of ``fn`` under the profiler, after a traced warm-up
+        call (a session can drop its first ctypes launch): device time by
+        kernel and the device's busy share of the call's wall time."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile, schedule
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0
+                  and not e.key.startswith("ProfilerStep")]
+        busy = sum(e.self_device_time_total for e in events)
+        print(f"[{tag} trace] {label}: device busy {busy / 1e3:.3f} ms, "
+              f"{busy / wall_us:.3f} of the call's wall "
+              f"({wall_us / 1e3:.3f} ms)")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"[{tag} trace] {label}:   {e.self_device_time_total:9.1f}"
+                  f" us  x{e.count:<3d} {e.key[:100]}")
+        copies = {e.key: (e.count, e.self_device_time_total)
+                  for e in prof.key_averages()
+                  if e.key.startswith(("Memcpy", "Memset"))}
+        print(f"[{tag} trace] {label}: memcpy / memset rows "
+              f"{copies or 'none'}")
+
+    def grads(a, b_or_a1, c, backend, spec):
+        """Gradients of ``(w·D).sum()`` w.r.t. the dense operands, and the
+        launches of the backward alone (counted)."""
+        leaves = [x.detach().clone().requires_grad_()
+                  for x in ((c,) if b_or_a1 is a else (b_or_a1, c))]
+        d = api.tile_fused_matmul(a, a if b_or_a1 is a else leaves[0],
+                                  leaves[-1], backend=backend, spec=spec)
+        w = torch.linspace(-1.0, 1.0, d.numel(), device=dev).view(d.shape)
+        value = (w * d).sum()
+        if backend == "torch":
+            value.backward()
+            return [x.grad for x in leaves], None
+        _, counts = counted(value.backward)
+        return [x.grad for x in leaves], counts
+
+    # ---- 11a. reorder: the shuffled banded graph ----
+    rng11 = np.random.default_rng(110)
+    t0 = time.perf_counter()
+    plain_adj = normalize_adjacency(banded_spd(N_NODES, 8, seed=0))
+    shuffle = np.random.default_rng(SHUFFLE_SEED).permutation(N_NODES)
+    shuffled = reorder.permute_csr(plain_adj, shuffle)
+    t_graph = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, rcm_adj = api._ordering(shuffled, "rcm")
+    t_rcm = time.perf_counter() - t0
+    print(f"[11a reorder] banded_spd({N_NODES}, 8), normalized, under a "
+          f"seeded symmetric permutation ({t_graph:.2f} s host): bandwidth "
+          f"{reorder.bandwidth(plain_adj)} before the shuffle, "
+          f"{reorder.bandwidth(shuffled)} shuffled, "
+          f"{reorder.bandwidth(rcm_adj)} after rcm_order ({t_rcm:.2f} s "
+          f"host)")
+    spec_r = api.FusionSpec(reorder="auto")
+    shuffle_t = torch.from_numpy(shuffle).to(dev)
+    b = dev_tensor(rng11, N_NODES, 128)
+    c = dev_tensor(rng11, 128, 128, scale=128 ** -0.5)
+    cs = dev_tensor(rng11, N_NODES, 128)
+    for name, sparse in (("GeMM-SpMM", False), ("SpMM-SpMM", True)):
+        b_or_a1, cc = (shuffled, cs) if sparse else (b, c)
+        t0 = time.perf_counter()
+        plain = api.get_schedule(shuffled, b_col=128, c_col=128,
+                                 b_is_sparse=sparse)
+        t_plain = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        entry = api.get_schedule(shuffled, b_col=128, c_col=128,
+                                 b_is_sparse=sparse, spec=spec_r)
+        t_auto = time.perf_counter() - t0
+        picks = (api.select_backend(plain, dev),
+                 api.select_backend(entry, dev))
+        print(f"[11a reorder] {name}: reorder=None {shape_of(plain)} pick "
+              f"{picks[0]!r} ({t_plain:.2f} s host); reorder='auto' applied "
+              f"{entry.reorder!r}: {shape_of(entry)} pick {picks[1]!r} "
+              f"({t_auto:.2f} s host: the orderings' candidate inspections; "
+              f"inspector_s {entry.inspector_s:.2f})")
+        if picks != ("unfused", "cuda"):
+            fail(f"phase 11a {name}: picks {picks}, expected ('unfused', "
+                 f"'cuda')")
+        got, counts = counted(lambda: api.tile_fused_matmul(
+            shuffled, b_or_a1, cc, spec=spec_r))
+        wf0 = ("tile_fused_spmm_spmm_wf0" if sparse
+               else "tile_fused_gemm_spmm_wf0")
+        path = ""
+        if not sparse:
+            ran, rule = gemm_path(entry)
+            path = f"; GeMM-SpMM ran {ran} (its rule: {rule})"
+            if ran != rule:
+                fail(f"phase 11a {name}: ran {ran}, the rule picks {rule}")
+        if counts[wf0] == 0:
+            fail(f"phase 11a {name}: {wf0} never launched")
+        want = api.tile_fused_matmul(shuffled, b_or_a1, cc, backend="torch")
+        # the same product on the unshuffled matrix: D_shuffled = D[shuffle]
+        if sparse:
+            c_orig = torch.empty_like(cs)
+            c_orig[shuffle_t] = cs
+            d_orig = api.tile_fused_matmul(plain_adj, plain_adj, c_orig)
+        else:
+            b_orig = torch.empty_like(b)
+            b_orig[shuffle_t] = b
+            d_orig = api.tile_fused_matmul(plain_adj, b_orig, c)
+        err_t = rel_err(got, want)[1]
+        err_u = rel_err(got, d_orig[shuffle_t])[1]
+        print(f"[11a reorder] {name}: launches {counts}{path}; rel_err vs "
+              f"torch={err_t:.2e} vs the unshuffled product={err_u:.2e}")
+        if max(err_t, err_u) > MAIN_TOL:
+            fail(f"phase 11a {name}: result disagrees")
+        del want, d_orig
+        arms = {}
+        for arm, kw in (("fused, reordered", dict(spec=spec_r)),
+                        ("unfused", dict(backend="unfused"))):
+            call = (lambda kw=kw: api.tile_fused_matmul(  # noqa: E731
+                shuffled, b_or_a1, cc, **kw))
+            arms[arm] = (time_ms(call), device_ms(call))
+        (ev_f, dv_f), (ev_u, dv_u) = arms.values()
+        trace("11a", f"{name}, fused and reordered", lambda: (
+            api.tile_fused_matmul(shuffled, b_or_a1, cc, spec=spec_r)))
+        print(f"[11a reorder] {name}: per call, fused and reordered "
+              f"{ev_f:.4f} ms, unfused without reorder {ev_u:.4f} ms (CUDA "
+              f"events, 20 calls); device time {dv_f:.4f} / {dv_u:.4f} ms "
+              f"(profiler, 5 calls); fused/unfused {ev_f / ev_u:.3f} "
+              f"(events), "
+              + (f"{dv_f / dv_u:.3f}" if dv_f > 0 and dv_u > 0 else
+                 "not measured") + " (device time)")
+        got_g, counts = grads(shuffled, b_or_a1, cc, "auto", spec_r)
+        want_g, _ = grads(shuffled, b_or_a1, cc, "torch", api.FusionSpec())
+        err = max(rel_err(g, w)[1] for g, w in zip(got_g, want_g))
+        e_t = api.get_schedule(shuffled, b_col=128, c_col=128,
+                               b_is_sparse=sparse, spec=api.FusionSpec(
+                                   reorder="auto", transpose=True,
+                                   dtype_bytes=4))
+        print(f"[11a reorder] {name} gradients: transpose entry reorder "
+              f"{e_t.reorder!r}, {shape_of(e_t)}, pick "
+              f"{api.select_backend(e_t, dev)!r}; backward launches "
+              f"{counts}; rel_err vs torch={err:.2e}")
+        if err > MAIN_TOL:
+            fail(f"phase 11a {name}: gradients disagree ({err:.2e})")
+        if counts[wf0] == 0:
+            fail(f"phase 11a {name}: the backward launched no {wf0}")
+        del got, got_g, want_g
+        # the kernel at the reordered schedule's shape, against its plain
+        # version (not counted)
+        for dtype in (torch.float32, torch.bfloat16):
+            if sparse:
+                a1 = reorder.permute_rows_cached(shuffled,
+                                                 entry.reorder_perm)
+                case = spmm_spmm_case(" (reordered shuffled banded)",
+                                          entry, a1, dtype)
+            else:
+                case = gemm_case(" (reordered shuffled banded)", entry,
+                                     dtype) + (dict(path=gemm_path(
+                                         entry, dtype)[1]),)
+            records[(case[0], str(dtype).split(".")[1])] = \
+                check_case(*case, dtype=dtype, tag="11a kernels")
+    del b, c, cs
+    pl_adj = models["powerlaw"].adj
+    t0 = time.perf_counter()
+    entry = api.get_schedule(pl_adj, b_col=128, c_col=128, spec=spec_r)
+    print(f"[11a reorder] power-law graph, reorder='auto': "
+          + ("no ordering cleared the Eq-3 floor "
+             f"({api.MIN_TRAFFIC_SAVING})" if entry.reorder is None
+             else f"applied {entry.reorder!r}")
+          + f"; {shape_of(entry)}, pick {api.select_backend(entry, dev)!r} "
+          f"({time.perf_counter() - t0:.2f} s host)")
+
+    # ---- 11b. autotune ----
+    spec_a = api.FusionSpec(autotune=True)
+    gcn_adj = models["banded"].adj
+    rng11 = np.random.default_rng(111)
+    for label, a, b_col, c_col, sparse in (
+            ("banded GCN layer 1", gcn_adj, 128, 128, False),
+            ("banded GCN layer 2", gcn_adj, 128, 32, False),
+            ("banded SpMM-SpMM", banded, 128, 128, True)):
+        stats = api.schedule_cache_stats()
+        entry = api.get_schedule(a, b_col=b_col, c_col=c_col,
+                                 b_is_sparse=sparse, spec=spec_a)
+        after = api.schedule_cache_stats()
+        sweeps = after["autotune_sweeps"]
+        pick = api.select_backend(entry, dev)
+        c = dev_tensor(rng11, a.n_cols if sparse else b_col, c_col,
+                       scale=1.0 if sparse else b_col ** -0.5)
+        b_or_a1 = a if sparse else dev_tensor(rng11, a.n_cols, b_col)
+        got, counts = counted(lambda: api.tile_fused_matmul(
+            a, b_or_a1, c, spec=spec_a))
+        path = ""
+        if not sparse and counts["tile_fused_gemm_spmm_wf0"]:
+            ran, rule = gemm_path(entry)
+            path = f"; GeMM-SpMM ran {ran} (its rule: {rule})"
+            if ran != rule:
+                fail(f"phase 11b {label}: ran {ran}, the rule picks {rule}")
+        want = api.tile_fused_matmul(a, b_or_a1, c, backend="torch")
+        err = rel_err(got, want)[1]
+        again = api.get_schedule(a, b_col=b_col, c_col=c_col,
+                                 b_is_sparse=sparse, spec=spec_a)
+        print(f"[11b autotune] {label}: sweep {entry.inspector_s:.2f} s "
+              f"host, {after['misses'] - stats['misses']} candidates "
+              f"inspected, winner (ct_size, cache_size, width_cap) = "
+              f"{entry.autotuned}; {shape_of(entry)}; pick {pick!r}; "
+              f"launches {counts}{path}; rel_err vs torch={err:.2e}")
+        if err > MAIN_TOL:
+            fail(f"phase 11b {label}: result disagrees ({err:.2e})")
+        if (again is not entry or entry.autotuned is None
+                or api.schedule_cache_stats()["autotune_sweeps"] != sweeps):
+            fail(f"phase 11b {label}: the sweep ran again")
+        if sum(counts.values()) == 0:
+            fail(f"phase 11b {label}: no kernel launched")
+        del got, want
+    sweeps = api.schedule_cache_stats()["autotune_sweeps"]
+    model = GCN(cfg, banded, spec=spec_a, seed=0, device=dev)
+    req_rng = np.random.default_rng(112)
+    lat, per_req, errs = [], [], []
+    for _ in range(REQUESTS):
+        x = dev_tensor(req_rng, N_NODES, cfg.in_dim)
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits, counts = counted(lambda: model(x))
+            lat.append((time.perf_counter() - t0) * 1e3)
+            want = model(x, backend="torch")
+        per_req.append(counts)
+        errs.append(rel_err(logits, want)[1])
+    print(f"[11b autotune] GCN with FusionSpec(autotune=True): layer "
+          f"winners {[e.autotuned for e in model.entries]}, picks "
+          f"{model.layer_backends()}; {REQUESTS} requests p50="
+          f"{float(np.median(lat)):.3f} ms; launches per request "
+          f"{per_req[-1]}; max rel_err vs torch {max(errs):.2e}; sweeps "
+          f"while building it {api.schedule_cache_stats()['autotune_sweeps'] - sweeps}")
+    with torch.inference_mode():
+        trace("11b", "autotuned GCN request", lambda: model(x))
+    if max(errs) > MAIN_TOL:
+        fail("phase 11b: an autotuned GCN request disagrees")
+    if api.schedule_cache_stats()["autotune_sweeps"] != sweeps:
+        fail("phase 11b: the GCN swept its layer shapes again")
+    if any(p["spmm_ell"] == 0 for p in per_req):
+        fail("phase 11b: an autotuned GCN request launched no spmm_ell")
+    del model
+
+    # ---- 11c. the hetero stack: a graph shaped like ogbn-mag ----
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph = mag_graph(seed=0)
+    t_graph = time.perf_counter() - t0
+    misses = api.schedule_cache_stats()["misses"]
+    in_dims = dict.fromkeys(graph.node_counts, MAG_WIDTH)
+    t0 = time.perf_counter()
+    layer = HeteroGCNLayer(graph, in_dims, MAG_WIDTH, seed=0, device=dev)
+    t_build = time.perf_counter() - t0
+    inspections = api.schedule_cache_stats()["misses"] - misses
+    entry, stack = layer.entry, layer.stack
+    print(f"[11c hetero] ogbn-mag shape cut to 1/{MAG_CUT} of its node and "
+          f"edge counts: nodes {graph.node_counts}, {len(graph.relations)} "
+          f"relations, {sum(a.nnz for a in graph.relations.values())} edges"
+          f" ({t_graph:.2f} s host); stack {stack.a.n_rows} rows, "
+          f"{stack.a.nnz} nnz, b_col {entry.b_col}; {inspections} stacked "
+          f"inspection ({t_build:.2f} s host to build the layer); "
+          f"{shape_of(entry)}; Eq-3 pick {api.select_backend(entry, dev)!r}"
+          f" (cut 1/{MAG_CUT})")
+    if inspections != 1:
+        fail(f"phase 11c: {inspections} inspections for one relation set")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        api.select_backend(entry, dev)
+    pick_us = (time.perf_counter() - t0) / 5 * 1e6
+    print(f"[11c hetero] host time of one select_backend call on the stack "
+          f"{pick_us:.1f} us ({entry.dsched.n_tiles0} wavefront-0 tiles)")
+    feat_rng = np.random.default_rng(113)
+    feats = {t: dev_tensor(feat_rng, n, MAG_WIDTH)
+             for t, n in graph.node_counts.items()}
+    misses = api.schedule_cache_stats()["misses"]
+    with torch.inference_mode():
+        plain = layer(feats, backend="torch")
+        loop = layer.reference(feats)
+        for backend in ("auto", "cuda"):
+            out, counts = counted(lambda: layer(feats, backend=backend))
+            path = ""
+            if backend == "cuda":
+                ran, rule = gemm_path(entry)
+                path = f"; GeMM-SpMM ran {ran} (its rule: {rule})"
+                if counts["tile_fused_gemm_spmm_wf0"] == 0 or ran != rule:
+                    fail(f"phase 11c: backend='cuda' launched "
+                         f"{counts} and ran {ran}")
+            errs = [max(rel_err(out[t], oracle[t])[1] for t in oracle)
+                    for oracle in (loop, plain)]
+            print(f"[11c hetero] HeteroGCNLayer backend={backend!r}: "
+                  f"launches {counts}{path}; rel_err vs the loop "
+                  f"(layer.reference) {errs[0]:.2e}, vs backend='torch' "
+                  f"{errs[1]:.2e} (cut 1/{MAG_CUT})")
+            if counts["spmm_ell"] == 0:
+                fail(f"phase 11c {backend}: no spmm_ell launch")
+            if max(errs) > MAIN_TOL:
+                fail(f"phase 11c {backend}: result disagrees")
+            del out
+    del plain, loop
+    misses = api.schedule_cache_stats()["misses"] - misses
+    print(f"[11c hetero] schedule inspections in the forwards after the "
+          f"layer was built: {misses}")
+    if misses:
+        fail(f"phase 11c: the forwards inspected {misses} schedules; the "
+             f"layer's warm-up entry should serve them")
+    wgrads = {}
+    for backend in ("auto", "torch"):
+        for w in layer.weights:
+            w.grad = None
+
+        def step():
+            sum((v ** 2).sum() for v in layer(
+                feats, backend=backend).values()).backward()
+        if backend == "torch":
+            step()
+        else:
+            _, counts = counted(step)
+        wgrads[backend] = [w.grad.clone() for w in layer.weights]
+    err = max(rel_err(g, w)[1] for g, w in zip(*wgrads.values()))
+    print(f"[11c hetero] weight gradients (loss Σ out²), backend='auto' "
+          f"vs 'torch': rel_err {err:.2e}; launches {counts} (cut "
+          f"1/{MAG_CUT})")
+    if err > MAIN_TOL:
+        fail(f"phase 11c: weight gradients disagree ({err:.2e})")
+    del wgrads
+    for w in layer.weights:
+        w.grad = None
+    relations = [(layer.adjs[k], feats[k[0]], w)
+                 for k, w in zip(layer.rel_keys, layer.weights)]
+
+    def p50_ms(fn, calls=8):
+        out = []
+        for _ in range(calls):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return float(np.median(out))
+    with torch.inference_mode():
+        trace("11c", "stacked HeteroGCNLayer forward (auto)",
+              lambda: layer(feats))
+        trace("11c", "hetero_loop_matmul layer forward (auto)",
+              lambda: layer.combine(hetero.hetero_loop_matmul(
+                  relations, spec=layer.spec)))
+        stacked_ms = p50_ms(lambda: layer(feats))
+        layer.combine(hetero.hetero_loop_matmul(relations, spec=layer.spec))
+        loop_ms = p50_ms(lambda: layer.combine(hetero.hetero_loop_matmul(
+            relations, spec=layer.spec)))
+    print(f"[11c hetero] stacked layer p50 {stacked_ms:.3f} ms vs "
+          f"hetero_loop_matmul (8 dispatches) p50 {loop_ms:.3f} ms (CUDA "
+          f"events, 8 calls each, after one warm-up); "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          f" GiB (cut 1/{MAG_CUT})")
+    # the stack's shapes of two kernels, against their plain versions (not
+    # counted; f32, the layer's dtype)
+    f32 = torch.float32
+    for case in (gemm_case(" (mag-shaped stack, b_col 1024)", entry, f32)
+                 + (dict(path=gemm_path(entry)[1]),),
+                 full_hybrid_case(
+                     f"spmm_ell (mag-shaped stack hybrid, {MAG_WIDTH} "
+                     f"columns)", stack.a, MAG_WIDTH, f32)):
+        records[(case[0], "float32")] = check_case(
+            *case, dtype=f32, tag="11c kernels")
+    del layer, feats, relations
+    torch.cuda.empty_cache()
+
+    # the SpMM-SpMM stack: CSR op-1s, one fused dispatch
+    rng11 = np.random.default_rng(114)
+    rels = [(normalize_adjacency(powerlaw_graph(HETERO_NODES, 8, seed=r)),
+             powerlaw_graph(HETERO_NODES, 8, seed=100 + r),
+             dev_tensor(rng11, HETERO_NODES, 128))
+            for r in range(HETERO_RELATIONS)]
+    got, counts = counted(lambda: hetero.hetero_fused_matmul(
+        rels, backend="cuda"))
+    want = hetero.hetero_loop_matmul(rels, backend="torch")
+    err = max(rel_err(g, w)[1] for g, w in zip(got, want))
+    ss_stack = hetero.stack_adjacencies([r[0] for r in rels])
+    st_entry = api.get_schedule(ss_stack.a, b_col=128, c_col=128,
+                                b_is_sparse=True,
+                                spec=api.FusionSpec(dtype_bytes=4))
+    print(f"[11c hetero] SpMM-SpMM stack: {HETERO_RELATIONS} power-law "
+          f"relations of {HETERO_NODES} nodes, "
+          f"{HETERO_RELATIONS * HETERO_NODES} stacked rows, 128 columns, "
+          f"backend='cuda': {shape_of(st_entry)}; launches {counts}; "
+          f"rel_err vs the loop on backend='torch' {err:.2e}")
+    if counts["tile_fused_spmm_spmm_wf0"] == 0 or err > MAIN_TOL:
+        fail(f"phase 11c SpMM-SpMM stack: launches {counts}, rel err "
+             f"{err:.2e}")
+    del got, want
+    # the kernel at the stack's shape, on the stack's own entry and stacked
+    # op 1, against its plain version (not counted; f32, the inputs' dtype)
+    case = spmm_spmm_case(" (power-law SpMM-SpMM stack)", st_entry,
+                          hetero._stack_op1(ss_stack, [r[1] for r in rels]),
+                          f32)
+    records[(case[0], "float32")] = check_case(*case, dtype=f32,
+                                               tag="11c kernels")
+    print(f"[11] kernel launches in phase 11's counted paths: {launches}")
+    for k, v in launches.items():
+        if v == 0:
+            fail(f"phase 11: {k} never launched")
+        path_launches[k] += v
+    print(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
 
     sources = {
         "spmm_ell": ("src/repro_torch/csrc/spmm_ell.cu",

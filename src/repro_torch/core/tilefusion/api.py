@@ -41,9 +41,24 @@ they launch the same three kernels.  Calls under
 ``torch.inference_mode()`` or ``torch.no_grad()`` — the serving path —
 dispatch directly and record nothing.
 
-Knobs outside this slice — ``spec.autotune``, ``spec.mesh``,
-``spec.bucket``, ``spec.reorder`` and ``backend="sharded"`` — raise
-``NotImplementedError`` (see ROADMAP.md, Queue 1).
+**Tile-size autotuning (``spec.autotune=True``).**  ``get_schedule``
+replaces the single inspection with a memoized Eq-3 sweep over
+``ct_size`` × ``cache_size`` (``AUTOTUNE_CT_GRID`` ×
+``AUTOTUNE_CACHE_SCALES``) and, for a sparse op 1, candidate width caps;
+the winner never predicts more traffic than the ``ct_size=2048`` default.
+It lives under its own ``"autotune"`` key, beside its candidates.
+
+**Reordering as a schedule transform (``spec.reorder``).**  The pattern
+is symmetrically permuted (``reorder.rcm_order`` or
+``reorder.similarity_order``; ``"auto"`` tries both and applies the better
+only past the Eq-3 floor) before inspection, and the permutation is baked
+into the cached entry.  The fused arms permute the row-indexed operand in
+(``P·B`` by ``index_select``, ``P·A1`` by ``reorder.permute_rows_cached``)
+and the output back out; the unfused arm runs unpermuted.
+
+Knobs outside this slice — ``spec.mesh``, ``spec.bucket`` and
+``backend="sharded"`` — raise ``NotImplementedError`` (see ROADMAP.md,
+Queue 1).
 """
 from __future__ import annotations
 
@@ -59,8 +74,9 @@ from torch.autograd.function import once_differentiable
 
 from ...kernels import ops as kops
 from ...kernels.config import kernel_library
-from ..sparse.formats import CSR, csr_content_digest, hybrid_width_cap
-from . import cost_model, fused_ops
+from ..sparse.formats import (CSR, DEFAULT_WIDTH_QUANTILE,
+                               csr_content_digest, hybrid_width_cap)
+from . import cost_model, fused_ops, reorder
 from .schedule import DeviceSchedule, to_device_schedule
 from .scheduler import Schedule, build_schedule
 from .spec import FusionSpec
@@ -76,6 +92,19 @@ MIN_FUSED_RATIO = 0.02
 #: Minimum modeled Eq-3 traffic saving the tiled executors must clear (the
 #: reference's gate, kept exactly).
 MIN_TRAFFIC_SAVING = 0.10
+
+#: The paper's ct_size heuristic (§4: ratio gains saturate past 2048); the
+#: autotune sweep is anchored on it — the winner never predicts more Eq-3
+#: traffic than this default.
+DEFAULT_CT_SIZE = 2048
+
+#: Coarse tile sizes the autotune sweep tries (the caller's ct_size and the
+#: 2048 anchor are always added).
+AUTOTUNE_CT_GRID = (512, 1024, 2048, 4096)
+
+#: Cache-budget scales the sweep tries per tile size: the full budget and a
+#: half budget (step 2 splits earlier, trading padding for locality).
+AUTOTUNE_CACHE_SCALES = (1.0, 0.5)
 
 #: Entries each of the schedule cache and the ELL cache keeps (LRU).
 CACHE_ENTRIES = 128
@@ -101,6 +130,9 @@ class ScheduleEntry:
     #: (select_backend reads it on every "auto" call)
     traffic_model: dict = dataclasses.field(default_factory=dict)
     hits: int = 0               # cache hits since the build
+    #: set on autotune winners: the (ct_size, cache_size, width_cap) the
+    #: sweep picked
+    autotuned: tuple | None = None
     #: resolved hybrid-ELL width cap the schedule was packed with (None =
     #: pad-to-max); part of the cache key
     width_cap: int | None = None
@@ -111,11 +143,25 @@ class ScheduleEntry:
     #: itemsize of the dense operand the entry prices traffic for; part of
     #: the cache key
     dtype_bytes: int = 4
+    #: reorder transform baked into the schedule ("rcm" | "similarity";
+    #: None = identity ordering, also for ``reorder="auto"`` builds where
+    #: no candidate cleared the Eq-3 floor)
+    reorder: str | None = None
+    #: the symmetric permutation the schedule was inspected under
+    #: (``perm[new] = old``) and its inverse; dispatch permutes the dense
+    #: operands in and the output back out
+    reorder_perm: np.ndarray | None = None
+    reorder_inv: np.ndarray | None = None
+    #: device copies of (perm, inv) as int64 index tensors, per device
+    perm_tensors: dict = dataclasses.field(default_factory=dict, repr=False)
 
 
 _schedule_cache: "collections.OrderedDict" = collections.OrderedDict()
 _ell_cache: "collections.OrderedDict" = collections.OrderedDict()
-_stats = {"hits": 0, "misses": 0, "evictions": 0, "ell_evictions": 0}
+#: (content, ordering name) -> (perm, permuted CSR), under ``_lock``
+_ordering_cache: "collections.OrderedDict" = collections.OrderedDict()
+_stats = {"hits": 0, "misses": 0, "evictions": 0, "ell_evictions": 0,
+          "ordering_evictions": 0, "autotune_sweeps": 0}
 _lock = threading.Lock()
 #: The ELL cache has its own lock so a full-matrix pack never stalls
 #: schedule-cache hits.  Lock order where both are held: _lock, _ell_lock.
@@ -150,10 +196,8 @@ def _coerce_spec(spec) -> FusionSpec:
 
 def _check_slice(spec: FusionSpec) -> None:
     """Raise for the knobs this slice of the port does not serve."""
-    for name, on in (("autotune", spec.autotune),
-                     ("mesh", spec.mesh is not None),
-                     ("bucket", spec.bucket is not None),
-                     ("reorder", spec.reorder is not None)):
+    for name, on in (("mesh", spec.mesh is not None),
+                     ("bucket", spec.bucket is not None)):
         if on:
             raise NotImplementedError(f"FusionSpec.{name} {_NOT_PORTED}")
 
@@ -174,10 +218,45 @@ def _resolve_width_cap(a: CSR, width_cap) -> int | None:
 
 
 def _spec_key(spec: FusionSpec, *, cap) -> tuple:
-    """The resolved-spec cache-key tail (``spec.dtype_bytes`` resolved)."""
+    """The resolved-spec cache-key tail (``spec.dtype_bytes`` resolved),
+    shared by the content key and the ``"autotune"`` key."""
     return (int(spec.p), float(spec.cache_size), int(spec.ct_size),
             bool(spec.uniform_split), cap, bool(spec.transpose),
-            int(spec.dtype_bytes))
+            int(spec.dtype_bytes), spec.reorder)
+
+
+def _candidate_width_caps(a: CSR, caller_cap: int | None) -> list:
+    """Caps the autotune sweep tries: the caller's, the traffic-optimal,
+    the high-quantile, and pad-to-max (as an explicit max-degree cap)."""
+    counts = np.diff(a.indptr)
+    w_max = max(int(counts.max()), 1) if counts.size else 1
+    caps = {w_max if caller_cap is None else caller_cap,
+            hybrid_width_cap(counts),
+            hybrid_width_cap(counts, DEFAULT_WIDTH_QUANTILE),
+            w_max}
+    return sorted(caps)
+
+
+def _packed_ell_bytes(a: CSR, dsched: DeviceSchedule, b_is_sparse: bool,
+                      dtype_bytes: int = 4) -> float:
+    """Bytes the executors stream for the packed sparse operands: the
+    wavefront-1 hybrid body (col+val per slot, padding included) plus 3
+    elements per spill lane, and — for SpMM-SpMM — the op-1 hybrid at the
+    schedule's cap.  This is the term the width cap moves (Eq-3 traffic is
+    cap-invariant), so the autotune sweep scores with it.  Value slots are
+    priced at the operand itemsize, index slots at ``INDEX_BYTES``."""
+    vals = float(dsched.ell_cols1.size + dsched.spill_rows1.size)
+    idx = float(dsched.ell_cols1.size
+                + (cost_model.SPILL_ELEMENTS - 1) * dsched.spill_rows1.size)
+    if b_is_sparse:
+        # a.n_cols = no-cap sentinel: no row can be wider
+        w = cost_model._capped_body_width(
+            a, dsched.width_cap if dsched.width_cap is not None
+            else max(a.n_cols, 1))
+        spill = int(cost_model._spill_cumsum(a, w)[-1])
+        vals += float(a.n_rows * w + spill)
+        idx += float(a.n_rows * w + (cost_model.SPILL_ELEMENTS - 1) * spill)
+    return vals * dtype_bytes + idx * cost_model.INDEX_BYTES
 
 
 def get_schedule(a: CSR, *, b_col: int, c_col: int,
@@ -192,7 +271,17 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
     backward pass's schedule — with the width cap resolved on the
     transpose (its row degrees are ``a``'s column degrees).  The key stays
     on ``a``'s digest plus the transpose bit; ``b_col`` / ``c_col`` are
-    the transposed product's, which the caller passes already swapped."""
+    the transposed product's, which the caller passes already swapped.
+
+    ``spec.autotune=True`` replaces the single inspection with the
+    memoized sweep of ``_autotune_schedule``; the spec's own ``ct_size``,
+    ``cache_size`` and ``width_cap`` then seed the candidate grid.
+
+    ``spec.reorder`` permutes the pattern (of ``a.transpose()`` under the
+    transpose bit) before inspection, priced by ``_priced_reorder``; an
+    applied permutation is baked into the entry (``reorder``,
+    ``reorder_perm``, ``reorder_inv``).  ``"auto"`` skips rectangular
+    patterns; a forced ordering raises on them.  The knob is in the key."""
     spec = _coerce_spec(spec)
     _check_slice(spec)
     spec = dataclasses.replace(
@@ -200,6 +289,10 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
         else int(spec.dtype_bytes))
     a_eff = a.transpose() if spec.transpose else a
     cap = _resolve_width_cap(a_eff, spec.width_cap)
+    if spec.autotune:
+        return _autotune_schedule(a, b_col=b_col, c_col=c_col,
+                                  b_is_sparse=b_is_sparse, spec=spec,
+                                  cap=cap)
     digest = csr_content_digest(a)
     key = (digest, b_col, c_col, b_is_sparse, _spec_key(spec, cap=cap))
     with _lock:
@@ -215,16 +308,168 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
                            uniform_split=spec.uniform_split, width_cap=cap)
     dsched = to_device_schedule(a_eff, sched, width_cap=cap)
     tm = dsched.hbm_traffic_model(b_col, c_col, dtype_bytes=spec.dtype_bytes)
+    a_sched = a_eff
+    applied = perm = inv = None
+    if spec.reorder is not None:
+        picked = _priced_reorder(a_eff, spec, cap=cap, b_col=b_col,
+                                 c_col=c_col, b_is_sparse=b_is_sparse,
+                                 base_tm=tm)
+        if picked is not None:
+            applied, perm, inv, a_sched, sched, dsched, tm = picked
+    tm["packed_ell_bytes"] = _packed_ell_bytes(a_sched, dsched, b_is_sparse,
+                                               spec.dtype_bytes)
     entry = ScheduleEntry(sched=sched, dsched=dsched, b_col=b_col,
                           c_col=c_col, b_is_sparse=b_is_sparse,
                           inspector_s=time.perf_counter() - t0,
                           traffic_model=tm, width_cap=cap,
                           transpose=spec.transpose,
-                          dtype_bytes=spec.dtype_bytes)
+                          dtype_bytes=spec.dtype_bytes, reorder=applied,
+                          reorder_perm=perm, reorder_inv=inv)
     with _lock:
         _stats["misses"] += 1
         _cache_put(_schedule_cache, key, entry)
     return entry
+
+
+def _ordering(a: CSR, name: str) -> tuple:
+    """``(perm, P·A·Pᵀ)`` of candidate ordering ``name`` ("rcm" |
+    "similarity") of square ``a``, memoized per (content, name) in an LRU
+    beside the schedule cache: the two op pairs, both layer shapes, every
+    autotune candidate and a symmetric matrix's transpose entry share one
+    ordering (RCM is a host BFS)."""
+    key = (csr_content_digest(a), name)
+    with _lock:
+        hit = _cache_get(_ordering_cache, key)
+    if hit is None:
+        fn = reorder.rcm_order if name == "rcm" else reorder.similarity_order
+        perm = fn(a)
+        hit = (perm, reorder.permute_csr(a, perm))
+        with _lock:
+            _cache_put(_ordering_cache, key, hit,
+                       evict_key="ordering_evictions")
+    return hit
+
+
+def _priced_reorder(a_eff: CSR, spec: FusionSpec, *, cap, b_col: int,
+                    c_col: int, b_is_sparse: bool, base_tm: dict):
+    """Resolve ``spec.reorder`` into an applied schedule transform.
+
+    Builds a full candidate schedule per ordering (RCM or the similarity
+    grouping; ``"auto"`` tries both) on the symmetrically permuted pattern
+    and prices it with the same Eq-3 model as the dispatch floor.  A forced
+    ordering always applies; ``"auto"`` applies the best candidate only
+    when its modeled fused traffic beats the identity ordering by
+    ``MIN_TRAFFIC_SAVING`` (``cost_model.reorder_gain``), so it never
+    raises modeled traffic.  Returns ``(name, perm, inv, a_perm, sched,
+    dsched, tm)`` or None for the identity.  ``"auto"`` skips a
+    rectangular pattern; a forced ordering raises on one."""
+    if a_eff.n_rows != a_eff.n_cols:
+        if spec.reorder == "auto":
+            return None
+        raise ValueError(
+            f"reorder={spec.reorder!r} needs a square matrix (symmetric "
+            f"permutation P·A·Pᵀ); got ({a_eff.n_rows}, {a_eff.n_cols}). "
+            f"Use reorder='auto' to skip rectangular patterns.")
+    names = (("rcm", "similarity") if spec.reorder == "auto"
+             else (spec.reorder,))
+    best = None
+    for name in names:
+        cand_perm, a_p = _ordering(a_eff, name)
+        sched_p = build_schedule(a_p, b_col=b_col, c_col=c_col, p=spec.p,
+                                 cache_size=spec.cache_size,
+                                 ct_size=spec.ct_size,
+                                 b_is_sparse=b_is_sparse,
+                                 uniform_split=spec.uniform_split,
+                                 width_cap=cap)
+        dsched_p = to_device_schedule(a_p, sched_p, width_cap=cap)
+        tm_p = dsched_p.hbm_traffic_model(b_col, c_col,
+                                          dtype_bytes=spec.dtype_bytes)
+        if best is None or tm_p["fused_bytes"] < best[5]["fused_bytes"]:
+            best = (name, cand_perm, a_p, sched_p, dsched_p, tm_p)
+    name, cand_perm, a_p, sched_p, dsched_p, tm_p = best
+    if (spec.reorder == "auto"
+            and cost_model.reorder_gain(base_tm, tm_p) < MIN_TRAFFIC_SAVING):
+        return None
+    inv = np.empty_like(cand_perm)
+    inv[cand_perm] = np.arange(cand_perm.shape[0])
+    return name, cand_perm, inv, a_p, sched_p, dsched_p, tm_p
+
+
+def _autotune_schedule(a: CSR, *, b_col: int, c_col: int,
+                       b_is_sparse: bool, spec: FusionSpec,
+                       cap: int | None) -> ScheduleEntry:
+    """Eq-3 tile-size × width-cap sweep, memoized under its own entry.
+
+    Candidates: (``AUTOTUNE_CT_GRID`` ∪ {spec.ct_size, 2048}) ×
+    ``AUTOTUNE_CACHE_SCALES`` × candidate width caps (for a sparse op 1
+    only: with a dense B every cap gives the same host schedule), each one
+    ``get_schedule`` entry.  Ranking: Eq-3 fused traffic scaled by the
+    schedule's padded-FLOPs overhead, plus the packed-ELL bytes the cap
+    moves; only candidates whose traffic does not exceed the default
+    ``ct_size=2048`` schedule's at the caller's cap are eligible, and that
+    anchor is one of them, so the sweep never regresses the paper's
+    heuristic.  The winner is a copy of its candidate with ``autotuned``
+    set and the whole sweep's seconds as ``inspector_s``, published under
+    the ``"autotune"`` key prefix (first publish wins; ``autotune_sweeps``
+    counts publishes)."""
+    cache_size = spec.cache_size
+    key = ("autotune", csr_content_digest(a), b_col, c_col, b_is_sparse,
+           _spec_key(spec, cap=cap))
+    with _lock:
+        entry = _cache_get(_schedule_cache, key)
+        if entry is not None:
+            entry.hits += 1
+            _stats["hits"] += 1
+            return entry
+    t0 = time.perf_counter()
+    a_eff = a.transpose() if spec.transpose else a
+    cts = sorted(set(AUTOTUNE_CT_GRID) | {spec.ct_size, DEFAULT_CT_SIZE})
+    if cap is None:
+        # pad-to-max resolves to the max-degree cap so keys stay concrete
+        counts = np.diff(a_eff.indptr)
+        anchor_cap = max(int(counts.max()), 1) if counts.size else 1
+    else:
+        anchor_cap = cap
+    caps = (_candidate_width_caps(a_eff, cap) if b_is_sparse
+            else [anchor_cap])
+    candidates = {}
+    for ct in cts:
+        for scale in AUTOTUNE_CACHE_SCALES:
+            for cand_cap in caps:
+                cand_spec = dataclasses.replace(
+                    spec, autotune=False, cache_size=cache_size * scale,
+                    ct_size=ct, width_cap=cand_cap)
+                candidates[(ct, cache_size * scale, cand_cap)] = \
+                    get_schedule(a, b_col=b_col, c_col=c_col,
+                                 b_is_sparse=b_is_sparse, spec=cand_spec)
+
+    def traffic(e: ScheduleEntry) -> float:
+        return e.traffic_model["fused_bytes"]
+
+    def score(e: ScheduleEntry) -> float:
+        return (traffic(e)
+                * (1.0 + e.dsched.padded_flops_overhead(b_col, c_col))
+                + e.traffic_model["packed_ell_bytes"])
+
+    anchor = candidates[(DEFAULT_CT_SIZE, cache_size, anchor_cap)]
+    eligible = {k: e for k, e in candidates.items()
+                if traffic(e) <= traffic(anchor)}
+    best_key = min(eligible, key=lambda k: score(eligible[k]))
+    best = dataclasses.replace(eligible[best_key], hits=0,
+                               autotuned=best_key,
+                               inspector_s=time.perf_counter() - t0)
+    with _lock:
+        # first-wins publish: a concurrent sweep on the same key may have
+        # finished while this one ran (its candidates were memoized, so
+        # the duplicate work is bounded); only the published sweep counts
+        existing = _cache_get(_schedule_cache, key)
+        if existing is not None:
+            existing.hits += 1
+            _stats["hits"] += 1
+            return existing
+        _stats["autotune_sweeps"] += 1
+        _cache_put(_schedule_cache, key, best)
+    return best
 
 
 def _csr_ell(a: CSR, width_cap: int | None, device,
@@ -252,21 +497,26 @@ def clear_schedule_cache() -> None:
     with _lock, _ell_lock:
         _schedule_cache.clear()
         _ell_cache.clear()
+        _ordering_cache.clear()
         for k in _stats:
             _stats[k] = 0
 
 
 def schedule_cache_stats() -> dict:
     """Counters plus live entry counts of both caches; ``spec_entries``
-    counts the distinct resolved-spec key tails among live entries, and
+    counts the distinct resolved-spec key tails among live entries,
     ``transpose_entries`` the live backward-pass (``transpose=True``)
-    schedules: one per (graph, shape) when the transpose cache amortizes."""
+    schedules (one per (graph, shape) when the transpose cache amortizes),
+    ``reorder_entries`` the live entries with a permutation baked in, and
+    ``autotune_sweeps`` the sweeps published."""
     with _lock, _ell_lock:
+        entries = _schedule_cache.values()
         return dict(_stats, entries=len(_schedule_cache),
                     ell_entries=len(_ell_cache),
                     spec_entries=len({k[-1] for k in _schedule_cache}),
-                    transpose_entries=sum(
-                        e.transpose for e in _schedule_cache.values()))
+                    transpose_entries=sum(e.transpose for e in entries),
+                    reorder_entries=sum(e.reorder is not None
+                                        for e in entries))
 
 
 # --------------------------------------------------------------------------
@@ -377,14 +627,39 @@ def _dispatch(a: CSR, b_or_a1, c: torch.Tensor, *, backend: str,
                          b_is_sparse=b_is_sparse, spec=spec)
     chosen = select_backend(entry, c.device) if backend == "auto" else backend
     if chosen == "unfused":
-        return run_unfused()
+        return run_unfused()          # unpermuted operands: no reorder math
+    # an entry built under spec.reorder carries its permutation: the
+    # row-indexed operand goes in permuted (P·B by index_select, P·A1 as a
+    # memoized host CSR) and the output comes back out by the inverse
+    perm = entry.reorder_perm
+    if perm is not None:
+        perm_t, inv_t = _perm_tensors(entry, c.device)
     if b_is_sparse:
+        if perm is not None:
+            a1_run = reorder.permute_rows_cached(a1_run, perm)
         if chosen == "cuda":
-            return _spmm_spmm_cuda(entry, a1_run, c)
-        return fused_ops.fused_spmm_spmm(entry.dsched, a1_run, c)
-    if chosen == "cuda":
-        return _gemm_spmm_cuda(entry, b_or_a1, c)
-    return fused_ops.fused_gemm_spmm(entry.dsched, b_or_a1, c)
+            d = _spmm_spmm_cuda(entry, a1_run, c)
+        else:
+            d = fused_ops.fused_spmm_spmm(entry.dsched, a1_run, c)
+    else:
+        b = b_or_a1 if perm is None else b_or_a1.index_select(0, perm_t)
+        if chosen == "cuda":
+            d = _gemm_spmm_cuda(entry, b, c)
+        else:
+            d = fused_ops.fused_gemm_spmm(entry.dsched, b, c)
+    return d if perm is None else d.index_select(0, inv_t)
+
+
+def _perm_tensors(entry: ScheduleEntry, device) -> tuple:
+    """The entry's ``(reorder_perm, reorder_inv)`` as int64 index tensors
+    on ``device``, uploaded once per device."""
+    key = fused_ops.device_key(device)
+    pair = entry.perm_tensors.get(key)
+    if pair is None:
+        pair = entry.perm_tensors[key] = tuple(
+            torch.as_tensor(p, dtype=torch.int64).to(device)
+            for p in (entry.reorder_perm, entry.reorder_inv))
+    return pair
 
 
 # --------------------------------------------------------------------------
@@ -393,8 +668,10 @@ def _dispatch(a: CSR, b_or_a1, c: torch.Tensor, *, backend: str,
 def _bwd_spec(spec: FusionSpec) -> FusionSpec:
     """The backward dispatch's spec: the transpose bit flipped, so the
     backward of an already-transposed product runs on the forward entry
-    ((Aᵀ)ᵀ = A); every other knob carries over, and with it the same
-    Eq-3 ``select_backend``."""
+    ((Aᵀ)ᵀ = A); every other knob carries over (``reorder`` and
+    ``autotune`` too: the transpose entry prices its own ordering of
+    ``Aᵀ`` and runs its own sweep), and with it the same Eq-3
+    ``select_backend``."""
     return dataclasses.replace(spec, transpose=not spec.transpose)
 
 

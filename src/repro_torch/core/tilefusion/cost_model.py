@@ -11,7 +11,8 @@ cost(T, bCol, cCol) = (nz(T) + uc(T) + t + |J|) * cCol + idx
   idx   : indexing cost for the sparse operand(s) (int32 per nonzero)
 
 A copy of ``repro.core.tilefusion.cost_model`` (the parts the
-single-device forward and training paths price with), keeping the reference's constants for parity.  The unit
+single-device forward and training paths and the reorder transform price
+with), keeping the reference's constants for parity.  The unit
 is *elements* scaled by dtype bytes so the same model serves f32/bf16/f64.
 """
 from __future__ import annotations
@@ -180,6 +181,19 @@ def tile_costs_batch(
         nz = nnz_a + t * b_col
         idx = nnz_a
     return ((nz + uc + t + sizes) * c_col + idx).astype(np.float64)
+
+
+def reorder_gain(base_tm: dict, perm_tm: dict) -> float:
+    """Relative Eq-3 fused-traffic saving of a permuted schedule over the
+    identity ordering — ``1 - fused_bytes'/fused_bytes``, the quantity
+    ``api._priced_reorder`` holds against ``MIN_TRAFFIC_SAVING`` before
+    baking a permutation into a cached entry.  Both dicts are
+    ``hbm_traffic_model`` outputs.  >= 0 means the reorder helps; a
+    degenerate zero-traffic base reports 0 (never apply)."""
+    base = float(base_tm["fused_bytes"])
+    if base <= 0.0:
+        return 0.0
+    return 1.0 - float(perm_tm["fused_bytes"]) / base
 
 
 def spmm_bytes(nnz: int, n_rows: int, n_cols: int, c_col: int,

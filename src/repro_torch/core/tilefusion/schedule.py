@@ -54,6 +54,13 @@ class DeviceSchedule:
     def n_tiles0(self) -> int:
         return int(self.i_starts.shape[0])
 
+    def padded_flops_overhead(self, b_col: int, c_col: int) -> float:
+        """Ratio of padded to useful wavefront-0 product FLOPs (the
+        autotune sweep scales its Eq-3 score by it)."""
+        useful = float(self.i_lens.sum()) * b_col * c_col
+        padded = float(self.n_tiles0 * self.t_pad) * b_col * c_col
+        return padded / max(useful, 1.0)
+
     def wf1_dep_rows(self) -> np.ndarray:
         """Sorted distinct D1 rows the post-barrier wavefront reads (body +
         spill).  This is the *halo* of the schedule: under a sharded

@@ -165,17 +165,44 @@ def test_auto_never_drops_a_device_tensor_to_the_plain_path():
         api.select_backend(uniform, "meta")
 
 
-@pytest.mark.parametrize("knob", ["autotune", "mesh", "bucket", "reorder"])
+@pytest.mark.parametrize("knob", ["mesh", "bucket"])
 def test_out_of_slice_knobs_raise(knob):
     _, ta = pattern_pair("banded")
-    value = {"autotune": True, "mesh": object(), "bucket": (64, 64, 4),
-             "reorder": "rcm"}[knob]
+    value = {"mesh": object(), "bucket": (64, 64, 4)}[knob]
     spec = dataclasses.replace(api.FusionSpec(**KNOBS), **{knob: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.tile_fused_matmul(ta, torch.randn(64, 8), torch.randn(8, 4),
                               spec=spec)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.get_schedule(ta, b_col=8, c_col=4, spec=spec)
+
+
+@pytest.mark.parametrize("op_pair", ["gemm", "spmm"])
+@pytest.mark.parametrize("knob", ["autotune", "reorder-auto", "reorder-rcm",
+                                  "reorder-similarity"])
+def test_autotune_and_reorder_knobs_run(knob, op_pair):
+    """``spec.autotune`` and ``spec.reorder`` are served now: through
+    ``get_schedule`` and ``tile_fused_matmul`` (the fused arm and ``auto``),
+    agreeing with ``backend="torch"`` without the knob."""
+    _, ta = pattern_pair("banded")
+    name, _, value = knob.partition("-")
+    spec = dataclasses.replace(api.FusionSpec(**KNOBS),
+                               **{name: value or True})
+    b, c = _operands(op_pair, ta.n_rows, 4, seed=5)
+    tb = ta if op_pair == "spmm" else torch.as_tensor(b, dtype=torch.float32)
+    tc = torch.as_tensor(c, dtype=torch.float32)
+    want = api.tile_fused_matmul(ta, tb, tc, backend="torch",
+                                 spec=api.FusionSpec(**KNOBS))
+    for backend in ("auto", "cuda"):
+        got = api.tile_fused_matmul(ta, tb, tc, backend=backend, spec=spec)
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    entry = api.get_schedule(ta, b_col=tc.shape[1] if op_pair == "spmm"
+                             else tb.shape[1], c_col=4,
+                             b_is_sparse=op_pair == "spmm", spec=spec)
+    if name == "autotune":
+        assert entry.autotuned is not None
+    elif value != "auto":
+        assert entry.reorder == value
 
 
 def test_sharded_backend_and_grad_raise():

@@ -30,12 +30,13 @@ from repro_torch.configs import get_config
 from repro_torch.configs.gcn import GCNConfig
 from repro_torch.core.sparse import random as gen
 from repro_torch.core.sparse.formats import CSR
-from repro_torch.core.tilefusion import api, fused_ops
+from repro_torch.core.tilefusion import api, fused_ops, hetero, reorder
 from repro_torch.kernels import flash_attention, ops, ref, spmm
 from repro_torch.kernels import tile_fused_gemm_spmm as gemm_wf0
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
 from repro_torch.models.gcn import GCN
+from repro_torch.models.hetero_gcn import HeteroGCNLayer, HeteroGraph
 
 pytestmark = pytest.mark.gpu
 
@@ -465,6 +466,200 @@ def test_backward_gives_the_same_bits_twice(card):
     first, _ = _grads(a, "gemm", "auto", "weighted", card)
     again, _ = _grads(a, "gemm", "auto", "weighted", card)
     assert all(torch.equal(x, y) for x, y in zip(first, again, strict=True))
+
+
+def _shuffled_banded(n: int, seed: int = 0) -> CSR:
+    """``banded_spd(n, 8)`` under a seeded symmetric permutation: it fuses
+    nothing as given, and ``reorder="auto"`` restores the band (RCM)."""
+    return reorder.permute_csr(gen.banded_spd(n, 8, seed=seed),
+                               np.random.default_rng(seed).permutation(n))
+
+
+#: the schedule transforms of FusionSpec, each on the 4,096-node matrix
+#: whose entry it changes
+TRANSFORMS = {"reorder": (dict(reorder="auto"), _shuffled_banded),
+              "autotune": (dict(autotune=True),
+                           lambda n: gen.banded_spd(n, 8, seed=1))}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op_pair", ["gemm", "spmm"])
+@pytest.mark.parametrize("transform", sorted(TRANSFORMS))
+def test_wf0_kernels_on_transformed_schedules(card, transform, op_pair,
+                                              dtype):
+    """The wavefront-0 kernels at the tile size, fused rows and widths of a
+    reordered and of an autotuned schedule, against their plain versions
+    (GeMM-SpMM on the device function its rule picks for the shape); then
+    the whole product on the kernel arm against the plain arm."""
+    knobs, make = TRANSFORMS[transform]
+    a = make(4096)
+    spec = api.FusionSpec(**knobs)
+    sparse = op_pair == "spmm"
+    entry = api.get_schedule(a, b_col=128, c_col=128, b_is_sparse=sparse,
+                             spec=spec)
+    assert (entry.reorder if transform == "reorder"
+            else entry.autotuned) is not None
+    assert api.select_backend(entry, card) == "cuda"
+    ds = entry.dsched
+    t, j0, w0 = ds.t_pad, ds.j_rows0.shape[1], ds.ell_cols0.shape[2]
+    st = fused_ops.schedule_tensors(ds, card, dtype)
+    g = torch.Generator().manual_seed(5)
+    if sparse:
+        a1 = (a if entry.reorder_perm is None
+              else reorder.permute_rows_cached(a, entry.reorder_perm))
+        ot = fused_ops.op1_tensors(a1, ds, card, dtype)
+        cs = torch.randn(a.n_cols, 128, generator=g).to(card, dtype)
+        spill = fused_ops.op1_spill(ot, cs, ds.n_tiles0 * t)
+        args = (ot.cols, ot.vals, spill, st.cols0, st.vals0, cs)
+        got = ops.tile_fused_spmm_spmm_wf0(*args, t=t)
+        want = ref.tile_fused_spmm_spmm_wf0(*args, t=t)
+    else:
+        b = torch.randn(ds.n_tiles0 * t, 128, generator=g).to(card, dtype)
+        c = (torch.randn(128, 128, generator=g) / 128 ** 0.5).to(card, dtype)
+        got = ops.tile_fused_gemm_spmm_wf0(st.cols0, st.vals0, b, c, t=t)
+        want = ref.tile_fused_gemm_spmm_wf0(st.cols0, st.vals0, b, c, t=t)
+        torch.cuda.synchronize()
+        assert gemm_wf0.last_path() == gemm_wf0.choose_path(
+            t, 128, 128, j0, w0, dtype)
+    for x, y in zip(got, want, strict=True):
+        assert _rel_err(x, y) <= TOL[dtype]
+    if dtype == torch.float32:
+        rng = np.random.default_rng(6)
+        c = torch.from_numpy(rng.standard_normal(
+            (a.n_cols, 128) if sparse else (128, 128), np.float32)).to(card)
+        b = a if sparse else torch.from_numpy(rng.standard_normal(
+            (a.n_cols, 128), np.float32)).to(card)
+        ops.reset_launch_counts()
+        got = api.tile_fused_matmul(a, b, c, spec=spec)
+        torch.cuda.synchronize()
+        wf0 = ("tile_fused_spmm_spmm_wf0" if sparse
+               else "tile_fused_gemm_spmm_wf0")
+        assert ops.launch_counts()[wf0] == 1
+        want = api.tile_fused_matmul(a, b, c, backend="torch")
+        assert _rel_err(got, want) <= 2e-3
+
+
+def test_reordered_gemm_spmm_gives_the_same_bits_twice(card):
+    """The permutation in and out (``index_select``) and the kernels keep
+    the reordered GeMM-SpMM bit-reproducible."""
+    a = _shuffled_banded(4096)
+    spec = api.FusionSpec(reorder="auto")
+    rng = np.random.default_rng(8)
+    b = torch.from_numpy(rng.standard_normal((4096, 128), np.float32)).to(card)
+    c = torch.from_numpy(rng.standard_normal((128, 128), np.float32)).to(card)
+    first = api.tile_fused_matmul(a, b, c, backend="cuda", spec=spec)
+    again = api.tile_fused_matmul(a, b, c, backend="cuda", spec=spec)
+    torch.cuda.synchronize()
+    assert api.get_schedule(a, b_col=128, c_col=128,
+                            spec=spec).reorder is not None
+    assert torch.equal(first, again)
+
+
+def _crop(a: CSR, n_rows: int, n_cols: int) -> CSR:
+    """The leading ``n_rows × n_cols`` block of ``a``."""
+    end = a.indptr[n_rows]
+    rows = np.repeat(np.arange(n_rows), np.diff(a.indptr)[:n_rows])
+    keep = a.indices[:end] < n_cols
+    return CSR.from_coo(n_rows, n_cols, rows[keep], a.indices[:end][keep],
+                        a.data[:end][keep])
+
+
+def _typed_relations(n: int, in_dim: int, card, dtype, sparse=False):
+    """Four relations of distinct rectangular shapes around ``n`` nodes
+    (power-law and banded patterns), as ``hetero_fused_matmul`` triples."""
+    g = torch.Generator().manual_seed(n)
+    rels = []
+    for i, (nj, ni) in enumerate([(n, n), (n // 2, n), (n, n // 2),
+                                  (n // 4, n // 4)]):
+        sq = (gen.banded_spd(max(nj, ni), 8, seed=i) if i % 2
+              else gen.powerlaw_graph(max(nj, ni), 8, seed=i))
+        a = _crop(sq, nj, ni)
+        if sparse:
+            a1 = gen.powerlaw_graph(ni, 8, seed=10 + i)
+            c = torch.randn(ni, in_dim, generator=g).to(card, dtype)
+            rels.append((a, a1, c))
+        else:
+            b = torch.randn(ni, in_dim, generator=g).to(card, dtype)
+            c = (torch.randn(in_dim, 64, generator=g) / in_dim ** 0.5).to(
+                card, dtype)
+            rels.append((a, b, c))
+    return rels
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_spmm_core_path_at_a_hetero_stack_shape(card, dtype):
+    """A stacked GeMM-SpMM is ``b_col`` = Σ in-dims wide (512 here): B's
+    row is past the wgmma kernel's 512 bytes, so the launcher takes the
+    CUDA-core kernel, with a column block that fits, and agrees with the
+    per-relation plain loop.  The loop runs in f32 on the same inputs:
+    the plain path in bf16 rounds each product before it sums, and on the
+    card it differed from the kernel (which sums in f32) by 7.3e-2 of the
+    largest value on the relation with a 629-entry hub row."""
+    rels = _typed_relations(2048, 128, card, dtype)
+    ops.reset_launch_counts()
+    got = hetero.hetero_fused_matmul(rels, backend="cuda")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["tile_fused_gemm_spmm_wf0"] == 1
+    assert gemm_wf0.last_path() == gemm_wf0.CORE_KERNEL
+    want = hetero.hetero_loop_matmul(
+        [(a, b.float(), c.float()) for a, b, c in rels], backend="torch")
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    for x, y in zip(got, want, strict=True):
+        assert _rel_err(x, y) <= tol
+
+
+def test_hetero_spmm_spmm_stack_on_the_card(card):
+    rels = _typed_relations(2048, 64, card, torch.float32, sparse=True)
+    ops.reset_launch_counts()
+    got = hetero.hetero_fused_matmul(rels, backend="cuda")
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["tile_fused_spmm_spmm_wf0"] == 1
+    want = hetero.hetero_loop_matmul(rels, backend="torch")
+    for x, y in zip(got, want, strict=True):
+        assert _rel_err(x, y) <= 2e-3
+
+
+@pytest.mark.parametrize("backend", ["auto", "cuda"])
+def test_hetero_gcn_layer_on_the_card(card, backend):
+    """``HeteroGCNLayer`` (default device: the card) against its loop and
+    the plain path, forward and weight gradients."""
+    counts = {"paper": 4096, "author": 6144, "field": 512}
+    shapes = {("author", "writes", "paper"): (4096, 6144),
+              ("paper", "cites", "paper"): (4096, 4096),
+              ("paper", "has_topic", "field"): (512, 4096),
+              ("paper", "rev_writes", "author"): (6144, 4096)}
+    relations = {}
+    for i, (key, (nj, ni)) in enumerate(sorted(shapes.items())):
+        relations[key] = _crop(gen.powerlaw_graph(max(nj, ni), 8, seed=i),
+                               nj, ni)
+    in_dims = dict.fromkeys(counts, 64)
+    layer = HeteroGCNLayer(HeteroGraph(counts, relations), in_dims, 32,
+                           backend=backend)
+    assert layer.weights[0].is_cuda
+    g = torch.Generator().manual_seed(0)
+    feats = {t: torch.randn(n, 64, generator=g).to(card)
+             for t, n in counts.items()}
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        got = layer(feats)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["spmm_ell"] > 0
+        if backend == "cuda":
+            assert ops.launch_counts()["tile_fused_gemm_spmm_wf0"] == 1
+        want = layer(feats, backend="torch")
+        loop = layer.reference(feats)
+    for t in want:
+        assert _rel_err(got[t], want[t]) <= 2e-3
+        assert _rel_err(loop[t], want[t]) <= 2e-3
+    grads = {}
+    for be in (backend, "torch"):
+        for w in layer.weights:
+            w.grad = None
+        sum((v ** 2).sum() for v in layer(feats, backend=be).values()
+            ).backward()
+        grads[be] = [w.grad.clone() for w in layer.weights]
+    for x, y in zip(grads[backend], grads["torch"], strict=True):
+        assert _rel_err(x, y) <= 2e-3
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
