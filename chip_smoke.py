@@ -161,13 +161,40 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                against the loop on ``backend="torch"``, and the SpMM-SpMM
                kernel at the stack's own schedule and stacked op 1 against
                its plain version.
+ 12. the serving tier.  12a: 64 requests of the reference CLI's drift (at
+               10 % a jump to another window, at 30 % ``n_rows // 50``
+               rows re-sampled) over windows of 30,000 / 31,000 / 29,000
+               rows of ``banded_spd(262144, 8)`` through
+               ``ServingTier(b_col=128, c_col=128)`` (``cache_size``
+               ``SERVE_GEMM_CACHE``), f32, ``backend="auto"``: the
+               bucket decisions; per request how it was served (hit,
+               incremental patch, rebuild) and Eq-3's pick, whose kernels
+               it must launch (GeMM-SpMM on ``wgmma``); each result
+               against ``backend="torch"`` on the same entry (rel ≤ 1e-4)
+               and every 8th against an f64 host product (≤ 2e-3); the
+               stream must hold a hit, a patch that moved rows into
+               wavefront 1 and a rebuild on the fused arm, and one bucket
+               entry; wall p50 / max by kind, launches and device
+               functions, the tier's stats and ``schedule_cache_stats()``,
+               host seconds of a patch against a full inspection; one
+               profiled request of each kind (no ``index_add_``).  12b:
+               the same with ``ServingTier(b_is_sparse=True, c_col=128)``,
+               16 requests, ``tile_fused_matmul(a, a, c)`` semantics (one
+               ``index_add_`` allowed: op 1's dense spill).  12c:
+               ``launch.serve.main(["--subgraphs", "64", ...])``, the
+               reference's power-law stream at 32,768 nodes, 128 → 128,
+               4 a batch (the unfused arm, ``spmm_ell``), then the same
+               front end on the banded windows (stacked 512 / 512, the
+               CUDA-core GeMM-SpMM, features made on the card); each
+               flushed output against a per-request ``backend="torch"``
+               run (rel ≤ 1e-4).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after: phases 4-5 (the GCN path, gradients included) must
 launch the three sparse kernels, ``spmm_ell`` in every request of both
 graphs, phase 10's training runs ``spmm_ell`` and GeMM-SpMM, phase 11's
-paths (each call counted on its own) add to the three sparse kernels'
-launches, phase 7's
+and phase 12's paths (each call counted on its own) add to the three
+sparse kernels' launches, phase 7's
 entry-point calls the FFN and MoE kernels, and phase 8 the flash kernel
 exactly once per layer of the prefill.  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
@@ -180,6 +207,7 @@ in true f32 (TF32 off).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import re
 import subprocess
@@ -258,6 +286,24 @@ MAG_EDGES = {("author", "writes", "paper"): 7_145_660,
 MAG_WIDTH = 128            # input width of every node type, and the output
 # the SpMM-SpMM stack: power-law relations of HETERO_NODES nodes each
 HETERO_RELATIONS, HETERO_NODES = 16, 8_192
+# phase 12: the serving tier.  Windows of banded_spd(SERVE_BASE_NODES, 8)
+# (induced subgraphs of one base graph, as a neighbour sampler relabels its
+# node set), each padded into the 32,768-row bucket; 128 columns, f32
+SERVE_BASE_NODES = 262_144
+SERVE_WINDOWS = ((0, 30_000), (32_768, 31_000), (98_304, 29_000))
+SERVE_COLS = 128
+SERVE_REQUESTS = {"gemm": 64, "spmm": 16}
+SERVE_CHECK_EVERY = 8      # requests between f64 host products
+# Algorithm 1's budget of the GeMM-SpMM tier (elements): the 64-row tiles
+# that the uniform split stops at cost 1.17 M elements on these windows at
+# 128 / 128 columns, over the default 600,000, and incremental_update bails
+# on any patched tile over the budget, so at the default every patch would
+# be a rebuild; twice the default fits those tiles and gives the same t
+SERVE_GEMM_CACHE = 1.2e6
+# 12c: the reference CLI's power-law stream, and the front end on the
+# banded windows, 4 requests stacked a dispatch
+SERVE_CLI_REQUESTS, SERVE_CLI_NODES, SERVE_BATCH = 64, 32_768, 4
+SERVE_FE_REQUESTS = 16
 GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
 # phase 2: the functions of each kernel in the library's SASS (a part of the
@@ -1598,17 +1644,19 @@ def main(device: str = "cuda") -> None:
             ds.t_pad, entry.b_col, entry.c_col, ds.j_rows0.shape[1],
             ds.ell_cols0.shape[2], dtype)
 
-    def trace(tag, label, fn):
+    def trace(tag, label, fn, warm=None):
         """One call of ``fn`` under the profiler, after a traced warm-up
-        call (a session can drop its first ctypes launch): device time by
-        kernel and the device's busy share of the call's wall time."""
+        call (of ``warm``, else of ``fn``: a session can drop its first
+        ctypes launch): device time by kernel and the device's busy share
+        of the call's wall time.  Returns ``(busy us, wall us, {op or
+        kernel: calls})`` of the profiled call."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile, schedule
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1,
                                        repeat=1)) as prof:
-            fn()
+            (warm or fn)()
             torch.cuda.synchronize()
             prof.step()
             t0 = time.perf_counter()
@@ -1632,6 +1680,7 @@ def main(device: str = "cuda") -> None:
                   if e.key.startswith(("Memcpy", "Memset"))}
         print(f"[{tag} trace] {label}: memcpy / memset rows "
               f"{copies or 'none'}")
+        return busy, wall_us, {e.key: e.count for e in prof.key_averages()}
 
     def grads(a, b_or_a1, c, backend, spec):
         """Gradients of ``(w·D).sum()`` w.r.t. the dense operands, and the
@@ -2009,6 +2058,404 @@ def main(device: str = "cuda") -> None:
             fail(f"phase 11: {k} never launched")
         path_launches[k] += v
     print(f"[11] phase 11 took {time.perf_counter() - t11:.1f} s")
+
+    # ---- 12. the serving tier ----
+    # A stream of subgraph requests through ``ServingTier`` (12a GeMM-SpMM,
+    # 12b SpMM-SpMM), then the CLI's ``--subgraphs`` stream and the same
+    # front end on the banded windows (12c).  Each request is counted on
+    # its own (counts set to 0 just before, read just after); the checks
+    # against the plain executor and the host oracle are not counted.
+    t12 = time.perf_counter()
+    from repro_torch.core.sparse.random import induced_subgraph, perturb_rows
+    from repro_torch.core.tilefusion import serving
+    from repro_torch.core.tilefusion.cost_model import serving_bucket_price
+    launches12 = dict.fromkeys(GCN_KERNELS, 0)
+    t0 = time.perf_counter()
+    base12 = banded_spd(SERVE_BASE_NODES, 8, seed=0)
+    windows12 = [induced_subgraph(base12, s, n) for s, n in SERVE_WINDOWS]
+    print(f"[12 setup] banded_spd({SERVE_BASE_NODES}, 8): nnz {base12.nnz}; "
+          f"windows {[(w.n_rows, w.nnz) for w in windows12]} in "
+          f"{time.perf_counter() - t0:.2f} s host")
+
+    def drift(rng, windows, n_requests):
+        """The reference CLI's drift: at 10 % a jump to another window, at
+        30 % a re-sample of ``n_rows // 50`` rows, else the same pattern."""
+        current = windows[0]
+        for i in range(n_requests):
+            r = rng.random()
+            if r < 0.1 and i:
+                current = windows[int(rng.integers(len(windows)))]
+            elif r < 0.4:
+                current = perturb_rows(
+                    current, rng.choice(current.n_rows, current.n_rows // 50,
+                                        replace=False),
+                    seed=int(rng.integers(1 << 31)))
+            yield current
+
+    def served_as(tier, before):
+        for how, key in (("hit", "exact_hits"), ("incremental", "incremental"),
+                         ("rebuild", "rebuilds")):
+            if tier.stats[key] != before[key]:
+                return how
+        fail("phase 12: a request was not counted by the tier")
+
+    def wf1_rows(entry):
+        wf1 = entry.sched.wavefronts[1]
+        return set(np.concatenate([tl.j_rows for tl in wf1]).tolist()
+                   if wf1 else [])
+
+    def pct(values, q):
+        return float(np.percentile(values, q))
+
+    def report_by_kind(tag, rows):
+        """Per-request wall p50 / max by how it was served and the arm
+        Eq-3 picked, launches per request and the device functions
+        taken."""
+        for how, pick in itertools.product(("hit", "incremental", "rebuild"),
+                                           ("cuda", "unfused")):
+            mine = [r for r in rows if (r["how"], r["pick"]) == (how, pick)]
+            if not mine:
+                continue
+            walls = [r["wall_ms"] for r in mine]
+            kinds = sorted({tuple(sorted(r["launches"].items()))
+                            for r in mine})
+            paths = sorted({r["paths"] for r in mine})
+            print(f"[{tag}] {how} on {pick}: {len(walls)} requests, wall p50 "
+                  f"{pct(walls, 50):.3f} ms, max {max(walls):.3f} ms; launches "
+                  f"per request {[dict(k) for k in kinds]}; device functions "
+                  f"{paths}")
+
+    def tier_phase(tag, op_pair, n_requests, seed):
+        """12a / 12b: a drifting stream through a ``ServingTier`` at 128
+        columns, f32, ``backend="auto"``."""
+        sparse = op_pair == "spmm"
+        wf0 = ("tile_fused_spmm_spmm_wf0" if sparse
+               else "tile_fused_gemm_spmm_wf0")
+        api.clear_schedule_cache()
+        tier = serving.ServingTier(
+            b_col=SERVE_COLS, c_col=SERVE_COLS, b_is_sparse=sparse,
+            **({} if sparse else dict(cache_size=SERVE_GEMM_CACHE)))
+        for w in windows12:
+            bucket = tier.bucket_for(w)
+            price = serving_bucket_price(
+                n_rows=w.n_rows, n_pad=tier._quantize(w.n_rows), nnz=w.nnz,
+                b_col=tier.b_col, c_col=tier.c_col,
+                expected_reuse=tier.expected_reuse)
+            print(f"[{tag} buckets] window {w.n_rows} rows, {w.nnz} nnz -> "
+                  f"bucket {bucket}: pad {price['pad_elements_per_call']:.0f}"
+                  f" elements a call vs inspection "
+                  f"{price['inspect_elements_per_call']:.0f} a call "
+                  f"(bucketed={price['bucketed']}, break-even reuse "
+                  f"{price['break_even_reuse']:.2f})")
+        rng12 = np.random.default_rng(seed)
+        gen12 = torch.Generator(device=dev).manual_seed(seed)
+        rows, resident_wf1, first_patch = [], {}, None
+        for i, a in enumerate(drift(rng12, windows12, n_requests)):
+            c = torch.randn((a.n_cols if sparse else SERVE_COLS, SERVE_COLS),
+                            generator=gen12, device=dev)
+            c *= SERVE_COLS ** -0.5
+            op1 = a if sparse else torch.randn((a.n_cols, SERVE_COLS),
+                                               generator=gen12, device=dev)
+            before = dict(tier.stats)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            d = tier.matmul(a, op1, c)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = {k: ops.launch_counts()[k] for k in GCN_KERNELS}
+            for k, v in counts.items():
+                launches12[k] += v
+            how = served_as(tier, before)
+            bucket = tier.bucket_for(a)
+            res = tier._residents[bucket]
+            entry = res.entry
+            paths = (spmm_last_path(),
+                     "tile_fused_spmm_spmm_wf0_kernel" if sparse
+                     else gemm_last_path())
+            # a drifted pattern may fall below the Eq-3 floor and run the
+            # unfused arm (hybrid products on spmm_ell); the kernels each
+            # request launched are the ones its pick names
+            pick = api.select_backend(entry, dev)
+            fused = pick == "cuda"
+            if (pick not in ("cuda", "unfused") or counts[wf0] != int(fused)
+                    or counts["spmm_ell"] != (1 if fused else 1 + sparse)):
+                fail(f"phase {tag} request {i}: pick {pick!r}, launches "
+                     f"{counts}")
+            if fused and not sparse and paths[1] != GEMM_WGMMA:
+                fail(f"phase {tag} request {i}: GeMM-SpMM ran {paths[1]}")
+            if i == 0 and not fused:
+                fail(f"phase {tag}: the first window picked {pick!r}")
+            moved = 0
+            if how == "incremental":
+                moved = len(wf1_rows(entry) - resident_wf1.get(bucket, set()))
+            resident_wf1[bucket] = wf1_rows(entry)
+            if how == "incremental" and first_patch is None:
+                first_patch = (a, res.a)
+            # backend="torch" on the same entry, operands padded as the
+            # tier pads them (not counted)
+            if sparse:
+                cp = F.pad(c, (0, 0, 0, res.a.n_cols - c.shape[0]))
+                want = fused_ops.fused_spmm_spmm(entry.dsched, res.a, cp)
+            else:
+                bp = F.pad(op1, (0, 0, 0, res.a.n_cols - op1.shape[0]))
+                want = fused_ops.fused_gemm_spmm(entry.dsched, bp, c)
+            err = rel_err(d, want[: a.n_rows])[1]
+            if d.shape != (a.n_rows, SERVE_COLS) or err > TOL["float32"]:
+                fail(f"phase {tag} request {i} ({how}): rel err {err:.2e} "
+                     f"against backend='torch' on the same entry")
+            err_h = None
+            if i % SERVE_CHECK_EVERY == 0:
+                c_np = c.double().cpu().numpy()
+                host = (fused_ref.unfused_spmm_spmm(a, a, c_np) if sparse
+                        else fused_ref.unfused_gemm_spmm(
+                            a, op1.double().cpu().numpy(), c_np))
+                err_h = rel_err(d.cpu().double(), torch.from_numpy(host))[1]
+                if err_h > MAIN_TOL:
+                    fail(f"phase {tag} request {i}: rel err {err_h:.2e} "
+                         f"against the f64 host product")
+            rows.append(dict(how=how, pick=pick, wall_ms=wall,
+                             launches=counts, paths=paths if fused
+                             else (paths[0], "none"), err=err, err_h=err_h,
+                             moved=moved, inspect_s=entry.inspector_s,
+                             saving=entry.traffic_model["traffic_saving"]))
+        hows = [r["how"] for r in rows]
+        served = " ".join(
+            r["how"][0] + ("" if r["pick"] == "cuda" else "U")
+            + f"{r['saving']:.2f}" for r in rows)
+        print(f"[{tag}] served as: {served} (h hit, i incremental, r "
+              f"rebuild; U: Eq-3 picked unfused; the entry's Eq-3 saving); "
+              f"rows moved into wavefront 1 by each patch: "
+              f"{[r['moved'] for r in rows if r['how'] == 'incremental']}")
+        print(f"[{tag}] rel err vs backend='torch' max "
+              f"{max(r['err'] for r in rows):.2e}; vs the f64 host product "
+              f"max {max(r['err_h'] for r in rows if r['err_h'] is not None):.2e}"
+              f" ({sum(r['err_h'] is not None for r in rows)} checked)")
+        report_by_kind(tag, rows)
+        st = api.schedule_cache_stats()
+        print(f"[{tag}] tier stats {tier.stats}, hit rate "
+              f"{tier.hit_rate():.3f}; schedule_cache_stats {st}")
+        on_card = {r["how"] for r in rows if r["pick"] == "cuda"}
+        if not ({"hit", "incremental", "rebuild"} <= on_card
+                and any(r["moved"] and r["pick"] == "cuda" for r in rows)):
+            fail(f"phase {tag}: the stream lacks a hit, a patch that moved "
+                 f"rows into wavefront 1, or a rebuild on the fused arm: "
+                 f"{hows}")
+        if st["bucket_entries"] != 1:
+            fail(f"phase {tag}: {st['bucket_entries']} bucket entries, "
+                 f"expected 1")
+        # host seconds: the patch against a full inspection of the same
+        # pattern (content-keyed, so the bucket entry is not touched)
+        patch_s = [r["inspect_s"] for r in rows if r["how"] == "incremental"]
+        rebuild_s = [r["inspect_s"] for r in rows if r["how"] == "rebuild"]
+        a_inc, ap_inc = first_patch
+        t0 = time.perf_counter()
+        full = api.get_schedule(ap_inc, b_col=tier.b_col, c_col=tier.c_col,
+                                b_is_sparse=sparse, spec=tier._spec(
+                                    width_cap=tier.bucket_for(a_inc)[2]))
+        full_s = time.perf_counter() - t0
+        print(f"[{tag}] host seconds: incremental_update p50 "
+              f"{pct(patch_s, 50):.4f} (max {max(patch_s):.4f}); a rebuild's "
+              f"inspection p50 {pct(rebuild_s, 50):.4f}; a full get_schedule "
+              f"of a patched pattern {full_s:.4f} ({full.inspector_s:.4f} "
+              f"inspecting)")
+        # the host costs of every request and of a patched one: the bucket
+        # digest (pad_csr + csr_content_digest of a fresh CSR object), and
+        # the whole re-upload of a patched schedule (a fresh object of the
+        # entry's arrays: device copies and the tail plan)
+        fresh = type(a)(a.n_rows, a.n_cols, a.indptr, a.indices, a.data)
+        bucket = tier.bucket_for(a)
+        t0 = time.perf_counter()
+        csr_content_digest(serving.pad_csr(fresh, bucket[0], bucket[1]))
+        digest_ms = (time.perf_counter() - t0) * 1e3
+        resident = tier._residents[bucket].entry
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = fused_ops.schedule_tensors(
+            dataclasses.replace(resident.dsched), dev, torch.float32)
+        _ = st.tails1, st.j_rows1_32
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        print(f"[{tag}] host ms a request: pad_csr + digest of the padded "
+              f"pattern {digest_ms:.2f}; re-upload of the resident "
+              f"schedule with its tail plan {upload_ms:.2f}")
+        # one profiled request of each kind, each after a hit as the
+        # warm-up: a rebuild (a window of another row count), a patch of
+        # it (fresh headroom), then that pattern again
+        other = next(w for w in windows12 if w.n_rows != a.n_rows)
+        patched = perturb_rows(other, rng12.choice(
+            other.n_rows, other.n_rows // 50, replace=False), seed=seed)
+        op1_o = other if sparse else torch.randn(
+            (other.n_cols, SERVE_COLS), generator=gen12, device=dev)
+        c_o = torch.randn((other.n_cols if sparse else SERVE_COLS,
+                           SERVE_COLS), generator=gen12, device=dev)
+
+        def request(pattern):
+            return lambda: tier.matmul(pattern, pattern if sparse else op1_o,
+                                       c_o)
+        last = (a, op1, c)
+        for how, warm, fn in (
+                ("rebuild", lambda: tier.matmul(*last), request(other)),
+                ("incremental", request(other), request(patched)),
+                ("hit", request(patched), request(patched))):
+            before = dict(tier.stats)
+            _, _, calls = trace(tag, f"a {how} request", fn, warm=warm)
+            key = {"hit": "exact_hits", "incremental": "incremental",
+                   "rebuild": "rebuilds"}[how]
+            delta = {k: tier.stats[k] - before[k] for k in before}
+            want = dict(requests=2, exact_hits=1 + (how == "hit"),
+                        incremental=0, rebuilds=0)
+            want[key] += how != "hit"
+            # op 1's dense spill delta of the SpMM-SpMM kernel is the one
+            # scatter-add left (fused_ops.op1_spill); wavefront 1's tails
+            # run inside spmm_ell
+            adds = calls.get("aten::index_add_", 0)
+            print(f"[{tag} trace] a {how} request: tier counted {delta}; "
+                  f"index_add_ x{adds}, index_copy_ x"
+                  f"{calls.get('aten::index_copy_', 0)}")
+            if delta != want:
+                fail(f"phase {tag}: the profiled {how} request was served "
+                     f"as {delta}")
+            if adds > int(sparse):
+                fail(f"phase {tag}: {adds} index_add_ in a {how} request")
+
+    tier_phase("12a", "gemm", SERVE_REQUESTS["gemm"], 120)
+    tier_phase("12b", "spmm", SERVE_REQUESTS["spmm"], 121)
+
+    # ---- 12c. the CLI's --subgraphs stream, and the front end on the
+    # banded windows ----
+    def flush_checker(tag, state):
+        """``on_flush`` for the CLI: each output against a per-request
+        ``backend="torch"`` run (uncounted: the checks launch no kernel,
+        which is checked), the dispatches' launches and the wall between
+        flushes (the host's feature generation included)."""
+        def on_flush(requests, outs):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            state["walls"].append((now - state["t"]) * 1e3)
+            counts = {k: ops.launch_counts()[k] for k in GCN_KERNELS}
+            state["launches"].append({k: v - state["seen"][k]
+                                      for k, v in counts.items()})
+            state["paths"].add(spmm_last_path())
+            for (a, feats, w), out in zip(requests, outs):
+                want = api.tile_fused_matmul(
+                    a, torch.as_tensor(np.asarray(feats, np.float32)).to(dev),
+                    torch.as_tensor(np.asarray(w, np.float32)).to(dev),
+                    backend="torch")
+                err = rel_err(out, want)[1]
+                state["errs"].append(err)
+                if out.shape != want.shape or err > TOL["float32"]:
+                    fail(f"phase {tag}: a flushed output disagrees with "
+                         f"backend='torch' (rel err {err:.2e})")
+            torch.cuda.synchronize()
+            if {k: ops.launch_counts()[k] for k in GCN_KERNELS} != counts:
+                fail(f"phase {tag}: the checks launched a kernel")
+            state["seen"] = counts
+            state["t"] = time.perf_counter()
+        return on_flush
+
+    api.clear_schedule_cache()
+    argv = ["--subgraphs", str(SERVE_CLI_REQUESTS), "--subgraph-nodes",
+            str(SERVE_CLI_NODES), "--feat-dim", str(SERVE_COLS),
+            "--out-dim", str(SERVE_COLS), "--max-batch", str(SERVE_BATCH),
+            "--device", str(dev)]
+    print(f"[12c] launch.serve.main({argv})")
+    state = dict(walls=[], launches=[], paths=set(), errs=[],
+                 seen=dict.fromkeys(GCN_KERNELS, 0))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    state["t"] = t0 = time.perf_counter()
+    fe = serve.main(argv, on_flush=flush_checker("12c", state))
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = {k: ops.launch_counts()[k] for k in GCN_KERNELS}
+    for k, v in counts.items():
+        launches12[k] += v
+    st = api.schedule_cache_stats()
+    entry = next(r.entry for r in fe.tier._residents.values())
+    print(f"[12c] CLI: {cli_s:.2f} s with its checks; {fe.batches} "
+          f"dispatches for {fe.tier.stats['requests']} requests; tier stats "
+          f"{fe.tier.stats}, hit rate {fe.tier.hit_rate():.3f}; buckets "
+          f"{sorted(fe.tier._residents)}; pick "
+          f"{api.select_backend(entry, dev)} (fused ratio "
+          f"{entry.sched.fused_ratio:.4f}, saving "
+          f"{entry.traffic_model['traffic_saving']:.4f}); "
+          f"schedule_cache_stats {st}")
+    print(f"[12c] CLI: flush-to-flush wall p50 {pct(state['walls'], 50):.2f}"
+          f" ms, max {max(state['walls']):.2f} ms; launches per flush "
+          f"{[tuple(c.values()) for c in state['launches']]} "
+          f"{tuple(GCN_KERNELS)}; spmm_ell paths {sorted(state['paths'])}; "
+          f"rel err vs backend='torch' max {max(state['errs']):.2e}")
+    if counts["spmm_ell"] < fe.batches or len(state["errs"]) != \
+            SERVE_CLI_REQUESTS:
+        fail(f"phase 12c: CLI launches {counts} for {fe.batches} "
+             f"dispatches, {len(state['errs'])} outputs checked")
+
+    # the same front end on the banded windows: stacked 512 / 512, the
+    # CUDA-core GeMM-SpMM; features made on the card (not copied)
+    api.clear_schedule_cache()
+    fe = serve.SubgraphFrontEnd(SERVE_COLS, SERVE_COLS, SERVE_BATCH,
+                                device=dev)
+    print(f"[12c banded] buckets at {fe.tier.b_col} / {fe.tier.c_col}: "
+          f"{[fe.tier.bucket_for(w) for w in windows12]}")
+    rng12 = np.random.default_rng(122)
+    gen12 = torch.Generator(device=dev).manual_seed(122)
+    stream = drift(rng12, windows12, SERVE_FE_REQUESTS)
+    rows, errs = [], []
+    for lo in range(0, SERVE_FE_REQUESTS, SERVE_BATCH):
+        reqs = []
+        for a in itertools.islice(stream, SERVE_BATCH):
+            feats = torch.randn((a.n_cols, SERVE_COLS), generator=gen12,
+                                device=dev)
+            w = torch.randn((SERVE_COLS, SERVE_COLS), generator=gen12,
+                            device=dev) * SERVE_COLS ** -0.5
+            fe.submit(a, feats, w)
+            if fe._queue[-1][1] is not feats:
+                fail("phase 12c: the front end copied a device tensor")
+            reqs.append((a, feats, w))
+        before = dict(fe.tier.stats)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = fe.flush()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = {k: ops.launch_counts()[k] for k in GCN_KERNELS}
+        for k, v in counts.items():
+            launches12[k] += v
+        hows = {k: fe.tier.stats[k] - before[k] for k in before}
+        rows.append(dict(wall_ms=wall, launches=tuple(counts.values()),
+                         hows=tuple(hows.values())[1:],
+                         path=gemm_last_path()
+                         if counts["tile_fused_gemm_spmm_wf0"] else None))
+        for (a, feats, w), out in zip(reqs, outs):
+            want = api.tile_fused_matmul(a, feats, w, backend="torch")
+            errs.append(rel_err(out, want)[1])
+            if out.device.type != dev.type or out.shape != want.shape:
+                fail("phase 12c banded: an output is not on the card")
+        if rows[-1]["path"] not in (None, gemm_wf0.CORE_KERNEL):
+            fail(f"phase 12c banded: GeMM-SpMM ran {rows[-1]['path']}")
+    entry = next(r.entry for r in fe.tier._residents.values())
+    print(f"[12c banded] {len(errs)} requests in {fe.batches} dispatches: "
+          f"flush wall {[round(r['wall_ms'], 2) for r in rows]} ms; served "
+          f"(hit, incremental, rebuild) {[r['hows'] for r in rows]}; "
+          f"launches {[r['launches'] for r in rows]} {tuple(GCN_KERNELS)}; "
+          f"device function {sorted({str(r['path']) for r in rows})}; pick "
+          f"{api.select_backend(entry, dev)} (t {entry.dsched.t_pad}, fused "
+          f"ratio {entry.sched.fused_ratio:.3f}); rel err vs backend='torch'"
+          f" max {max(errs):.2e}; schedule_cache_stats "
+          f"{api.schedule_cache_stats()}")
+    wf0_runs = sum(r["path"] is not None for r in rows)
+    if max(errs) > TOL["float32"] or not wf0_runs:
+        fail(f"phase 12c banded: rel err {max(errs):.2e}, GeMM-SpMM in "
+             f"{wf0_runs} flushes")
+
+    print(f"[12] kernel launches in phase 12's counted paths: {launches12}")
+    for k, v in launches12.items():
+        if v == 0:
+            fail(f"phase 12: {k} never launched")
+        path_launches[k] += v
+    print(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
 
     sources = {
         "spmm_ell": ("src/repro_torch/csrc/spmm_ell.cu",

@@ -94,3 +94,62 @@ def block_diag_noise(n: int, block: int = 256, density: float = 0.3,
     cols = np.concatenate([cols, np.arange(n, dtype=np.int64)])
     vals = np.concatenate([vals, np.ones(n)])
     return CSR.from_coo(n, n, rows, cols, vals)
+
+
+def induced_subgraph(base: CSR, start: int, n_sub: int) -> CSR:
+    """Contiguous induced subgraph: rows/columns ``[start, start+n_sub)``
+    of ``base``, relabeled to ``[0, n_sub)``.
+
+    The neighbor-sampled minibatch stand-in for serving streams: a
+    sampler relabels the sampled node set contiguously, so the served
+    adjacency is exactly an induced submatrix of the (reordered) graph.
+    Deterministic — perturbation comes from ``perturb_rows``."""
+    stop = min(start + n_sub, base.n_rows)
+    lo, hi = int(base.indptr[start]), int(base.indptr[stop])
+    cols = base.indices[lo:hi].astype(np.int64)
+    vals = base.data[lo:hi]
+    rows = np.repeat(np.arange(start, stop, dtype=np.int64),
+                     np.diff(base.indptr[start:stop + 1]))
+    keep = (cols >= start) & (cols < stop)
+    return CSR.from_coo(stop - start, stop - start, rows[keep] - start,
+                        cols[keep] - start, vals[keep])
+
+
+def perturb_rows(a: CSR, rows: np.ndarray, seed: int = 0) -> CSR:
+    """Re-sample the neighbor sets of ``rows`` (degree preserved, fresh
+    uniform targets and values) — the "same subgraph, a few re-sampled
+    nodes" delta between consecutive requests of a serving stream."""
+    rng = np.random.default_rng(seed)
+    rows = np.unique(np.asarray(rows, dtype=np.int64))
+    counts = np.diff(a.indptr).astype(np.int64)
+    all_rows = np.repeat(np.arange(a.n_rows, dtype=np.int64), counts)
+    dirty = np.zeros(a.n_rows, dtype=bool)
+    dirty[rows] = True
+    keep = ~dirty[all_rows]
+    new_r = np.repeat(rows, counts[rows])
+    new_c = rng.integers(0, a.n_cols, new_r.shape[0]).astype(np.int64)
+    new_v = rng.uniform(0.5, 1.5, new_r.shape[0])
+    return CSR.from_coo(
+        a.n_rows, a.n_cols,
+        np.concatenate([all_rows[keep], new_r]),
+        np.concatenate([a.indices[keep].astype(np.int64), new_c]),
+        np.concatenate([a.data[keep].astype(np.float64), new_v]))
+
+
+SUITES = {
+    "banded_spd": banded_spd,
+    "powerlaw_graph": powerlaw_graph,
+    "hub_powerlaw": hub_powerlaw,
+    "block_diag_noise": block_diag_noise,
+}
+
+
+def benchmark_suite(n: int = 4096, seed: int = 0):
+    """The benchmark matrix set: name -> CSR, spanning both paper groups."""
+    return {
+        "banded_spd_b4": banded_spd(n, bandwidth=4, seed=seed),
+        "banded_spd_b16": banded_spd(n, bandwidth=16, seed=seed + 1),
+        "powerlaw_d4": powerlaw_graph(n, avg_deg=4, seed=seed + 2),
+        "powerlaw_d16": powerlaw_graph(n, avg_deg=16, seed=seed + 3),
+        "blockdiag": block_diag_noise(n, block=512, seed=seed + 4),
+    }

@@ -56,9 +56,18 @@ into the cached entry.  The fused arms permute the row-indexed operand in
 (``P·B`` by ``index_select``, ``P·A1`` by ``reorder.permute_rows_cached``)
 and the output back out; the unfused arm runs unpermuted.
 
-Knobs outside this slice — ``spec.mesh``, ``spec.bucket`` and
-``backend="sharded"`` — raise ``NotImplementedError`` (see ROADMAP.md,
-Queue 1).
+**Serving buckets (``spec.bucket``).**  The serving tier
+(``serving.ServingTier``) keys entries by a ``(rows, cols, width_cap)``
+shape bucket instead of content, so every request padded into one bucket
+shares one cache slot.  A bucket hit is trusted only when the entry's
+``content_digest`` names the request's pattern; a mismatch re-inspects and
+replaces the entry under the same key.  The tier publishes headroom-padded
+and incrementally patched entries with ``store_bucket_schedule``.  A bucket
+is an inference knob: with ``autotune``, ``transpose`` or ``reorder`` it
+raises ``ValueError``, and the backward drops it.
+
+Knobs outside this slice — ``spec.mesh`` and ``backend="sharded"`` —
+raise ``NotImplementedError`` (see ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
@@ -154,6 +163,14 @@ class ScheduleEntry:
     reorder_inv: np.ndarray | None = None
     #: device copies of (perm, inv) as int64 index tensors, per device
     perm_tensors: dict = dataclasses.field(default_factory=dict, repr=False)
+    #: content digest of the matrix this entry was inspected (or patched)
+    #: for.  Bucket-keyed entries are looked up by shape bucket, not
+    #: content, so ``get_schedule`` checks it against the request before
+    #: trusting a hit
+    content_digest: bytes | None = None
+    #: the ``(rows, cols, width_cap)`` shape bucket this entry serves
+    #: (``serving.ServingTier``), None for plain content-keyed entries
+    bucket: tuple | None = None
 
 
 _schedule_cache: "collections.OrderedDict" = collections.OrderedDict()
@@ -161,7 +178,8 @@ _ell_cache: "collections.OrderedDict" = collections.OrderedDict()
 #: (content, ordering name) -> (perm, permuted CSR), under ``_lock``
 _ordering_cache: "collections.OrderedDict" = collections.OrderedDict()
 _stats = {"hits": 0, "misses": 0, "evictions": 0, "ell_evictions": 0,
-          "ordering_evictions": 0, "autotune_sweeps": 0}
+          "ordering_evictions": 0, "autotune_sweeps": 0,
+          "incremental_patches": 0}
 _lock = threading.Lock()
 #: The ELL cache has its own lock so a full-matrix pack never stalls
 #: schedule-cache hits.  Lock order where both are held: _lock, _ell_lock.
@@ -195,11 +213,25 @@ def _coerce_spec(spec) -> FusionSpec:
 
 
 def _check_slice(spec: FusionSpec) -> None:
-    """Raise for the knobs this slice of the port does not serve."""
-    for name, on in (("mesh", spec.mesh is not None),
-                     ("bucket", spec.bucket is not None)):
-        if on:
-            raise NotImplementedError(f"FusionSpec.{name} {_NOT_PORTED}")
+    """Raise for the knob this slice of the port does not serve."""
+    if spec.mesh is not None:
+        raise NotImplementedError(f"FusionSpec.mesh {_NOT_PORTED}")
+
+
+def _check_bucket(spec: FusionSpec) -> None:
+    """Raise for the knobs a serving bucket does not compose with."""
+    if spec.autotune:
+        raise ValueError("bucket= does not compose with autotune=True (the "
+                         "sweep is per-content; bucket entries are "
+                         "shape-keyed)")
+    if spec.transpose:
+        raise ValueError("bucket= is a serving (inference) knob; it does "
+                         "not compose with transpose=True")
+    if spec.reorder is not None:
+        raise ValueError("bucket= does not compose with reorder= — the "
+                         "incremental inspector patches by row position, "
+                         "which a baked permutation would silently "
+                         "invalidate")
 
 
 def _resolve_width_cap(a: CSR, width_cap) -> int | None:
@@ -281,12 +313,22 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
     transpose bit) before inspection, priced by ``_priced_reorder``; an
     applied permutation is baked into the entry (``reorder``,
     ``reorder_perm``, ``reorder_inv``).  ``"auto"`` skips rectangular
-    patterns; a forced ordering raises on them.  The knob is in the key."""
+    patterns; a forced ordering raises on them.  The knob is in the key.
+
+    ``spec.bucket`` (the serving tier's knob) keys the entry by the shape
+    bucket instead of the content: a hit is trusted only when the entry's
+    ``content_digest`` matches the request, and a mismatch re-inspects and
+    replaces the entry under the same key, so N patterns in one bucket
+    hold one entry.  It raises ``ValueError`` with ``autotune``,
+    ``transpose`` or ``reorder``."""
     spec = _coerce_spec(spec)
     _check_slice(spec)
     spec = dataclasses.replace(
         spec, dtype_bytes=4 if spec.dtype_bytes is None
         else int(spec.dtype_bytes))
+    bucket = spec.bucket
+    if bucket is not None:
+        _check_bucket(spec)
     a_eff = a.transpose() if spec.transpose else a
     cap = _resolve_width_cap(a_eff, spec.width_cap)
     if spec.autotune:
@@ -294,10 +336,12 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
                                   b_is_sparse=b_is_sparse, spec=spec,
                                   cap=cap)
     digest = csr_content_digest(a)
-    key = (digest, b_col, c_col, b_is_sparse, _spec_key(spec, cap=cap))
+    keybase = ("bucket", bucket) if bucket is not None else digest
+    key = (keybase, b_col, c_col, b_is_sparse, _spec_key(spec, cap=cap))
     with _lock:
         entry = _cache_get(_schedule_cache, key)
-        if entry is not None:
+        if entry is not None and (bucket is None
+                                  or entry.content_digest == digest):
             entry.hits += 1
             _stats["hits"] += 1
             return entry
@@ -324,9 +368,39 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
                           traffic_model=tm, width_cap=cap,
                           transpose=spec.transpose,
                           dtype_bytes=spec.dtype_bytes, reorder=applied,
-                          reorder_perm=perm, reorder_inv=inv)
+                          reorder_perm=perm, reorder_inv=inv,
+                          content_digest=digest, bucket=bucket)
     with _lock:
         _stats["misses"] += 1
+        _cache_put(_schedule_cache, key, entry)
+    return entry
+
+
+def store_bucket_schedule(entry: ScheduleEntry, *, bucket: tuple,
+                          patched: bool = False,
+                          spec: FusionSpec | None = None) -> ScheduleEntry:
+    """Publish a serving-tier entry (headroom-padded at bucket build, or
+    patched by the incremental inspector) under its bucket cache key,
+    replacing whatever the bucket held.
+
+    The key is cut by the same ``_spec_key`` that ``get_schedule`` uses
+    (bucket keybase, the entry's own resolved width cap, transpose and
+    reorder forced off: buckets are inference-only), so the next
+    ``tile_fused_matmul(..., spec=...bucket...)`` dispatch finds this
+    entry; ``entry.content_digest`` must already name the pattern it
+    serves.  ``patched=True`` counts the publish as an incremental patch
+    in ``schedule_cache_stats()``."""
+    if entry.content_digest is None:
+        raise ValueError("bucket entries need content_digest set")
+    spec = dataclasses.replace(
+        _coerce_spec(spec), mesh=None, transpose=False, reorder=None,
+        dtype_bytes=4 if spec.dtype_bytes is None else int(spec.dtype_bytes))
+    key = (("bucket", tuple(bucket)), entry.b_col, entry.c_col,
+           entry.b_is_sparse, _spec_key(spec, cap=entry.width_cap))
+    entry.bucket = tuple(bucket)
+    with _lock:
+        if patched:
+            _stats["incremental_patches"] += 1
         _cache_put(_schedule_cache, key, entry)
     return entry
 
@@ -507,13 +581,18 @@ def schedule_cache_stats() -> dict:
     counts the distinct resolved-spec key tails among live entries,
     ``transpose_entries`` the live backward-pass (``transpose=True``)
     schedules (one per (graph, shape) when the transpose cache amortizes),
-    ``reorder_entries`` the live entries with a permutation baked in, and
-    ``autotune_sweeps`` the sweeps published."""
+    ``reorder_entries`` the live entries with a permutation baked in,
+    ``bucket_entries`` the live shape-bucket entries of the serving tier
+    (N patterns in K buckets hold it at K), ``autotune_sweeps`` the sweeps
+    published and ``incremental_patches`` the patched bucket entries
+    published."""
     with _lock, _ell_lock:
         entries = _schedule_cache.values()
         return dict(_stats, entries=len(_schedule_cache),
                     ell_entries=len(_ell_cache),
                     spec_entries=len({k[-1] for k in _schedule_cache}),
+                    bucket_entries=sum(e.bucket is not None
+                                       for e in entries),
                     transpose_entries=sum(e.transpose for e in entries),
                     reorder_entries=sum(e.reorder is not None
                                         for e in entries))
@@ -671,8 +750,10 @@ def _bwd_spec(spec: FusionSpec) -> FusionSpec:
     ((Aᵀ)ᵀ = A); every other knob carries over (``reorder`` and
     ``autotune`` too: the transpose entry prices its own ordering of
     ``Aᵀ`` and runs its own sweep), and with it the same Eq-3
-    ``select_backend``."""
-    return dataclasses.replace(spec, transpose=not spec.transpose)
+    ``select_backend``.  The serving ``bucket``, an inference-only shape
+    key, is dropped: it never reaches a training entry."""
+    return dataclasses.replace(spec, transpose=not spec.transpose,
+                               bucket=None)
 
 
 def _transpose_spmm(a: CSR, x: torch.Tensor, *, transpose: bool,

@@ -11,8 +11,8 @@ cost(T, bCol, cCol) = (nz(T) + uc(T) + t + |J|) * cCol + idx
   idx   : indexing cost for the sparse operand(s) (int32 per nonzero)
 
 A copy of ``repro.core.tilefusion.cost_model`` (the parts the
-single-device forward and training paths and the reorder transform price
-with), keeping the reference's constants for parity.  The unit
+single-device forward and training paths, the reorder transform and the
+serving tier's buckets price with), keeping the reference's constants for parity.  The unit
 is *elements* scaled by dtype bytes so the same model serves f32/bf16/f64.
 """
 from __future__ import annotations
@@ -181,6 +181,41 @@ def tile_costs_batch(
         nz = nnz_a + t * b_col
         idx = nnz_a
     return ((nz + uc + t + sizes) * c_col + idx).astype(np.float64)
+
+
+#: Element-moves one inspected nonzero costs end to end (Algorithm 1 pass
+#: + device ELL pack + traffic model), calibrated from inspector_bench on
+#: the vectorized pipeline — the amortized side of the bucket price.
+INSPECT_ELEMENTS_PER_NNZ = 40.0
+
+
+def serving_bucket_price(*, n_rows: int, n_pad: int, nnz: int, b_col: int,
+                         c_col: int, expected_reuse: float = 8.0,
+                         inspect_elements_per_nnz: float =
+                         INSPECT_ELEMENTS_PER_NNZ) -> dict:
+    """Eq-3-style price of serving a request padded into a shape bucket of
+    ``n_pad`` rows vs re-inspecting its exact shape.
+
+    Padding charge (paid on *every* call): the ``n_pad - n_rows`` appended
+    empty rows still stream their dense-B rows and D writes —
+    ``extra * (b_col + c_col)`` elements of pure overhead per call.
+    Inspection charge (amortized): the O(nnz) Algorithm-1 inspection +
+    device pack, priced at ``inspect_elements_per_nnz`` element-moves per
+    nonzero and paid once per ``expected_reuse`` calls of the bucket's
+    resident schedule.  ``bucketed`` says the per-call padding traffic
+    undercuts the per-call inspection share; ``break_even_reuse`` is the
+    reuse count at which the two sides tie (above it, bucket)."""
+    extra = max(int(n_pad) - int(n_rows), 0)
+    pad_elements = float(extra) * (float(b_col) + float(c_col))
+    inspect_elements = float(max(int(nnz), 1)) * float(
+        inspect_elements_per_nnz)
+    per_call_inspect = inspect_elements / max(float(expected_reuse), 1.0)
+    return {
+        "pad_elements_per_call": pad_elements,
+        "inspect_elements_per_call": per_call_inspect,
+        "bucketed": pad_elements <= per_call_inspect,
+        "break_even_reuse": inspect_elements / max(pad_elements, 1.0),
+    }
 
 
 def reorder_gain(base_tm: dict, perm_tm: dict) -> float:

@@ -105,8 +105,8 @@ class ScheduleTensors:
 
     @functools.cached_property
     def tails1(self) -> kspmm.Tails:
-        """Wavefront 1's spill lanes as the kernel's row tails, built and
-        uploaded once."""
+        """Wavefront 1's spill lanes as the kernel's row tails (in the
+        plan's lane order), built and uploaded once."""
         return kspmm.Tails.upload(wf1_tail_plan(self.ds), self.ds.spill_cols1,
                                   self.ds.spill_vals1, self.cols1.device,
                                   self.vals1.dtype)
@@ -116,13 +116,37 @@ def wf1_tail_plan(ds: DeviceSchedule,
                   max_chunk: int = kspmm.MAX_CHUNK) -> kspmm.TailPlan:
     """The tail plan of wavefront 1's packed rows (the flat ``j_rows1``):
     spill lanes, keyed by D row, map to their row's packed slot; pad slots
-    get empty ranges."""
+    get empty ranges.
+
+    The kernel takes lanes sorted by slot, and the schedule's lanes need
+    not be: headroom lanes (``schedule.pad_device_schedule``) sit at row 0
+    with value 0, and an incremental patch moves leaving rows' lanes there
+    and writes entering rows' tails into whichever zero lanes come first.
+    So the plan carries a canonical lane order (``TailPlan.order``): a
+    lane of value 0 whose row has no slot is dropped, a non-zero one
+    raises (a schedule fault), and the rest are stable-sorted by slot.
+    Where that order is the lanes as given (a schedule straight from
+    ``to_device_schedule``), ``order`` is None and the plan is unchanged.
+    The ``DeviceSchedule`` arrays themselves are never reordered."""
     j_flat = np.asarray(ds.j_rows1, np.int64).reshape(-1)
     slot_of = np.full(ds.n_j + 1, -1, np.int64)
     real = np.flatnonzero(j_flat != ds.n_j)
     slot_of[j_flat[real]] = real
-    return kspmm.plan_tails(slot_of[np.asarray(ds.spill_rows1, np.int64)],
-                            j_flat.size, max_chunk)
+    rows = np.asarray(ds.spill_rows1, np.int64)
+    slots = slot_of[rows]
+    orphan = slots < 0
+    bad = orphan & (np.asarray(ds.spill_vals1) != 0)
+    if bad.any():
+        raise ValueError(
+            f"wf1_tail_plan: {int(bad.sum())} spill lanes of non-zero value "
+            f"on rows without a wavefront-1 slot (rows "
+            f"{np.unique(rows[bad])[:8].tolist()})")
+    keep = np.flatnonzero(~orphan)
+    order = keep[np.argsort(slots[keep], kind="stable")]
+    plan = kspmm.plan_tails(slots[order], j_flat.size, max_chunk)
+    if order.size == rows.size and (order == np.arange(rows.size)).all():
+        return plan
+    return dataclasses.replace(plan, order=order)
 
 
 def device_key(device) -> str:

@@ -185,6 +185,49 @@ def _ell_arrays(a: CSR, j_rows_list, j_max, pad_row, local_start=None,
     return j_rows, cols, vals, (spill_rows, spill_cols, spill_vals)
 
 
+def pad_device_schedule(ds: DeviceSchedule, *, j1_slots: int = 0,
+                        spill_slots: int = 0) -> DeviceSchedule:
+    """Append no-op wavefront-1 capacity to a device schedule.
+
+    Headroom for the incremental inspector: extra row slots (row index
+    ``n_j``, not written; zero ELL entries) and extra spill lanes (row 0,
+    val 0: a no-op, which ``fused_ops.wf1_tail_plan`` drops from the
+    kernel's tails where row 0 has no slot) let later patches move rows
+    into wavefront 1 without changing any array shape, so a bucket's
+    device buffers keep their sizes.  Called once per bucket build, never
+    on the hot path."""
+    if j1_slots <= 0 and spill_slots <= 0:
+        return ds
+    j_rows1, cols1, vals1 = ds.j_rows1, ds.ell_cols1, ds.ell_vals1
+    if j1_slots > 0:
+        t1, j1 = j_rows1.shape
+        if t1 == 0:
+            # fully-fused schedule: stand up one wavefront-1 tile of pure
+            # pad slots (body width from the cap so entering rows mostly
+            # land in the body, not the spill lanes)
+            w = max(ds.width_cap if ds.width_cap is not None else 1, 1)
+            j_rows1 = np.full((1, j1_slots), ds.n_j, np.int32)
+            cols1 = np.zeros((1, j1_slots, w), np.int32)
+            vals1 = np.zeros((1, j1_slots, w), np.float32)
+        else:
+            w = cols1.shape[2]
+            extra = -(-j1_slots // max(j1, 1))
+            j_rows1 = np.concatenate(
+                [j_rows1, np.full((extra, j1), ds.n_j, np.int32)])
+            cols1 = np.concatenate(
+                [cols1, np.zeros((extra, j1, w), np.int32)])
+            vals1 = np.concatenate(
+                [vals1, np.zeros((extra, j1, w), np.float32)])
+    sr, sc, sv = ds.spill_rows1, ds.spill_cols1, ds.spill_vals1
+    if spill_slots > 0:
+        sr = np.concatenate([sr, np.zeros(spill_slots, np.int32)])
+        sc = np.concatenate([sc, np.zeros(spill_slots, np.int32)])
+        sv = np.concatenate([sv, np.zeros(spill_slots, np.float32)])
+    return dataclasses.replace(ds, j_rows1=j_rows1, ell_cols1=cols1,
+                               ell_vals1=vals1, spill_rows1=sr,
+                               spill_cols1=sc, spill_vals1=sv)
+
+
 def to_device_schedule(a: CSR, sched: Schedule,
                        width_cap: int | None = None) -> DeviceSchedule:
     """Pad the host schedule to static shapes.

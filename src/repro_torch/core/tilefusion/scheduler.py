@@ -33,7 +33,7 @@ from typing import List
 
 import numpy as np
 
-from ..sparse.formats import CSR
+from ..sparse.formats import CSR, csr_gather_rows
 from .cost_model import tile_cost_elements, tile_costs_batch
 
 
@@ -91,6 +91,28 @@ def _fused_mask(a: CSR, i_start: int, i_end: int, j_candidates: np.ndarray) -> n
     row_min, row_max = a.row_extents()
     j = np.asarray(j_candidates)
     return (row_min[j] >= i_start) & (row_max[j] < i_end)
+
+
+def row_extents_for(a: CSR, rows: np.ndarray):
+    """Per-row (min, max) column extents for just ``rows``.
+
+    The dirty-row slice of the incremental inspector: O(nnz of the given
+    rows) instead of the full-matrix pass of ``CSR.row_extents`` — on a
+    request whose pattern differs from the resident one in a few rows,
+    this is what keeps the patch sublinear in the matrix.  Empty rows get
+    the same ``(n_cols, -1)`` vacuous-containment sentinel."""
+    rows = np.asarray(rows, dtype=np.int64)
+    flat, lens = csr_gather_rows(a, rows)
+    rmin = np.full(rows.shape[0], a.n_cols, dtype=np.int64)
+    rmax = np.full(rows.shape[0], -1, dtype=np.int64)
+    nonempty = lens > 0
+    if nonempty.any():
+        cum = np.concatenate([[0], np.cumsum(lens)])
+        cols = a.indices[flat].astype(np.int64)
+        starts = cum[:-1][nonempty]
+        rmin[nonempty] = np.minimum.reduceat(cols, starts)
+        rmax[nonempty] = np.maximum.reduceat(cols, starts)
+    return rmin, rmax
 
 
 def _split_tile(a: CSR, tile: Tile, b_col: int, c_col: int, b_is_sparse: bool,

@@ -46,12 +46,16 @@ class TailPlan:
     or ``(-1, -1)`` for a split row, whose tail lies in ``chunks`` instead:
     ``chunks[k] = (row, start, end)`` with at most ``max_chunk`` entries,
     the chunks of split row ``split_rows[s]`` being
-    ``chunks[split_ptr[s]:split_ptr[s + 1]]``, in lane order."""
+    ``chunks[split_ptr[s]:split_ptr[s + 1]]``, in lane order.  ``order``,
+    when set, names the caller's lanes in the plan's lane order (lane ``k``
+    of the plan is the caller's lane ``order[k]``; lanes it leaves out are
+    not read); None means the caller's lanes as given."""
 
     ranges: np.ndarray      # (n_rows, 2)
     chunks: np.ndarray      # (n_chunks, 3)
     split_rows: np.ndarray  # (n_split,)
     split_ptr: np.ndarray   # (n_split + 1,)
+    order: np.ndarray | None = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,10 +73,14 @@ class Tails:
     @staticmethod
     def upload(plan: TailPlan, tail_cols, tail_vals, device,
                dtype: torch.dtype) -> "Tails":
-        """Copy the plan and its lanes to ``device``; values go through
-        f32 first, as the reference casts them."""
+        """Copy the plan and its lanes, in the plan's lane order, to
+        ``device``; values go through f32 first, as the reference casts
+        them."""
         def idx(a):
             return torch.as_tensor(np.asarray(a, np.int32)).to(device)
+        if plan.order is not None:
+            tail_cols = np.asarray(tail_cols)[plan.order]
+            tail_vals = np.asarray(tail_vals)[plan.order]
         vals = torch.as_tensor(np.asarray(tail_vals, np.float32))
         return Tails(ranges=idx(plan.ranges), cols=idx(tail_cols),
                      vals=vals.to(device, dtype), chunks=idx(plan.chunks),

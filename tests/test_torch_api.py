@@ -21,6 +21,7 @@ import torch
 from test_torch_cells import KNOBS, PATTERNS, pattern_pair
 from repro.core.tilefusion import api as ref_api
 from repro.core.tilefusion import fused_ref as ref_oracle
+from repro_torch.core.sparse.formats import csr_content_digest
 from repro_torch.core.tilefusion import api, fused_ops
 
 #: port backend -> reference backend
@@ -165,10 +166,10 @@ def test_auto_never_drops_a_device_tensor_to_the_plain_path():
         api.select_backend(uniform, "meta")
 
 
-@pytest.mark.parametrize("knob", ["mesh", "bucket"])
+@pytest.mark.parametrize("knob", ["mesh"])
 def test_out_of_slice_knobs_raise(knob):
     _, ta = pattern_pair("banded")
-    value = {"mesh": object(), "bucket": (64, 64, 4)}[knob]
+    value = {"mesh": object()}[knob]
     spec = dataclasses.replace(api.FusionSpec(**KNOBS), **{knob: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.tile_fused_matmul(ta, torch.randn(64, 8), torch.randn(8, 4),
@@ -203,6 +204,34 @@ def test_autotune_and_reorder_knobs_run(knob, op_pair):
         assert entry.autotuned is not None
     elif value != "auto":
         assert entry.reorder == value
+
+
+@pytest.mark.parametrize("backend", ["auto", "cuda", "torch"])
+@pytest.mark.parametrize("op_pair", ["gemm", "spmm"])
+def test_bucket_knob_runs(op_pair, backend):
+    """``spec.bucket`` is served now: ``tile_fused_matmul`` on a pattern
+    padded into its bucket agrees with ``backend="torch"`` without the
+    knob, the entry carries the bucket and the request's digest, and a
+    second call hits it."""
+    from repro_torch.core.tilefusion.serving import pad_csr
+    _, ta = pattern_pair("banded")
+    ap = pad_csr(ta, 128, 128)
+    b, c = _operands(op_pair, ap.n_rows, 4, seed=6)
+    tb = ap if op_pair == "spmm" else torch.as_tensor(b, dtype=torch.float32)
+    tc = torch.as_tensor(c, dtype=torch.float32)
+    spec = api.FusionSpec(**KNOBS, bucket=(128, 128, 4))
+    want = api.tile_fused_matmul(ap, tb, tc, backend="torch",
+                                 spec=api.FusionSpec(**KNOBS))
+    for _ in range(2):
+        got = api.tile_fused_matmul(ap, tb, tc, backend=backend, spec=spec)
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    entry = api.get_schedule(
+        ap, b_col=4 if op_pair == "spmm" else tb.shape[1], c_col=4,
+        b_is_sparse=op_pair == "spmm", spec=dataclasses.replace(
+            spec, dtype_bytes=4))
+    assert entry.bucket == (128, 128, 4)
+    assert entry.content_digest == csr_content_digest(ap)
+    assert api.schedule_cache_stats()["bucket_entries"] >= 1
 
 
 def test_sharded_backend_and_grad_raise():

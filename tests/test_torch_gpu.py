@@ -1,6 +1,7 @@
 """Card-only checks of the port: each CUDA kernel against its plain PyTorch
 version, the ``cuda`` arm against the ``torch`` arm (forward, gradients
-and a GCN training step), and the LM served on the card.
+and a GCN training step, the serving tier's requests), and the LM served
+on the card.
 
 Every test here carries the ``gpu`` marker and skips, with its reason,
 where there is no CUDA device of compute capability 9.0+ (the decision is
@@ -30,7 +31,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.gcn import GCNConfig
 from repro_torch.core.sparse import random as gen
 from repro_torch.core.sparse.formats import CSR
-from repro_torch.core.tilefusion import api, fused_ops, hetero, reorder
+from repro_torch.core.tilefusion import (api, fused_ops, hetero, reorder,
+                                         serving)
 from repro_torch.kernels import flash_attention, ops, ref, spmm
 from repro_torch.kernels import tile_fused_gemm_spmm as gemm_wf0
 from repro_torch.launch import serve
@@ -660,6 +662,132 @@ def test_hetero_gcn_layer_on_the_card(card, backend):
         grads[be] = [w.grad.clone() for w in layer.weights]
     for x, y in zip(grads[backend], grads["torch"], strict=True):
         assert _rel_err(x, y) <= 2e-3
+
+
+#: the serving tier on the card: windows of one banded graph, at 4,096 rows
+SERVE_NODES = 4096
+#: Algorithm 1's budget for the GeMM-SpMM tier at 128 / 128 columns: the
+#: 64-row tiles the uniform split stops at cost ≈ 1.17 M elements there, so
+#: at the default 600,000 every patch would bail to a rebuild
+SERVE_GEMM_CACHE = 1.2e6
+
+
+def _serve_stream(op_pair, device, requests=12):
+    """A drifting stream (jumps among three windows, re-sampled rows)
+    through a ``ServingTier`` on ``device``: ``(tier, [(how, a, padded a,
+    entry, op 1, c, d)])``."""
+    base = gen.banded_spd(8 * SERVE_NODES, 8, seed=0)
+    windows = [gen.induced_subgraph(base, s, SERVE_NODES - cut)
+               for s, cut in ((0, 96), (2 * SERVE_NODES, 200),
+                              (5 * SERVE_NODES, 40))]
+    kw = (dict(b_col=128, c_col=128, cache_size=SERVE_GEMM_CACHE)
+          if op_pair == "gemm" else dict(b_col=128, c_col=128,
+                                         b_is_sparse=True))
+    tier = serving.ServingTier(**kw)
+    rng = np.random.default_rng(3)
+    gen_ = torch.Generator(device=device).manual_seed(3)
+    current, out = windows[0], []
+    for i in range(requests):
+        r = rng.random()
+        if i and r < 0.15:
+            current = windows[int(rng.integers(len(windows)))]
+        elif i and r < 0.6:
+            current = gen.perturb_rows(
+                current, rng.choice(current.n_rows, current.n_rows // 50,
+                                    replace=False), seed=i)
+        c = torch.randn((current.n_cols if op_pair == "spmm" else 128, 128),
+                        generator=gen_, device=device) * 0.1
+        op1 = (current if op_pair == "spmm" else
+               torch.randn((current.n_cols, 128), generator=gen_,
+                           device=device))
+        before = dict(tier.stats)
+        d = tier.matmul(current, op1, c)
+        how = next(h for h, k in (("hit", "exact_hits"),
+                                  ("incremental", "incremental"),
+                                  ("rebuild", "rebuilds"))
+                   if tier.stats[k] != before[k])
+        res = tier._residents[tier.bucket_for(current)]
+        out.append((how, current, res.a, res.entry, op1, c, d))
+    return tier, out
+
+
+def _plain_on_entry(entry, ap, op1, c, n_rows):
+    """``backend="torch"`` on the tier's entry: the plain executor on the
+    operands padded as the tier pads them."""
+    if isinstance(op1, CSR):
+        c = torch.nn.functional.pad(c, (0, 0, 0, ap.n_cols - c.shape[0]))
+        return fused_ops.fused_spmm_spmm(entry.dsched, ap, c)[:n_rows]
+    b = torch.nn.functional.pad(op1, (0, 0, 0, ap.n_cols - op1.shape[0]))
+    return fused_ops.fused_gemm_spmm(entry.dsched, b, c)[:n_rows]
+
+
+@pytest.mark.parametrize("op_pair", ["gemm", "spmm"])
+def test_serving_tier_matches_plain_path(card, op_pair):
+    """Both tiers at 4,096 rows on the card: every request (hits,
+    incremental patches, rebuilds; headroom-padded and patched entries)
+    launches the kernels its Eq-3 pick names (a drifted pattern may fall
+    to the unfused arm) and agrees with ``backend="torch"`` on the same
+    entry."""
+    ops.reset_launch_counts()
+    tier, served = _serve_stream(op_pair, card)
+    counts = ops.launch_counts()
+    picks = [api.select_backend(s[3], card) for s in served]
+    assert set(picks) <= {"cuda", "unfused"}
+    assert {"hit", "incremental", "rebuild"} <= {
+        s[0] for s, pick in zip(served, picks) if pick == "cuda"}
+    for how, a, ap, entry, op1, c, d in served:
+        want = _plain_on_entry(entry, ap, op1, c, a.n_rows)
+        assert d.shape == (a.n_rows, 128)
+        assert _rel_err(d, want) <= 1e-4, how
+    wf0 = ("tile_fused_spmm_spmm_wf0" if op_pair == "spmm"
+           else "tile_fused_gemm_spmm_wf0")
+    n_fused = picks.count("cuda")
+    assert counts[wf0] == n_fused
+    # the unfused arm runs one hybrid product a sparse operand
+    assert counts["spmm_ell"] == n_fused + (len(served) - n_fused) * (
+        2 if op_pair == "spmm" else 1)
+    assert api.schedule_cache_stats()["bucket_entries"] >= 1
+
+
+@pytest.mark.parametrize("op_pair", ["gemm", "spmm"])
+def test_spmm_ell_on_padded_and_patched_tails(card, op_pair):
+    """Wavefront 1 of headroom-padded and patched entries (spill lanes out
+    of row order, target rows in any order) through the kernel against
+    its plain version, and against the body plus ``_spill_add``."""
+    _, served = _serve_stream(op_pair, card, requests=8)
+    kinds = set()
+    for how, _, _, entry, _, _, _ in served:
+        if how == "hit":
+            continue
+        kinds.add(how)
+        ds = entry.dsched
+        st = fused_ops.schedule_tensors(ds, card, torch.float32)
+        x = torch.randn((ds.n_i, 128), device=card)
+        d0 = torch.randn((ds.n_j + 1, 128), device=card)
+        outs = [d0.clone() for _ in range(3)]
+        ops.spmm_ell(st.cols1, st.vals1, x, tails=st.tails1,
+                     out=outs[0][:ds.n_j], out_rows=st.j_rows1_32)
+        ref.spmm_ell(st.cols1, st.vals1, x, tails=st.tails1,
+                     out=outs[1][:ds.n_j], out_rows=st.j_rows1_32)
+        fused_ops._wf1(st, outs[2], x)      # writes pad slots to row n_j
+        got, plain, chain = (o[:ds.n_j] for o in outs)
+        assert _rel_err(got, plain) <= TOL[torch.float32]
+        assert _rel_err(got, chain) <= TOL[torch.float32]
+    assert kinds == {"incremental", "rebuild"}
+
+
+def test_patched_request_gives_the_same_bits_twice(card):
+    """A patched GeMM-SpMM entry served twice (a patch, then a hit) gives
+    the same bits: no float atomics on the tier's GeMM-SpMM path."""
+    tier, served = _serve_stream("gemm", card, requests=4)
+    _, a, _, _, op1, c, _ = served[-1]
+    a = gen.perturb_rows(a, np.arange(0, a.n_rows, 97), seed=5)
+    outs = []
+    for key in ("incremental", "exact_hits"):
+        before = tier.stats[key]
+        outs.append(tier.matmul(a, op1, c))
+        assert tier.stats[key] == before + 1
+    assert torch.equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

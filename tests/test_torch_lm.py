@@ -237,9 +237,15 @@ def test_other_archs_raise_not_implemented():
         T.Transformer(moe, device="cpu")
 
 
-def test_serve_subgraphs_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="subgraph"):
-        serve.main(["--subgraphs", "4", "--device", "cpu"])
+def test_serve_subgraphs_raise_not_implemented(monkeypatch):
+    """``--subgraphs`` is served now (the serving tier, its parity in
+    test_torch_serving.py); on its default device, the card, it raises
+    where there is none, as the LM loop does."""
+    fe = serve.main(["--subgraphs", "4", "--device", "cpu"])
+    assert fe.tier.stats["requests"] == 4
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        serve.main(["--subgraphs", "4"])
 
 
 def test_transformer_defaults_to_the_card(monkeypatch):
