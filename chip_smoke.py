@@ -188,13 +188,38 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                CUDA-core GeMM-SpMM, features made on the card); each
                flushed output against a per-request ``backend="torch"``
                run (rel ≤ 1e-4).
+ 13. sharded tile fusion over meshes (``models.sharding.Mesh``) whose
+               entries all name this one card (the shards run one after
+               another; no speed-up is claimed).  13a: ``tile_fused_matmul``
+               on the normalized ``banded_spd(131072, 8)`` with phase 4's
+               B / C (GeMM-SpMM, GCN layer 1's entry) and C (SpMM-SpMM),
+               meshes (4,) 1d, (2, 2) 1.5d and (2, 2, 2) 2.5d, each with
+               ``psum`` and ``reduce_scatter``, overlap off and on: the
+               entry's layout and shard counts, rel err ≤ 1e-4 against
+               the one-device ``"cuda"`` arm and ≤ 2e-3 against the f64
+               oracle, overlap against sync ≤ 1e-6 (bit for bit printed),
+               per call one wavefront-0 launch and one ``spmm_ell`` call
+               a device and no plain executor (they raise meanwhile), the
+               collectives' counted bytes beside ``shard_comm_model``'s;
+               ``build_sharded_schedule``'s host seconds; both op pairs'
+               gradients on (4,) against one device (≤ 1e-4).  13b: the
+               banded ``CONFIG`` GCN on (4,) with the knobs ``auto``, 8
+               requests under ``torch.inference_mode()`` against the
+               one-device request (≤ 1e-4), each layer's pick, p50 / max,
+               one traced request.  13c: 3 SGD steps of phase 10's banded
+               set-up with ``mesh=``: step-1 weight gradients against one
+               device (≤ 1e-4), the loss falls, no miss after step 1, the
+               transpose entries mesh-keyed and sharded.  13d: the
+               power-law GeMM-SpMM on (4,): the pick, whether the layout
+               pricing fell back to one device, launches, rel err.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after: phases 4-5 (the GCN path, gradients included) must
 launch the three sparse kernels, ``spmm_ell`` in every request of both
 graphs, phase 10's training runs ``spmm_ell`` and GeMM-SpMM, phase 11's
 and phase 12's paths (each call counted on its own) add to the three
-sparse kernels' launches, phase 7's
+sparse kernels' launches, phase 13's sharded calls (each
+counted on its own) add to them too, phase 7's
 entry-point calls the FFN and MoE kernels, and phase 8 the flash kernel
 exactly once per layer of the prefill.  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
@@ -2456,6 +2481,274 @@ def main(device: str = "cuda") -> None:
             fail(f"phase 12: {k} never launched")
         path_launches[k] += v
     print(f"[12] phase 12 took {time.perf_counter() - t12:.1f} s")
+
+    # ---- 13. sharded tile fusion: meshes of shards that share the card ----
+    # Every mesh repeats this one card, as the reference's forced host
+    # platform repeats the CPU: the shards run one after another, so no
+    # speed-up can come of them, and the walls below are what they are.
+    # The counts are set to 0 around each counted call and add to the
+    # phase's launches; the single-device arms and the oracles are not
+    # counted.
+    t13 = time.perf_counter()
+    from repro_torch.models import sharding
+    launches13 = dict.fromkeys(GCN_KERNELS, 0)
+    card = f"cuda:{torch.cuda.current_device()}"
+    print(f"[13] every mesh below repeats {card}: the shards share one card "
+          f"and run one after another")
+
+    def card_mesh(shape):
+        return sharding.Mesh(np.full(shape, card, dtype=object),
+                             ("x", "y", "z")[:len(shape)])
+
+    def counted13(fn):
+        """``(fn(), launches, collective bytes)``, counts set to 0 just
+        before and read just after; a plain executor raises meanwhile."""
+        plain = {n: getattr(fused_ops, n) for n in
+                 ("fused_gemm_spmm", "fused_spmm_spmm", "_ell_rows")}
+
+        def refuse(*args, **kwargs):
+            fail("phase 13: a plain executor ran on the card")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        sharding.reset_comm_bytes()
+        for n in plain:
+            setattr(fused_ops, n, refuse)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            for n, f in plain.items():
+                setattr(fused_ops, n, f)
+        counts = {k: ops.launch_counts()[k] for k in GCN_KERNELS}
+        for k, v in counts.items():
+            launches13[k] += v
+        return out, counts, dict(sharding.comm_bytes)
+
+    # ---- 13a. tile_fused_matmul on the three rungs ----
+    adj13 = models["banded"].adj
+    cases13 = [
+        ("GeMM-SpMM", torch.from_numpy(b_np).to(dev),
+         torch.from_numpy(c_np).to(dev), "tile_fused_gemm_spmm_wf0",
+         lambda: fused_ref.unfused_gemm_spmm(adj13, b_np, c_np)),
+        ("SpMM-SpMM", adj13, torch.from_numpy(cs_np).to(dev),
+         "tile_fused_spmm_spmm_wf0",
+         lambda: fused_ref.unfused_spmm_spmm(adj13, adj13, cs_np))]
+    meshes13 = {"1d": ((4,), (4, 1, 1)), "1.5d": ((2, 2), (2, 2, 1)),
+                "2.5d": ((2, 2, 2), (2, 2, 2))}
+    build_s = []
+    for name, b_or_a1, c, wf0, oracle in cases13:
+        sparse = b_or_a1 is adj13
+        want = api.tile_fused_matmul(adj13, b_or_a1, c, backend="cuda")
+        # the f64 oracle, compared on the card in f32 as ``rel_err`` does
+        host = torch.from_numpy(oracle()).to(dev, torch.float32)
+        for layout, (shape, parts) in meshes13.items():
+            outs = {}
+            for combine, overlap in itertools.product(
+                    ("psum", "reduce_scatter"), (False, True)):
+                spec = api.FusionSpec(mesh=card_mesh(shape),
+                                      shard_layout=layout,
+                                      shard_combine=combine, overlap=overlap)
+                t0 = time.perf_counter()
+                entry = api.get_schedule(
+                    adj13, b_col=128, c_col=128, b_is_sparse=sparse,
+                    spec=dataclasses.replace(spec, dtype_bytes=4))
+                build_s.append(time.perf_counter() - t0)
+                sh = entry.shard
+                got_parts = (sh.n_shards, sh.n_repl, sh.n_depth)
+                if sh.layout != layout or got_parts != parts:
+                    fail(f"phase 13a {name} {layout}: the entry is "
+                         f"{sh.layout} {got_parts}, expected {parts}")
+                if api.select_backend(entry, dev) != "sharded":
+                    fail(f"phase 13a {name} {layout}: auto does not pick "
+                         f"'sharded'")
+                t0 = time.perf_counter()
+                got, counts, comm = counted13(
+                    lambda: api.tile_fused_matmul(adj13, b_or_a1, c,
+                                                  spec=spec))
+                wall = (time.perf_counter() - t0) * 1e3
+                n_dev = int(np.prod(shape))
+                n_wf1 = n_dev if sh.halo_size and sh.wf1_per_shard else 0
+                err_d = rel_err(got, want)[1]
+                err_h = rel_err(got, host)[1]
+                cm = sh.comm_model
+                arm_bytes = (cm["combine_bytes"] if combine == "psum"
+                             else cm["combine_bytes_reduce_scatter"])
+                print(f"[13a] {name} {layout} mesh {shape} {combine} "
+                      f"overlap={overlap}: tiles/shard {sh.tiles_per_shard}"
+                      f" wf1/group {sh.wf1_per_shard} halo {sh.halo_size} "
+                      f"rows (send {sh.send_per_shard}/shard) spill lanes/"
+                      f"group {sh.spill_per_shard}; launches {counts} "
+                      f"(expected {wf0} {n_dev}, spmm_ell {n_wf1}); rel err "
+                      f"vs cuda arm {err_d:.2e}, vs f64 oracle {err_h:.2e};"
+                      f" wall {wall:.2f} ms (the entry's first call, with "
+                      f"its shards' uploads)")
+                print(f"[13a]   collective bytes counted: all_gather "
+                      f"{comm['all_gather']} psum {comm['psum']} gather "
+                      f"{comm['gather']}; shard_comm_model: halo_bytes "
+                      f"{cm['halo_bytes']:.0f}, {combine} combine "
+                      f"{arm_bytes:.0f}, depth_combine_bytes "
+                      f"{cm['depth_combine_bytes']:.0f}")
+                if counts[wf0] != n_dev or counts["spmm_ell"] != n_wf1:
+                    fail(f"phase 13a {name} {layout} {combine}: launches "
+                         f"{counts}")
+                if err_d > TOL["float32"] or err_h > MAIN_TOL:
+                    fail(f"phase 13a {name} {layout} {combine} overlap="
+                         f"{overlap}: rel err {err_d:.2e} / {err_h:.2e}")
+                outs[combine, overlap] = got
+            for combine in ("psum", "reduce_scatter"):
+                off, on = outs[combine, False], outs[combine, True]
+                err = rel_err(on, off)[1]
+                print(f"[13a] {name} {layout} {combine}: overlap vs sync "
+                      f"rel {err:.2e}, bit for bit: {torch.equal(on, off)}")
+                if err > 1e-6:
+                    fail(f"phase 13a {name} {layout} {combine}: overlap "
+                         f"and sync differ ({err:.2e})")
+            del outs
+        del want, host
+    print(f"[13a] took {time.perf_counter() - t13:.1f} s; "
+          f"build_sharded_schedule at {adj13.n_rows} rows: "
+          f"{len(build_s)} entries, {min(build_s):.3f}-{max(build_s):.3f} s "
+          f"each (host)")
+
+    # gradients of both op pairs on the 1d mesh against the one-device arm
+    mesh1d = card_mesh((4,))
+    wgt = torch.linspace(-1.0, 1.0, N_NODES * 128, device=dev).view(
+        N_NODES, 128)
+    for name, b_or_a1, c, wf0, _ in cases13:
+        sparse = b_or_a1 is adj13
+        res = []
+        for spec in (api.FusionSpec(mesh=mesh1d), api.FusionSpec()):
+            leaves = [x.detach().clone().requires_grad_()
+                      for x in ((c,) if sparse else (b_or_a1, c))]
+            d = api.tile_fused_matmul(adj13, adj13 if sparse else leaves[0],
+                                      leaves[-1], spec=spec)
+            value = (wgt * d).sum()
+            if spec.mesh is None:
+                value.backward()
+                counts = None
+            else:
+                _, counts, _ = counted13(value.backward)
+            res.append(([x.grad for x in leaves], counts))
+        err = max(rel_err(g, w)[1] for g, w in zip(res[0][0], res[1][0]))
+        print(f"[13a gradients] {name} on mesh (4,): rel err vs one device "
+              f"{err:.2e}; backward launches {res[0][1]}")
+        if err > TOL["float32"] or res[0][1][wf0] == 0:
+            fail(f"phase 13a {name}: sharded gradients disagree ({err:.2e})"
+                 f" or launched no {wf0}")
+        del res, d
+    del cases13
+
+    # ---- 13b. GCN serving on a mesh (CONFIG widths, knobs "auto") ----
+    model = models["banded"]
+    t0 = time.perf_counter()
+    entries13 = model.layer_entries(mesh1d)
+    print(f"[13b gcn] mesh (4,) entries built in "
+          f"{time.perf_counter() - t0:.2f} s host: " + "; ".join(
+              f"layer {i + 1} pick {api.select_backend(e, dev)!r} "
+              + ("shard None (single-device fallback)" if e.shard is None
+                 else f"{e.shard.layout} {e.shard.combine} overlap="
+                      f"{e.shard.overlap} halo {e.shard.halo_size}")
+              for i, e in enumerate(entries13)))
+    lat13, per_req13 = [], []
+    req_rng = np.random.default_rng(1300)
+    for r in range(REQUESTS):
+        x = torch.from_numpy(req_rng.standard_normal(
+            (N_NODES, cfg.in_dim), np.float32)).to(dev)
+        with torch.inference_mode():
+            want = model(x)
+            t0 = time.perf_counter()
+            logits, counts, _ = counted13(lambda: model(x, mesh=mesh1d))
+        lat13.append((time.perf_counter() - t0) * 1e3)
+        per_req13.append(counts)
+        err = rel_err(logits, want)[1]
+        if tuple(logits.shape) != (N_NODES, cfg.out_dim) or err > TOL[
+                "float32"]:
+            fail(f"phase 13b request {r}: shape {tuple(logits.shape)}, rel "
+                 f"err {err:.2e} vs the one-device request")
+    print(f"[13b gcn] {REQUESTS} requests on mesh (4,): wall p50 "
+          f"{float(np.median(lat13)):.3f} ms, max {max(lat13):.3f} ms "
+          f"(phase 5 one device: p50 {serve_p50_ms['banded']:.3f} ms); "
+          f"launches per request {per_req13[-1]}; last rel err vs the "
+          f"one-device request {err:.2e}")
+    with torch.inference_mode():
+        trace("13b", "GCN request on mesh (4,)",
+              lambda: model(x, mesh=mesh1d))
+
+    # ---- 13c. GCN training on a mesh: phase 10's banded set-up ----
+    data_rng = np.random.default_rng(300)
+    x = torch.from_numpy(data_rng.standard_normal(
+        (N_NODES, cfg.in_dim), np.float32)).to(dev)
+    y = torch.from_numpy(data_rng.integers(0, cfg.out_dim, N_NODES)).to(dev)
+    w0 = [w.detach().clone() for w in model.weights]
+    for w in model.weights:
+        w.grad = None
+    model.loss(x, y).backward()
+    want = [w.grad.clone() for w in model.weights]
+    step = steps.make_gcn_train_step(model, lr=TRAIN_LR, mesh=mesh1d)
+    losses, misses, lat, per_step = [], [], [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        loss, counts, _ = counted13(lambda: step(x, y))
+        lat.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(counts)
+        losses.append(float(loss))
+        misses.append(api.schedule_cache_stats()["misses"])
+        if i == 0:
+            got = [w.grad.clone() for w in model.weights]
+    err = max(rel_err(g, w)[1] for g, w in zip(got, want))
+    stats = api.schedule_cache_stats()
+    t_meshed = [e for e in api._schedule_cache.values()
+                if e.transpose and e.mesh_key is not None]
+    print(f"[13c gcn train] mesh (4,): step-1 weight grads rel err vs one "
+          f"device {err:.2e}; losses {', '.join(f'{v:.5f}' for v in losses)}"
+          f"; misses after each step {misses}; mesh-keyed transpose entries "
+          f"{len(t_meshed)} "
+          f"({[e.shard.layout if e.shard else None for e in t_meshed]}), "
+          f"mesh_entries {stats['mesh_entries']}; step walls "
+          f"{', '.join(f'{v:.2f}' for v in lat)} ms; launches per step "
+          f"{per_step[-1]}")
+    if err > TOL["float32"]:
+        fail(f"phase 13c: step-1 gradients disagree ({err:.2e})")
+    if not losses[-1] < losses[0]:
+        fail(f"phase 13c: loss {losses[0]} -> {losses[-1]}")
+    if len(set(misses)) != 1:
+        fail(f"phase 13c: re-inspected after step 1: {misses}")
+    if not t_meshed or any(e.shard is None for e in t_meshed):
+        fail(f"phase 13c: mesh-keyed transpose entries {len(t_meshed)}, "
+             f"some without a shard")
+    with torch.no_grad():
+        for w, v in zip(model.weights, w0):
+            w.copy_(v)
+    del x, y, w0, want, got
+
+    # ---- 13d. the power-law graph on the 1d mesh ----
+    power_adj = models["powerlaw"].adj
+    spec = api.FusionSpec(mesh=mesh1d)
+    entry = api.get_schedule(power_adj, b_col=128, c_col=128,
+                             spec=dataclasses.replace(spec, dtype_bytes=4))
+    pick = api.select_backend(entry, dev)
+    b = torch.from_numpy(b_np).to(dev)
+    c = torch.from_numpy(c_np).to(dev)
+    want = api.tile_fused_matmul(power_adj, b, c)
+    got, counts, _ = counted13(
+        lambda: api.tile_fused_matmul(power_adj, b, c, spec=spec))
+    err = rel_err(got, want)[1]
+    print(f"[13d] power-law GeMM-SpMM on mesh (4,): pick {pick!r}, shard "
+          + ("None (the layout pricing's single-device fallback)"
+             if entry.shard is None else
+             f"{entry.shard.layout} {entry.shard.combine} halo "
+             f"{entry.shard.halo_size} of {power_adj.n_rows} rows")
+          + f"; launches {counts}; rel err vs one device {err:.2e}")
+    if sum(counts.values()) == 0 or err > TOL["float32"]:
+        fail(f"phase 13d: launches {counts}, rel err {err:.2e}")
+    del b, c, got, want
+
+    print(f"[13] kernel launches in phase 13's counted paths: {launches13}")
+    for k, v in launches13.items():
+        if v == 0:
+            fail(f"phase 13: {k} never launched")
+        path_launches[k] += v
+    print(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s")
 
     sources = {
         "spmm_ell": ("src/repro_torch/csrc/spmm_ell.cu",

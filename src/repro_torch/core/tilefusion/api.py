@@ -1,7 +1,8 @@
 """Unified tile-fusion dispatch of the port — its one fused-matmul entrypoint.
 
-Twin of ``repro.core.tilefusion.api``, single-device forward and backward.
-``tile_fused_matmul(a, b_or_a1, c)`` computes ``D = a @ (b_or_a1 @ c)``
+Twin of ``repro.core.tilefusion.api``, forward and backward, on one device
+or over a mesh.  ``tile_fused_matmul(a, b_or_a1, c)`` computes ``D = a @
+(b_or_a1 @ c)``
 (GeMM-SpMM when ``b_or_a1`` is a dense tensor, SpMM-SpMM when it is a
 ``CSR``) where its tensors live, and owns two decisions:
 
@@ -66,8 +67,22 @@ and incrementally patched entries with ``store_bucket_schedule``.  A bucket
 is an inference knob: with ``autotune``, ``transpose`` or ``reorder`` it
 raises ``ValueError``, and the backward drops it.
 
-Knobs outside this slice — ``spec.mesh`` and ``backend="sharded"`` —
-raise ``NotImplementedError`` (see ROADMAP.md, Queue 1).
+**Sharded dispatch (``spec.mesh``).**  A ``models.sharding.Mesh`` of more
+than one device keys its own entry (``sharded.mesh_key``: axis names and
+shape, with the ``shard_combine`` / ``shard_layout`` / ``overlap`` /
+``n_repl`` knobs), which carries the per-shard restructuring of the
+mesh-free entry's schedule (``ScheduleEntry.shard``; the mesh-free entry is
+inspected once and shared by every mesh).  ``select_backend`` then picks
+``"sharded"``: ``sharded.py``'s executors run each shard's wavefront 0 and
+wavefront 1 on the same kernels as the ``"cuda"`` arm (their plain versions
+for CPU tensors), and the result lands on ``c``'s device.  The backward
+keeps the mesh.  Where ``backend="sharded"`` meets an entry without a shard
+(a trivial mesh, a non-uniform grid, or the layout pricing's single-device
+fallback), it takes the single-device pick for that entry: ``"torch"`` for
+CPU tensors, ``"cuda"`` or ``"unfused"`` by Eq 3 for CUDA tensors (the
+reference drops to its XLA executor there; the port never runs the plain
+path on a CUDA tensor unasked).  A mesh whose device type is not the
+operands' raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -85,13 +100,15 @@ from ...kernels import ops as kops
 from ...kernels.config import kernel_library
 from ..sparse.formats import (CSR, DEFAULT_WIDTH_QUANTILE,
                                csr_content_digest, hybrid_width_cap)
-from . import cost_model, fused_ops, reorder
+from ...models import sharding as mesh_lib
+from . import cost_model, fused_ops, reorder, sharded
 from .schedule import DeviceSchedule, to_device_schedule
-from .scheduler import Schedule, build_schedule
+from .scheduler import (MESH_LAYOUTS, Schedule, build_schedule,
+                        resolve_mesh_layout)
 from .spec import FusionSpec
 
 #: Valid ``backend=`` values for tile_fused_matmul.
-BACKENDS = ("auto", "cuda", "torch", "unfused")
+BACKENDS = ("auto", "cuda", "torch", "unfused", "sharded")
 
 #: Below this Eq-2 fused ratio the schedule fuses so little that the fused
 #: executor's padding/scatter overhead cannot pay for itself — dispatch to
@@ -117,10 +134,6 @@ AUTOTUNE_CACHE_SCALES = (1.0, 0.5)
 
 #: Entries each of the schedule cache and the ELL cache keeps (LRU).
 CACHE_ENTRIES = 128
-
-_NOT_PORTED = ("is not ported yet (see ROADMAP.md, Queue 1: the port "
-               "serves single-device inference and training)")
-
 
 # --------------------------------------------------------------------------
 # Inspector cache
@@ -171,6 +184,13 @@ class ScheduleEntry:
     #: the ``(rows, cols, width_cap)`` shape bucket this entry serves
     #: (``serving.ServingTier``), None for plain content-keyed entries
     bucket: tuple | None = None
+    #: ``sharded.mesh_key`` of the mesh this entry was built for (None for
+    #: single-device entries); part of the cache key
+    mesh_key: tuple | None = None
+    #: the per-shard restructuring (``sharded.ShardedSchedule``) when the
+    #: entry was built for a non-trivial mesh and the grid is uniform; None
+    #: means the dispatch runs on one device
+    shard: object = None
 
 
 _schedule_cache: "collections.OrderedDict" = collections.OrderedDict()
@@ -212,18 +232,111 @@ def _coerce_spec(spec) -> FusionSpec:
     return spec
 
 
-def _check_slice(spec: FusionSpec) -> None:
-    """Raise for the knob this slice of the port does not serve."""
-    if spec.mesh is not None:
-        raise NotImplementedError(f"FusionSpec.mesh {_NOT_PORTED}")
+def _check_mesh(spec: FusionSpec, device=None) -> None:
+    """``spec.mesh`` must be None or a ``models.sharding.Mesh``; with
+    ``device``, of that device's type."""
+    mesh = spec.mesh
+    if mesh is None:
+        return
+    if not isinstance(mesh, mesh_lib.Mesh):
+        raise TypeError(f"FusionSpec.mesh expects a "
+                        f"repro_torch.models.sharding.Mesh, got "
+                        f"{type(mesh).__name__}")
+    if device is not None and mesh.device_type != torch.device(device).type:
+        raise ValueError(f"the mesh holds {mesh.device_type} devices and the "
+                         f"operands live on {torch.device(device)}")
 
 
-def _check_bucket(spec: FusionSpec) -> None:
+def _shard_for_mesh(a: CSR, sched, dsched, mk: tuple, *, b_col: int,
+                    c_col: int, b_is_sparse: bool, width_cap,
+                    shard_combine: str, shard_layout: str,
+                    dtype_bytes: int = 4, overlap="auto",
+                    n_repl: int | None = None, serial_bytes: float = 0.0):
+    """Mesh-shape-aware shard build (the reference's, unchanged): resolve
+    how the mesh's axes are used (1d row shards, 1.5d row × column
+    replica, 2.5d row × replica × depth) and which output combine runs,
+    then build the per-shard schedule.
+
+    ``shard_layout="auto"`` consults ``cost_model.choose_mesh_layout``,
+    which ranks every layout's per-device critical-path bytes plus the
+    serial compute split over the row shards against the operand bytes
+    replication copies; when its winner is the single-device fallback the
+    entry carries ``shard=None``.  ``n_repl`` restricts the candidates to
+    layouts whose replication (column replicas × depth) matches, or
+    validates an explicit layout.  ``shard_combine="auto"`` defers to
+    ``shard_comm_model``'s psum-vs-reduce-scatter pricing in the
+    builder."""
+    shape = mk[1]
+    layout = shard_layout
+    # wf0's Eq-3 share bounds the overlap window the chooser prices; the
+    # builder re-resolves "auto" overlap with its exact per-tile costs
+    wf0_bytes = float(serial_bytes) * float(getattr(sched, "fused_ratio",
+                                                    0.0))
+    if layout == "auto":
+        operand_bytes = (
+            float(a.nnz) * (dtype_bytes + cost_model.INDEX_BYTES)
+            + float(dsched.n_i * b_col) * dtype_bytes)
+        choice = cost_model.choose_mesh_layout(
+            shape, halo_rows=int(dsched.wf1_dep_rows().shape[0]),
+            n_i=dsched.n_i, n_j=dsched.n_j, c_col=c_col,
+            operand_bytes=operand_bytes, dtype_bytes=dtype_bytes,
+            serial_bytes=float(serial_bytes), overlap=overlap,
+            wf0_bytes=wf0_bytes)
+        if n_repl is not None:
+            cands = {k: v for k, v in choice["candidates"].items()
+                     if k != "fallback"
+                     and v["n_repl"] * v["n_depth"] == int(n_repl)}
+            if not cands:
+                raise ValueError(
+                    f"n_repl={n_repl} is unsatisfiable on mesh shape "
+                    f"{shape}: no layout replicates the operands "
+                    f"{n_repl}x")
+            rank = ("total_per_device" if serial_bytes > 0.0
+                    else "total_bytes")
+            layout = min(cands, key=lambda k: cands[k][rank])
+        else:
+            layout = choice["layout"]
+        if layout == "fallback":
+            return None
+    else:
+        _, nr, nd = resolve_mesh_layout(shape, layout)
+        if n_repl is not None and nr * nd != int(n_repl):
+            raise ValueError(
+                f"n_repl={n_repl} does not match layout {layout!r} on "
+                f"mesh shape {shape} (resolves to {nr}x{nd} replicas)")
+    return sharded.build_sharded_schedule(
+        a, sched, dsched, shape, b_col=b_col, c_col=c_col,
+        b_is_sparse=b_is_sparse, width_cap=width_cap, layout=layout,
+        combine=shard_combine, dtype_bytes=dtype_bytes, overlap=overlap)
+
+
+def _shard_knobs_key(mk: tuple | None, shard_combine: str,
+                     shard_layout: str) -> tuple:
+    """Validated cache-key part of the sharding knobs: a typo'd knob fails
+    loudly, and on a trivial mesh the pair collapses to (None, None) so
+    ``mesh=None`` and a one-device mesh share entries whatever the (then
+    inert) knobs say."""
+    if shard_combine not in sharded.COMBINE_MODES + ("auto",):
+        raise ValueError(
+            f"shard_combine={shard_combine!r}; expected one of "
+            f"{sharded.COMBINE_MODES + ('auto',)}")
+    if shard_layout not in MESH_LAYOUTS + ("auto",):
+        raise ValueError(f"shard_layout={shard_layout!r}; expected one of "
+                         f"{MESH_LAYOUTS + ('auto',)}")
+    if mk is None:
+        return (None, None)
+    return (str(shard_combine), str(shard_layout))
+
+
+def _check_bucket(spec: FusionSpec, mk) -> None:
     """Raise for the knobs a serving bucket does not compose with."""
     if spec.autotune:
         raise ValueError("bucket= does not compose with autotune=True (the "
                          "sweep is per-content; bucket entries are "
                          "shape-keyed)")
+    if mk is not None:
+        raise ValueError("bucket= is single-device; pass a trivial mesh or "
+                         "none")
     if spec.transpose:
         raise ValueError("bucket= is a serving (inference) knob; it does "
                          "not compose with transpose=True")
@@ -249,12 +362,21 @@ def _resolve_width_cap(a: CSR, width_cap) -> int | None:
     return max(int(width_cap), 1)
 
 
-def _spec_key(spec: FusionSpec, *, cap) -> tuple:
+def _spec_key(spec: FusionSpec, *, cap, mk=None, sk=(None, None)) -> tuple:
     """The resolved-spec cache-key tail (``spec.dtype_bytes`` resolved),
-    shared by the content key and the ``"autotune"`` key."""
+    shared by every key site (content key, ``"autotune"`` key, bucket
+    publish).  ``cap`` / ``mk`` / ``sk`` are the resolved width cap, mesh
+    key and shard-knob pair; on a trivial mesh the ``overlap`` and
+    ``n_repl`` knobs are inert and collapse to None, so such entries are
+    the ``mesh=None`` ones."""
+    if mk is None:
+        ov, nr = None, None
+    else:
+        ov = spec.overlap
+        nr = None if spec.n_repl is None else int(spec.n_repl)
     return (int(spec.p), float(spec.cache_size), int(spec.ct_size),
-            bool(spec.uniform_split), cap, bool(spec.transpose),
-            int(spec.dtype_bytes), spec.reorder)
+            bool(spec.uniform_split), cap, mk, sk, ov, nr,
+            bool(spec.transpose), int(spec.dtype_bytes), spec.reorder)
 
 
 def _candidate_width_caps(a: CSR, caller_cap: int | None) -> list:
@@ -319,18 +441,29 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
     bucket instead of the content: a hit is trusted only when the entry's
     ``content_digest`` matches the request, and a mismatch re-inspects and
     replaces the entry under the same key, so N patterns in one bucket
-    hold one entry.  It raises ``ValueError`` with ``autotune``,
-    ``transpose`` or ``reorder``."""
+    hold one entry.  It raises ``ValueError`` with ``autotune``, a
+    non-trivial mesh, ``transpose`` or ``reorder``.
+
+    ``spec.mesh`` (a ``models.sharding.Mesh`` of more than one device)
+    keys a mesh entry by ``sharded.mesh_key`` and the sharding knobs; it
+    shards the mesh-free entry of the same spec (``_mesh_schedule``).  A
+    trivial mesh keys exactly like no mesh."""
     spec = _coerce_spec(spec)
-    _check_slice(spec)
+    _check_mesh(spec)
     spec = dataclasses.replace(
         spec, dtype_bytes=4 if spec.dtype_bytes is None
         else int(spec.dtype_bytes))
+    mk = sharded.mesh_key(spec.mesh)
+    sk = _shard_knobs_key(mk, spec.shard_combine, spec.shard_layout)
     bucket = spec.bucket
     if bucket is not None:
-        _check_bucket(spec)
+        _check_bucket(spec, mk)
     a_eff = a.transpose() if spec.transpose else a
     cap = _resolve_width_cap(a_eff, spec.width_cap)
+    if mk is not None:
+        return _mesh_schedule(a, b_col=b_col, c_col=c_col,
+                              b_is_sparse=b_is_sparse, spec=spec, cap=cap,
+                              mk=mk, sk=sk)
     if spec.autotune:
         return _autotune_schedule(a, b_col=b_col, c_col=c_col,
                                   b_is_sparse=b_is_sparse, spec=spec,
@@ -370,6 +503,52 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
                           dtype_bytes=spec.dtype_bytes, reorder=applied,
                           reorder_perm=perm, reorder_inv=inv,
                           content_digest=digest, bucket=bucket)
+    with _lock:
+        _stats["misses"] += 1
+        _cache_put(_schedule_cache, key, entry)
+    return entry
+
+
+def _mesh_schedule(a: CSR, *, b_col: int, c_col: int, b_is_sparse: bool,
+                   spec: FusionSpec, cap, mk: tuple,
+                   sk: tuple) -> ScheduleEntry:
+    """The entry of a non-trivial mesh: the mesh-free entry of the same
+    spec (Algorithm 1 run once, its reorder or autotune winner included,
+    and shared by every mesh shape and knob) with the per-shard
+    restructuring of ``_shard_for_mesh`` added.  A reordered schedule is
+    sharded on the permuted matrix it was inspected under.  The key is the
+    content key (``"autotune"``-prefixed under ``spec.autotune``) with the
+    mesh key and shard knobs in its tail; building the entry counts as a
+    miss, and ``inspector_s`` adds the shard build to the inspection's."""
+    prefix = ("autotune",) if spec.autotune else ()
+    key = prefix + (csr_content_digest(a), b_col, c_col, b_is_sparse,
+                    _spec_key(spec, cap=cap, mk=mk, sk=sk))
+    with _lock:
+        entry = _cache_get(_schedule_cache, key)
+        if entry is not None:
+            entry.hits += 1
+            _stats["hits"] += 1
+            return entry
+    base = get_schedule(a, b_col=b_col, c_col=c_col, b_is_sparse=b_is_sparse,
+                        spec=dataclasses.replace(spec, mesh=None))
+    t0 = time.perf_counter()
+    a_eff = a.transpose() if spec.transpose else a
+    a_sched = (_ordering(a_eff, base.reorder)[1]
+               if base.reorder is not None else a_eff)
+    shard = _shard_for_mesh(a_sched, base.sched, base.dsched, mk,
+                            b_col=b_col, c_col=c_col,
+                            b_is_sparse=b_is_sparse,
+                            width_cap=base.width_cap, shard_combine=sk[0],
+                            shard_layout=sk[1],
+                            dtype_bytes=spec.dtype_bytes,
+                            overlap=spec.overlap, n_repl=spec.n_repl,
+                            serial_bytes=base.traffic_model["fused_bytes"])
+    tm = dict(base.traffic_model)
+    if shard is not None:
+        tm["sharded"] = shard.comm_model
+    entry = dataclasses.replace(
+        base, hits=0, mesh_key=mk, shard=shard, traffic_model=tm,
+        inspector_s=base.inspector_s + time.perf_counter() - t0)
     with _lock:
         _stats["misses"] += 1
         _cache_put(_schedule_cache, key, entry)
@@ -512,7 +691,7 @@ def _autotune_schedule(a: CSR, *, b_col: int, c_col: int,
             for cand_cap in caps:
                 cand_spec = dataclasses.replace(
                     spec, autotune=False, cache_size=cache_size * scale,
-                    ct_size=ct, width_cap=cand_cap)
+                    ct_size=ct, width_cap=cand_cap, mesh=None)
                 candidates[(ct, cache_size * scale, cand_cap)] = \
                     get_schedule(a, b_col=b_col, c_col=c_col,
                                  b_is_sparse=b_is_sparse, spec=cand_spec)
@@ -585,9 +764,17 @@ def schedule_cache_stats() -> dict:
     ``bucket_entries`` the live shape-bucket entries of the serving tier
     (N patterns in K buckets hold it at K), ``autotune_sweeps`` the sweeps
     published and ``incremental_patches`` the patched bucket entries
-    published."""
+    published.  ``mesh_entries`` counts the live entries built for a
+    non-trivial mesh, by the layout the dispatch resolved: ``layout_1d``
+    (row shards), ``layout_15d`` (column replicas too), ``layout_25d``
+    (depth layers too) and ``layout_fallback`` (mesh-keyed entries that run
+    on one device: a non-uniform grid, or a layout priced worse than
+    serial)."""
     with _lock, _ell_lock:
-        entries = _schedule_cache.values()
+        entries = list(_schedule_cache.values())
+        meshed = [e for e in entries if e.mesh_key is not None]
+        layouts = [e.shard.layout if e.shard is not None else "fallback"
+                   for e in meshed]
         return dict(_stats, entries=len(_schedule_cache),
                     ell_entries=len(_ell_cache),
                     spec_entries=len({k[-1] for k in _schedule_cache}),
@@ -595,7 +782,12 @@ def schedule_cache_stats() -> dict:
                                        for e in entries),
                     transpose_entries=sum(e.transpose for e in entries),
                     reorder_entries=sum(e.reorder is not None
-                                        for e in entries))
+                                        for e in entries),
+                    mesh_entries=len(meshed),
+                    layout_1d=layouts.count("1d"),
+                    layout_15d=layouts.count("1.5d"),
+                    layout_25d=layouts.count("2.5d"),
+                    layout_fallback=layouts.count("fallback"))
 
 
 # --------------------------------------------------------------------------
@@ -603,10 +795,19 @@ def schedule_cache_stats() -> dict:
 # --------------------------------------------------------------------------
 def select_backend(entry: ScheduleEntry, device) -> str:
     """Resolve ``backend="auto"`` for an inspected schedule whose operands
-    live on ``device``: past the Eq-3 gates, ``"torch"`` for CPU tensors
-    and ``"cuda"`` for any other device, which raises unless the kernels
-    run there on this schedule (a uniform one, on a card of compute
-    capability 9.0+)."""
+    live on ``device``: ``"sharded"`` for an entry built for a mesh and
+    partitioned (the mesh outranks every single-device arm, the unfused
+    one included, as in the reference), else ``_single_device_backend``."""
+    if entry.shard is not None:
+        return "sharded"
+    return _single_device_backend(entry, device)
+
+
+def _single_device_backend(entry: ScheduleEntry, device) -> str:
+    """The single-device pick: past the Eq-3 gates, ``"torch"`` for CPU
+    tensors and ``"cuda"`` for any other device, which raises unless the
+    kernels run there on this schedule (a uniform one, on a card of
+    compute capability 9.0+)."""
     tm = entry.traffic_model
     if (entry.sched.fused_ratio < MIN_FUSED_RATIO
             or tm["traffic_saving"] <= MIN_TRAFFIC_SAVING):
@@ -705,6 +906,11 @@ def _dispatch(a: CSR, b_or_a1, c: torch.Tensor, *, backend: str,
     entry = get_schedule(a, b_col=b_col, c_col=c.shape[1],
                          b_is_sparse=b_is_sparse, spec=spec)
     chosen = select_backend(entry, c.device) if backend == "auto" else backend
+    if chosen == "sharded" and entry.shard is None:
+        # a trivial mesh, a non-uniform grid or the priced single-device
+        # fallback: the entry's own single-device pick, never the plain
+        # path on a CUDA tensor
+        chosen = _single_device_backend(entry, c.device)
     if chosen == "unfused":
         return run_unfused()          # unpermuted operands: no reorder math
     # an entry built under spec.reorder carries its permutation: the
@@ -716,13 +922,18 @@ def _dispatch(a: CSR, b_or_a1, c: torch.Tensor, *, backend: str,
     if b_is_sparse:
         if perm is not None:
             a1_run = reorder.permute_rows_cached(a1_run, perm)
-        if chosen == "cuda":
+        if chosen == "sharded":
+            d = sharded.sharded_spmm_spmm(entry.shard, entry.dsched,
+                                          spec.mesh, a1_run, c)
+        elif chosen == "cuda":
             d = _spmm_spmm_cuda(entry, a1_run, c)
         else:
             d = fused_ops.fused_spmm_spmm(entry.dsched, a1_run, c)
     else:
         b = b_or_a1 if perm is None else b_or_a1.index_select(0, perm_t)
-        if chosen == "cuda":
+        if chosen == "sharded":
+            d = sharded.sharded_gemm_spmm(entry.shard, spec.mesh, b, c)
+        elif chosen == "cuda":
             d = _gemm_spmm_cuda(entry, b, c)
         else:
             d = fused_ops.fused_gemm_spmm(entry.dsched, b, c)
@@ -749,7 +960,8 @@ def _bwd_spec(spec: FusionSpec) -> FusionSpec:
     backward of an already-transposed product runs on the forward entry
     ((Aᵀ)ᵀ = A); every other knob carries over (``reorder`` and
     ``autotune`` too: the transpose entry prices its own ordering of
-    ``Aᵀ`` and runs its own sweep), and with it the same Eq-3
+    ``Aᵀ`` and runs its own sweep; the mesh, so ``dB`` and SpMM-SpMM's
+    ``dC`` run sharded on the transpose entries), and with it the same
     ``select_backend``.  The serving ``bucket``, an inference-only shape
     key, is dropped: it never reaches a training entry."""
     return dataclasses.replace(spec, transpose=not spec.transpose,
@@ -838,25 +1050,27 @@ def tile_fused_matmul(a: CSR, b_or_a1, c: torch.Tensor, *,
         SpMM-SpMM (op-1 rows gathered per tile).
       c: dense ``(b_col, c_col)`` (GeMM-SpMM) / ``(n, c_col)`` (SpMM-SpMM);
         on the same device and of the same dtype as a dense ``b_or_a1``.
-      backend: "auto" (Eq-3 cost model + capability), or an explicit
-        "cuda" / "torch" / "unfused" override.  "cuda" on CPU tensors runs
-        the kernel arm's glue with the kernels' plain versions.
+      backend: "auto" (Eq-3 cost model + capability, ``"sharded"`` for a
+        partitioned mesh entry), or an explicit "cuda" / "torch" /
+        "unfused" / "sharded" override.  "cuda" on CPU tensors runs the
+        kernel arm's glue with the kernels' plain versions; "sharded"
+        without a partitioned entry takes the entry's single-device pick.
       spec: a ``FusionSpec`` (``None`` = the default spec); its resolved
         form keys the schedule cache.  ``spec.transpose=True`` computes
-        the product with the sparse operands transposed.
+        the product with the sparse operands transposed; ``spec.mesh``
+        (a ``models.sharding.Mesh`` of the operands' device type) spreads
+        it over the mesh's devices.
 
     Differentiable in the dense operands: under grad mode, when one of
     them requires grad, the backward runs on the transpose entries (see
     the module docstring).
     """
     spec = _coerce_spec(spec)
-    if backend == "sharded":
-        raise NotImplementedError(f"backend='sharded' {_NOT_PORTED}")
     if backend not in BACKENDS:
         raise ValueError(f"backend={backend!r}; expected one of {BACKENDS}")
-    _check_slice(spec)
     if not isinstance(c, torch.Tensor):
         raise TypeError(f"c must be a torch.Tensor, got {type(c).__name__}")
+    _check_mesh(spec, c.device)
     c = c.contiguous()
     if isinstance(b_or_a1, CSR):
         if torch.is_grad_enabled() and c.requires_grad:

@@ -10,10 +10,11 @@ cost(T, bCol, cCol) = (nz(T) + uc(T) + t + |J|) * cCol + idx
   |J|   : fused second-op iterations (rows of D written)
   idx   : indexing cost for the sparse operand(s) (int32 per nonzero)
 
-A copy of ``repro.core.tilefusion.cost_model`` (the parts the
-single-device forward and training paths, the reorder transform and the
-serving tier's buckets price with), keeping the reference's constants for parity.  The unit
-is *elements* scaled by dtype bytes so the same model serves f32/bf16/f64.
+A copy of ``repro.core.tilefusion.cost_model`` (the parts the forward
+and training paths, the reorder transform, the serving tier's buckets and
+the sharded dispatch price with), keeping the reference's constants for
+parity.  The unit is *elements* scaled by dtype bytes so the same model
+serves f32/bf16/f64.
 """
 from __future__ import annotations
 
@@ -262,3 +263,208 @@ def train_step_traffic(forward_tm: dict, transpose_tm: dict, *, nnz: int,
         "train_step_bytes": fwd + bwd,
         "backward_saving": 1.0 - bwd / max(bwd_unfused, 1.0),
     }
+
+
+#: Fraction of the modeled wavefront-0 streaming time the async halo
+#: all-gather can realistically hide under.  wf0 is communication-free by
+#: the fusion criterion, but the gather is issued *after* the halo rows'
+#: own D1 contributions are computed (the duplicate-compute prologue), so
+#: only part of the wf0 window remains to overlap into; 0.5 is the
+#: conservative half-window used by the pricing below.
+OVERLAP_WINDOW_RATIO = 0.5
+
+
+def shard_comm_model(n_shards: int, halo_rows: int, n_i: int, c_col: int,
+                     dtype_bytes: int = 4, n_j: int | None = None,
+                     n_repl: int = 1,
+                     combine_rows: int | None = None,
+                     n_depth: int = 1,
+                     overlap: bool | str = False,
+                     wf0_bytes: float = 0.0) -> dict:
+    """Communication terms of the sharded dispatch: ``n_shards`` row-block
+    shards of the wavefront-0 tile grid × ``n_repl`` column replicas of the
+    dense operand (the 1.5D layout; ``n_repl=1`` is the pure-1D partition).
+
+    Wavefront 0 is communication-free (the fusion criterion makes every
+    fused row's dependencies tile-local, hence shard-local).  Each column
+    replica carries ``c_col / n_repl`` columns of C/D1/D, so every term
+    below shrinks with replication — the price is memory, not bytes on the
+    wire: the sparse operand and B are stored ``n_repl`` times
+    (``choose_mesh_layout`` weighs the two).  Terms:
+
+      ``halo_bytes``       all-gather of just the wavefront-1 halo — the
+                           ``halo_rows`` D1 rows the post-barrier wavefront
+                           reads: every device receives the (S-1)/S
+                           fraction it doesn't own.
+      ``combine_bytes``    the *psum* output combine: each shard's rows of
+                           D are disjoint but scattered (fused rows follow
+                           the pattern, not contiguous blocks), so the
+                           psum executors all-reduce the full
+                           ``(n_j, c_col)`` partial — the dominant term
+                           for small halos.
+      ``combine_bytes_reduce_scatter``
+                           the row-remapped reduce-scatter combine: D rows
+                           are permuted so every shard owns one contiguous
+                           block (``combine_rows`` = padded permuted row
+                           count, ≈ n_j); partials are owner-disjoint, so
+                           each block crosses the wire exactly once when
+                           the output is consumed instead of every row
+                           reaching every device.
+      ``replicate_bytes``  the alternative to the halo exchange —
+                           all-gather the full D1 so wavefront 1 needs no
+                           index sets (or, equivalently, replicate op-1
+                           compute).
+
+    ``combine`` is the model's choice between the two combine strategies
+    (fewest bytes wins; ties keep the simpler psum).  ``halo_fraction``
+    (halo / full D1) is the exchange-strategy decision variable: a near-1
+    fraction says the pattern scatters its wavefront-1 deps so widely that
+    replication costs the same bytes and saves the index bookkeeping.
+
+    2.5D (``n_depth > 1``): the wavefront-1 tiles and spill lanes are
+    split over ``n_depth`` layers that each gather a 1/n_depth slice of
+    the halo in parallel (the staged exchange), so the total halo bytes
+    are unchanged but every device moves ``1/n_depth`` of its 1.5D share;
+    the partial D blocks are then psum-combined over the depth axis
+    (``depth_combine_bytes``).  Overlap (``overlap=True`` or ``"auto"``):
+    the halo gather is issued *before* the wf0 body, hiding per-device
+    halo bytes up to ``OVERLAP_WINDOW_RATIO`` of the modeled per-device
+    wf0 streaming (``wf0_bytes`` total, split over the s·r compute grid);
+    bytes beyond the window cost full rate.  The price of overlap is the
+    duplicate halo-row compute prologue (``overlap_dup_bytes``);
+    ``overlap="auto"`` enables it iff the hidden bytes beat the duplicate
+    compute.  ``critical_bytes`` is the per-device effective communication
+    on the critical path — the number layout comparisons should rank."""
+    s = max(int(n_shards), 1)
+    r = max(int(n_repl), 1)
+    z = max(int(n_depth), 1)
+    remote = (s - 1) / s
+    cc_r = c_col / r                     # columns per replica group
+    out_rows = float(n_i if n_j is None else n_j)
+    perm_rows = out_rows if combine_rows is None else float(combine_rows)
+    halo = float(halo_rows) * cc_r * dtype_bytes * remote * s * r
+    full = float(n_i) * cc_r * dtype_bytes * remote * s * r
+    combine = out_rows * cc_r * dtype_bytes * remote * s * r
+    combine_rs = perm_rows * cc_r * dtype_bytes * remote * r
+    combine_choice = min(combine, combine_rs)
+    # 2.5D terms: per-device halo shrinks 1/z; depth layers psum partials.
+    halo_per_dev = halo / (s * r * z)
+    depth_combine = perm_rows * cc_r * dtype_bytes * (z - 1) * r
+    # Overlap window: per-device wf0 streaming share, discounted to the
+    # fraction the post-prologue gather can actually hide under.
+    window = (float(wf0_bytes) / (s * r)) * OVERLAP_WINDOW_RATIO
+    halo_eff_per_dev = max(halo_per_dev - window, 0.0)
+    saving = (halo_per_dev - halo_eff_per_dev) * s * r * z
+    # Duplicate-compute prologue: every replica fiber recomputes the halo
+    # rows' D1 values ahead of the gather (charged at the value dtype).
+    dup = float(halo_rows) * cc_r * dtype_bytes * r
+    if isinstance(overlap, str):
+        overlap_on = saving > dup
+    else:
+        overlap_on = bool(overlap)
+    if not overlap_on:
+        halo_eff_per_dev = halo_per_dev
+        saving = 0.0
+    halo_eff = halo_eff_per_dev * s * r * z
+    critical = (halo_eff_per_dev + combine_choice / (s * r)
+                + depth_combine / (s * r * z)
+                + (dup / (s * r * z) if overlap_on else 0.0))
+    return {
+        "n_shards": s,
+        "n_repl": r,
+        "n_depth": z,
+        "halo_rows": int(halo_rows),
+        "halo_bytes": halo,
+        "halo_bytes_per_device": halo_per_dev,
+        "halo_bytes_effective": halo_eff,
+        "combine_bytes": combine,
+        "combine_bytes_reduce_scatter": combine_rs,
+        "combine": "reduce_scatter" if combine_rs < combine else "psum",
+        "depth_combine_bytes": depth_combine,
+        "replicate_bytes": full,
+        "halo_fraction": float(halo_rows) / max(n_i, 1),
+        "overlap": overlap_on,
+        "overlap_saving_bytes": saving,
+        "overlap_dup_bytes": dup if overlap_on else 0.0,
+        "critical_bytes": critical,
+        "layout": ("2.5d" if z > 1 else ("1d" if r == 1 else "1.5d")),
+    }
+
+
+def choose_mesh_layout(mesh_shape, *, halo_rows: int, n_i: int, n_j: int,
+                       c_col: int, operand_bytes: float,
+                       dtype_bytes: int = 4,
+                       serial_bytes: float = 0.0,
+                       overlap: bool | str = False,
+                       wf0_bytes: float = 0.0) -> dict:
+    """How the sharded dispatch should use a mesh's axes: pure-1D (flatten
+    every axis into row-block shards) vs replicated-1.5D (leading axis row
+    shards, trailing axes column replicas of the dense operand) vs 2.5D
+    (a third depth axis replicating wf0 and splitting the halo exchange),
+    vs not sharding at all (``"fallback"``, priced only when the caller
+    supplies the serial Eq-3 traffic via ``serial_bytes``).
+
+    The replication ladder of Bharadwaj et al. trades memory for
+    communication: with ``n_repl`` column replicas each device stores the
+    sparse operand and B ``n_repl`` times over
+    (``replication_cost_bytes``) but moves only ``c_col / n_repl`` columns
+    of halo and combine traffic; a depth factor ``n_depth`` further splits
+    the per-device halo (at the price of full wf0 replication and a depth
+    psum).  Candidates are ranked on a *per-device* total: the compute
+    share (``serial_bytes`` over the s·r compute grid — depth replicates
+    wf0, it does not shrink compute) plus the per-device critical
+    communication from ``shard_comm_model`` (overlap-discounted when
+    ``overlap`` is on or ``"auto"``) plus the extra operand copies.
+
+    Returns ``{"layout", "n_row", "n_repl", "n_depth", "overlap",
+    "candidates"}`` where ``candidates`` maps each layout to its modeled
+    cost terms."""
+    shape = tuple(int(x) for x in mesh_shape)
+    total = 1
+    for x in shape:
+        total *= x
+
+    def cost(n_row: int, n_repl: int, n_depth: int = 1) -> dict:
+        m = shard_comm_model(n_row, halo_rows, n_i, c_col,
+                             dtype_bytes=dtype_bytes, n_j=n_j,
+                             n_repl=n_repl, n_depth=n_depth,
+                             overlap=overlap, wf0_bytes=wf0_bytes)
+        comm = (m["halo_bytes_effective"]
+                + min(m["combine_bytes"],
+                      m["combine_bytes_reduce_scatter"])
+                + m["depth_combine_bytes"])
+        repl_cost = float(operand_bytes) * (n_repl * n_depth - 1)
+        compute = float(serial_bytes) / (n_row * n_repl)
+        n_dev = n_row * n_repl * max(n_depth, 1)
+        return {"comm_bytes": comm, "replication_cost_bytes": repl_cost,
+                "critical_bytes": m["critical_bytes"],
+                "compute_bytes_per_device": compute,
+                "total_bytes": comm + repl_cost,
+                "total_per_device": (compute + m["critical_bytes"]
+                                     + repl_cost / n_dev),
+                "overlap": m["overlap"],
+                "n_row": n_row, "n_repl": n_repl, "n_depth": n_depth}
+
+    candidates = {"1d": cost(total, 1)}
+    if len(shape) >= 2 and total > shape[0]:
+        candidates["1.5d"] = cost(shape[0], total // shape[0])
+    from .scheduler import resolve_mesh_layout
+    r25 = resolve_mesh_layout(shape, "2.5d")
+    if r25[2] > 1:
+        candidates["2.5d"] = cost(*r25)
+    if serial_bytes > 0.0:
+        candidates["fallback"] = {
+            "comm_bytes": 0.0, "replication_cost_bytes": 0.0,
+            "critical_bytes": 0.0,
+            "compute_bytes_per_device": float(serial_bytes),
+            "total_bytes": float(serial_bytes),
+            "total_per_device": float(serial_bytes),
+            "overlap": False, "n_row": 1, "n_repl": 1, "n_depth": 1}
+    # Rank on per-device totals when compute is priced; fall back to the
+    # pure-bytes total (the pre-2.5D ranking rule) otherwise.
+    rank_key = "total_per_device" if serial_bytes > 0.0 else "total_bytes"
+    layout = min(candidates, key=lambda k: candidates[k][rank_key])
+    best = candidates[layout]
+    return {"layout": layout, "n_row": best["n_row"],
+            "n_repl": best["n_repl"], "n_depth": best["n_depth"],
+            "overlap": best["overlap"], "candidates": candidates}

@@ -128,14 +128,25 @@ def wf1_tail_plan(ds: DeviceSchedule,
     Where that order is the lanes as given (a schedule straight from
     ``to_device_schedule``), ``order`` is None and the plan is unchanged.
     The ``DeviceSchedule`` arrays themselves are never reordered."""
-    j_flat = np.asarray(ds.j_rows1, np.int64).reshape(-1)
-    slot_of = np.full(ds.n_j + 1, -1, np.int64)
-    real = np.flatnonzero(j_flat != ds.n_j)
+    return rows_tail_plan(ds.j_rows1, ds.n_j, ds.spill_rows1, ds.spill_vals1,
+                          max_chunk)
+
+
+def rows_tail_plan(j_rows, n_j: int, spill_rows, spill_vals,
+                   max_chunk: int = kspmm.MAX_CHUNK) -> kspmm.TailPlan:
+    """``wf1_tail_plan`` of any packed row set: ``j_rows`` names each
+    packed slot's D row (``n_j`` for a pad slot), and the spill lanes
+    ``(spill_rows, spill_vals)`` are keyed by D row (a sharded group's
+    wavefront-1 stack and its co-located lanes, whose pad lanes sit at row
+    ``n_j`` with value 0)."""
+    j_flat = np.asarray(j_rows, np.int64).reshape(-1)
+    slot_of = np.full(n_j + 1, -1, np.int64)
+    real = np.flatnonzero(j_flat != n_j)
     slot_of[j_flat[real]] = real
-    rows = np.asarray(ds.spill_rows1, np.int64)
+    rows = np.asarray(spill_rows, np.int64)
     slots = slot_of[rows]
     orphan = slots < 0
-    bad = orphan & (np.asarray(ds.spill_vals1) != 0)
+    bad = orphan & (np.asarray(spill_vals) != 0)
     if bad.any():
         raise ValueError(
             f"wf1_tail_plan: {int(bad.sum())} spill lanes of non-zero value "

@@ -54,6 +54,10 @@ class DeviceSchedule:
     def n_tiles0(self) -> int:
         return int(self.i_starts.shape[0])
 
+    @property
+    def n_tiles1(self) -> int:
+        return int(self.j_rows1.shape[0])
+
     def padded_flops_overhead(self, b_col: int, c_col: int) -> float:
         """Ratio of padded to useful wavefront-0 product FLOPs (the
         autotune sweep scales its Eq-3 score by it)."""

@@ -18,8 +18,8 @@ Builds a two-wavefront schedule of fused tiles from the sparsity pattern of
 The schedule is computed once per sparsity pattern (numpy, host side) and
 reused across steps — the amortization argument of paper §4.2.3.
 
-A copy of ``repro.core.tilefusion.scheduler`` (the single-device
-inspector).  The inspector is O(nnz) vectorized: the fusion test ``all deps
+A copy of ``repro.core.tilefusion.scheduler`` (the inspector, and the
+mesh partition helpers the sharded dispatch uses).  The inspector is O(nnz) vectorized: the fusion test ``all deps
 of row j in [i_start, i_end)`` is equivalent to ``row_min[j] >= i_start and
 row_max[j] < i_end`` where the per-row column extents come from one
 ``ufunc.reduceat`` pass (``CSR.row_extents``, memoized per matrix).  Step 1
@@ -282,3 +282,98 @@ def build_schedule(
     sched = Schedule(wavefronts=[split_wf0, wf1], n_i=n_i, n_j=n_j, t=t)
     sched.validate()
     return sched
+
+
+def balanced_contiguous_partition(costs: np.ndarray,
+                                  n_parts: int) -> np.ndarray:
+    """Split a tile sequence into ``n_parts`` contiguous groups minimizing
+    the max group Eq-3 cost (the shard balance term of the sharded
+    dispatch: every shard gets comparable fused-tile work, and contiguity
+    preserves the 1-D row-block partition of D1).
+
+    Binary search on the bottleneck cost over the prefix sums; returns
+    ``(n_parts + 1,)`` tile-index bounds (trailing groups may be empty when
+    there are fewer tiles than parts).
+    """
+    costs = np.asarray(costs, dtype=np.float64)
+    n = costs.shape[0]
+    bounds = np.zeros(n_parts + 1, dtype=np.int64)
+    if n == 0 or n_parts <= 0:
+        return bounds
+    prefix = np.concatenate([[0.0], np.cumsum(costs)])
+
+    def cuts_for(bottleneck: float) -> np.ndarray:
+        """Greedy left-to-right packing at a given bottleneck; may use
+        fewer than n_parts groups (never more than n)."""
+        cut = [0]
+        while cut[-1] < n:
+            # furthest end with group sum <= bottleneck, at least one tile
+            end = int(np.searchsorted(prefix, prefix[cut[-1]] + bottleneck,
+                                      side="right")) - 1
+            cut.append(max(end, cut[-1] + 1))
+        return np.asarray(cut, dtype=np.int64)
+
+    lo = float(costs.max())
+    hi = float(prefix[-1])
+    for _ in range(48):
+        mid = 0.5 * (lo + hi)
+        if cuts_for(mid).shape[0] - 1 <= n_parts:
+            hi = mid
+        else:
+            lo = mid
+    cut = cuts_for(hi)
+    k = cut.shape[0] - 1              # groups actually used (<= n_parts)
+    bounds[: k + 1] = cut
+    bounds[k + 1:] = n                # trailing empty shards
+    return bounds
+
+
+#: Layouts a mesh's axes can be resolved into (plus "auto" upstream).
+MESH_LAYOUTS = ("1d", "1.5d", "2.5d")
+
+
+def resolve_mesh_layout(mesh_shape, layout: str) -> tuple:
+    """THE layout rule, defined once: how many row shards × column
+    replicas × depth replicas a mesh shape yields under a layout.
+
+    Returns ``(n_row, n_repl, n_depth)``.  ``"1d"`` flattens every mesh
+    axis into row-block shards (a 2-D mesh in C order, the order in
+    which ``models.sharding.Mesh.grid`` lays its devices out); ``"1.5d"`` partitions tiles
+    over the *leading* axis only and leaves the trailing axes as column
+    replicas of the dense operand; ``"2.5d"`` keeps axis 0 for row blocks,
+    axis 1 for column replicas, and folds the remaining axes into a depth
+    dimension that replicates the wavefront-0 compute and splits the
+    wavefront-1 halo work (Bharadwaj et al.'s replication ladder).  A mesh
+    without enough axes degenerates down the ladder ("2.5d" → the "1.5d"
+    resolution → "1d").  Every consumer (the api dispatch, the partitioner
+    below, the executor's axis split in ``models/sharding``) derives its
+    split from this function so the layers can never disagree."""
+    if layout not in MESH_LAYOUTS:
+        raise ValueError(f"layout={layout!r}; expected one of "
+                         f"{MESH_LAYOUTS}")
+    shape = tuple(int(x) for x in np.atleast_1d(mesh_shape))
+    total = 1
+    for x in shape:
+        total *= x
+    if layout == "2.5d" and len(shape) >= 3:
+        depth = 1
+        for x in shape[2:]:
+            depth *= x
+        if depth > 1 and shape[1] > 1:
+            return shape[0], shape[1], depth
+        if depth > 1 and shape[1] == 1:
+            # nothing to column-replicate; fold depth into the replica slot
+            return shape[0], depth, 1
+    if layout in ("1.5d", "2.5d") and len(shape) >= 2 and total > shape[0]:
+        return shape[0], total // shape[0], 1
+    return total, 1, 1
+
+
+def balanced_mesh_partition(costs: np.ndarray, mesh_shape,
+                            layout: str = "1d") -> tuple:
+    """Mesh-aware front end of ``balanced_contiguous_partition``: resolve a
+    mesh shape + layout into (row-axis tile bounds, n_row, n_repl,
+    n_depth).  Tiles are shared within a replica group (and replicated
+    across depth), so only the row axis enters the balance."""
+    n_row, n_repl, n_depth = resolve_mesh_layout(mesh_shape, layout)
+    return balanced_contiguous_partition(costs, n_row), n_row, n_repl, n_depth

@@ -120,14 +120,13 @@ def incremental_update(a_old: CSR, entry: api.ScheduleEntry, a_new: CSR,
     by row: ``fused_ops.wf1_tail_plan`` puts them in the kernel's order.
     Bails to None (full rebuild) when capacity runs out (more entering
     rows than free slots, a row wider than the packed width) or a patched
-    tile's Eq-3 cost exceeds ``cache_size``, the budget step 2 enforces.
-
-    The reference also bails on a sharded entry (``entry.shard`` /
-    ``mesh_key``); the port has no sharded entries until sharding is
-    ported (ROADMAP Queue 1 item 6), so there is nothing to check."""
+    tile's Eq-3 cost exceeds ``cache_size``, the budget step 2 enforces,
+    and on a sharded or mesh-keyed entry (the patch is single-device)."""
     t0 = time.perf_counter()
     ds = entry.dsched
     sched = entry.sched
+    if entry.shard is not None or entry.mesh_key is not None:
+        return None
     if entry.reorder_perm is not None:
         # a baked permutation renumbers every row the dirty diff names:
         # patch-by-position would corrupt it (bucket entries never carry

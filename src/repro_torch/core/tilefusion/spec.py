@@ -10,8 +10,8 @@ canonicalized on trivial meshes) **is** the schedule-cache key tail, so a
 knob can never be part of dispatch without being part of the key.
 
 A copy of ``repro.core.tilefusion.spec.FusionSpec``: the same fields and
-validation.  The forward slice of the port serves the single-device knobs;
-``api`` raises ``NotImplementedError`` for the others (see ROADMAP.md).
+validation.  ``mesh`` takes a ``repro_torch.models.sharding.Mesh`` (``api``
+raises ``TypeError`` for anything else).
 """
 from __future__ import annotations
 

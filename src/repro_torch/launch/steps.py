@@ -9,20 +9,22 @@ from __future__ import annotations
 import torch
 
 
-def make_gcn_train_step(model, *, lr: float = 0.3, backend: str = "auto"):
+def make_gcn_train_step(model, *, lr: float = 0.3, backend: str = "auto",
+                        mesh=None):
     """SGD train step for a ``models.gcn.GCN``.
 
     The returned ``step(x, y) -> loss`` differentiates through
     ``tile_fused_matmul``'s autograd Functions, so the backward runs the
     transposed products off the cached transpose schedules on whatever
     backend ``backend`` (or Eq-3 auto selection) resolves to, then updates
-    the weights in place, ``w ← w − lr·g``.  The loss returned is the one
-    at the weights before the update (a tensor; reading it waits for the
-    device)."""
+    the weights in place, ``w ← w − lr·g``.  ``mesh=`` runs the forward
+    and the backward's fused products over a mesh.  The loss returned is
+    the one at the weights before the update (a tensor; reading it waits
+    for the device)."""
     def step(x, y):
         for w in model.weights:
             w.grad = None
-        loss = model.loss(x, y, backend=backend)
+        loss = model.loss(x, y, backend=backend, mesh=mesh)
         loss.backward()
         with torch.no_grad():
             for w in model.weights:

@@ -11,7 +11,8 @@ layer's backward runs the transposed fused products (``api``'s autograd
 Functions) off cached transpose schedules, which ``launch.steps
 .make_gcn_train_step`` trains with.  A serving caller runs it under
 ``torch.inference_mode()``, where no graph is recorded and the layers
-dispatch directly.
+dispatch directly.  ``mesh=`` (a ``models.sharding.Mesh``) spreads every
+layer, and its backward, over the mesh's devices.
 """
 from __future__ import annotations
 
@@ -96,11 +97,24 @@ class GCN(nn.Module):
         for w, p in zip(self.weights, params):
             w.copy_(torch.tensor(np.asarray(p)))
 
-    def layer_backends(self, device=None) -> list:
+    def _spec(self, mesh) -> FusionSpec:
+        return (self.spec if mesh is None
+                else dataclasses.replace(self.spec, mesh=mesh))
+
+    def layer_entries(self, mesh=None) -> list:
+        """Each layer's schedule entry under ``mesh`` (the ones built with
+        the model for ``mesh=None``)."""
+        if mesh is None:
+            return list(self.entries)
+        return [api.get_schedule(self.adj, b_col=e.b_col, c_col=e.c_col,
+                                 spec=self._spec(mesh)) for e in self.entries]
+
+    def layer_backends(self, device=None, mesh=None) -> list:
         """The ``backend="auto"`` pick of each layer on ``device`` (default:
-        where the weights live)."""
+        where the weights live), under ``mesh``."""
         device = self.weights[0].device if device is None else device
-        return [api.select_backend(e, device) for e in self.entries]
+        return [api.select_backend(e, device)
+                for e in self.layer_entries(mesh)]
 
     def train_step_traffic_models(self) -> list:
         """Per-layer forward + backward traffic (``cost_model
@@ -118,21 +132,23 @@ class GCN(nn.Module):
                 dtype_bytes=e.dtype_bytes))
         return out
 
-    def forward(self, x: torch.Tensor, *, backend: str = "auto"
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, *, backend: str = "auto",
+                mesh=None) -> torch.Tensor:
         """Logits for node features ``x`` of shape ``(n_nodes, in_dim)``,
-        on the weights' device."""
+        on the weights' device; ``mesh=`` runs each layer over a mesh
+        (``dataclasses.replace(self.spec, mesh=mesh)``)."""
+        spec = self._spec(mesh)
         last = len(self.weights) - 1
         for i, w in enumerate(self.weights):
             h = api.tile_fused_matmul(self.adj, x, w, backend=backend,
-                                      spec=self.spec)
+                                      spec=spec)
             x = torch.relu(h) if i < last else h
         return x
 
     def loss(self, x: torch.Tensor, labels: torch.Tensor, *,
-             backend: str = "auto") -> torch.Tensor:
+             backend: str = "auto", mesh=None) -> torch.Tensor:
         """Mean negative log-likelihood of ``labels`` under the softmax of
         the logits, written as the reference's ``GCN.loss`` (log-softmax,
         the label's entry of each row, mean)."""
-        logp = F.log_softmax(self(x, backend=backend), dim=-1)
+        logp = F.log_softmax(self(x, backend=backend, mesh=mesh), dim=-1)
         return -torch.take_along_dim(logp, labels[:, None], dim=1).mean()

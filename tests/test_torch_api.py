@@ -168,14 +168,24 @@ def test_auto_never_drops_a_device_tensor_to_the_plain_path():
 
 @pytest.mark.parametrize("knob", ["mesh"])
 def test_out_of_slice_knobs_raise(knob):
+    """``spec.mesh`` is served since the sharded slice: a value that is not
+    a ``models.sharding.Mesh`` raises ``TypeError``, and a mesh of cpu
+    entries runs, agreeing with ``backend="torch"`` without it."""
+    from repro_torch.models.sharding import Mesh
     _, ta = pattern_pair("banded")
-    value = {"mesh": object()}[knob]
-    spec = dataclasses.replace(api.FusionSpec(**KNOBS), **{knob: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.tile_fused_matmul(ta, torch.randn(64, 8), torch.randn(8, 4),
-                              spec=spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    b, c = torch.randn(64, 8), torch.randn(8, 4)
+    spec = dataclasses.replace(api.FusionSpec(**KNOBS), **{knob: object()})
+    with pytest.raises(TypeError, match="Mesh"):
+        api.tile_fused_matmul(ta, b, c, spec=spec)
+    with pytest.raises(TypeError, match="Mesh"):
         api.get_schedule(ta, b_col=8, c_col=4, spec=spec)
+    spec = dataclasses.replace(spec, **{knob: Mesh(["cpu"] * 4, ("x",))})
+    want = api.tile_fused_matmul(ta, b, c, backend="torch",
+                                 spec=api.FusionSpec(**KNOBS))
+    got = api.tile_fused_matmul(ta, b, c, spec=spec)
+    torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    assert api.get_schedule(ta, b_col=8, c_col=4, spec=spec).shard \
+        is not None
 
 
 @pytest.mark.parametrize("op_pair", ["gemm", "spmm"])
@@ -235,13 +245,15 @@ def test_bucket_knob_runs(op_pair, backend):
 
 
 def test_sharded_backend_and_grad_raise():
-    """``backend="sharded"``, unknown backends and mixed dtypes raise;
-    autograd no longer does: the gradient that comes back equals the
-    plain path's."""
+    """Unknown backends and mixed dtypes raise; ``backend="sharded"`` and
+    autograd no longer do: without a mesh the sharded backend takes the
+    single-device pick (``"torch"`` on CPU tensors, the same bits), and
+    the gradient that comes back equals the plain path's."""
     _, ta = pattern_pair("banded")
     b, c = torch.randn(64, 8), torch.randn(8, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.tile_fused_matmul(ta, b, c.detach(), backend="sharded")
+    assert torch.equal(
+        api.tile_fused_matmul(ta, b, c.detach(), backend="sharded"),
+        api.tile_fused_matmul(ta, b, c.detach(), backend="torch"))
     api.tile_fused_matmul(ta, b, c).sum().backward()
     plain = c.detach().clone().requires_grad_()
     api.tile_fused_matmul(ta, b, plain, backend="torch").sum().backward()

@@ -974,3 +974,141 @@ def test_reduced_lm_serves_on_the_card(card):
     got = model(toks)
     want = model(toks, impl="torch")
     assert _rel_err(got, want) <= 2e-2
+
+
+#: the three rungs of the sharded dispatch on one card: (mesh shape,
+#: layout), every entry of the mesh the same card
+SHARD_MESHES = {"1d": ((4,), "1d"), "1.5d": ((2, 2), "1.5d"),
+                "2.5d": ((2, 2, 2), "2.5d")}
+
+
+def _card_mesh(card, shape):
+    from repro_torch.models.sharding import Mesh
+    return Mesh(np.full(shape, str(card), dtype=object),
+                ("x", "y", "z")[:len(shape)])
+
+
+def _no_plain_executor(monkeypatch):
+    """Make the plain executors raise, so a call that reached them
+    fails."""
+    def plain(*args, **kwargs):
+        raise AssertionError("a plain executor ran on the card")
+    for name in ("fused_gemm_spmm", "fused_spmm_spmm", "_ell_rows"):
+        monkeypatch.setattr(fused_ops, name, plain)
+
+
+@pytest.mark.parametrize("combine", ["psum", "reduce_scatter"])
+@pytest.mark.parametrize("mesh_name", sorted(SHARD_MESHES))
+@pytest.mark.parametrize("op_pair", ["gemm", "spmm"])
+def test_sharded_arm_matches_cuda_arm(card, op_pair, mesh_name, combine,
+                                      monkeypatch):
+    """Shards that share the card: each runs its wavefront-0 kernel and
+    one ``spmm_ell`` call, against the single-device ``"cuda"`` arm;
+    overlap gives the sync arm's bits for GeMM-SpMM, and within 1e-6 for
+    SpMM-SpMM, whose op-1 spill delta is summed by float atomics
+    (``fused_ops.op1_spill``) anew on each call."""
+    a = gen.banded_spd(16384, 8, seed=1)
+    rng = np.random.default_rng(0)
+    c_shape = (a.n_rows, 64) if op_pair == "spmm" else (64, 64)
+    c = torch.from_numpy(rng.standard_normal(c_shape, np.float32)).to(card)
+    b = (a if op_pair == "spmm" else torch.from_numpy(
+        rng.standard_normal((a.n_rows, 64), np.float32)).to(card))
+    want = api.tile_fused_matmul(a, b, c, backend="cuda")
+    shape, layout = SHARD_MESHES[mesh_name]
+    wf0 = ("tile_fused_spmm_spmm_wf0" if op_pair == "spmm"
+           else "tile_fused_gemm_spmm_wf0")
+    _no_plain_executor(monkeypatch)
+    outs = []
+    for overlap in (False, True):
+        spec = api.FusionSpec(mesh=_card_mesh(card, shape),
+                              shard_layout=layout, shard_combine=combine,
+                              overlap=overlap)
+        entry = api.get_schedule(a, b_col=64, c_col=64,
+                                 b_is_sparse=op_pair == "spmm",
+                                 spec=dataclasses.replace(spec,
+                                                          dtype_bytes=4))
+        sh = entry.shard
+        assert sh.layout == layout and api.select_backend(entry, card) \
+            == "sharded"
+        n_dev = int(np.prod(shape))
+        ops.reset_launch_counts()
+        got = api.tile_fused_matmul(a, b, c, spec=spec)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts[wf0] == n_dev
+        assert counts["spmm_ell"] == (
+            n_dev if sh.halo_size and sh.wf1_per_shard else 0)
+        assert got.is_cuda and got.shape == want.shape
+        assert _rel_err(got, want) <= TOL[torch.float32]
+        outs.append(got)
+    if op_pair == "gemm":
+        assert torch.equal(outs[0], outs[1])
+    assert _rel_err(outs[1], outs[0]) <= 1e-6
+
+
+@pytest.mark.parametrize("op_pair", ["gemm", "spmm"])
+def test_sharded_grads_match_cuda_arm(card, op_pair):
+    """The backward keeps the mesh: ``dB`` / SpMM-SpMM's ``dC`` run on the
+    transpose entries' shards."""
+    a = gen.banded_spd(8192, 8, seed=2)
+    rng = np.random.default_rng(1)
+    c0 = rng.standard_normal((a.n_rows, 32) if op_pair == "spmm"
+                             else (64, 32), np.float32)
+    b0 = rng.standard_normal((a.n_rows, 64), np.float32)
+    spec = api.FusionSpec(mesh=_card_mesh(card, (4,)))
+    grads = []
+    for s, backend in ((spec, "sharded"), (api.FusionSpec(), "cuda")):
+        c = torch.from_numpy(c0).to(card).requires_grad_()
+        b = torch.from_numpy(b0).to(card).requires_grad_()
+        ops.reset_launch_counts()
+        d = api.tile_fused_matmul(a, a if op_pair == "spmm" else b, c,
+                                  backend=backend, spec=s)
+        (d * d).sum().backward()
+        torch.cuda.synchronize()
+        grads.append([c.grad] if op_pair == "spmm" else [b.grad, c.grad])
+    for got, want in zip(*grads, strict=True):
+        assert _rel_err(got, want) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("graph", ["banded", "powerlaw"])
+def test_sharded_backend_on_a_trivial_mesh_runs_a_kernel_arm(card, graph,
+                                                            monkeypatch):
+    """``backend="sharded"`` without a partition on a CUDA tensor takes the
+    entry's single-device pick, ``"cuda"`` or ``"unfused"``: never the
+    plain path."""
+    adj = (gen.banded_spd(16384, 8, seed=0) if graph == "banded"
+           else gen.powerlaw_graph(16384, 8, seed=0))
+    b = torch.randn(adj.n_rows, 64, device=card)
+    c = torch.randn(64, 64, device=card)
+    want = api.tile_fused_matmul(adj, b, c, backend="torch")
+    spec = api.FusionSpec(mesh=_card_mesh(card, (1,)))
+    entry = api.get_schedule(adj, b_col=64, c_col=64, spec=spec)
+    pick = api.select_backend(entry, card)
+    assert entry.shard is None and pick in ("cuda", "unfused")
+    _no_plain_executor(monkeypatch)
+    ops.reset_launch_counts()
+    got = api.tile_fused_matmul(adj, b, c, backend="sharded", spec=spec)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["spmm_ell"] >= 1
+    assert counts["tile_fused_gemm_spmm_wf0"] == (pick == "cuda")
+    assert _rel_err(got, want) <= 2e-3
+
+
+def test_sharded_gcn_serves_and_trains_on_the_card(card):
+    cfg = GCNConfig(n_nodes=8192)
+    model = GCN(cfg, gen.banded_spd(cfg.n_nodes, 8, seed=0), device=card)
+    mesh = _card_mesh(card, (4,))
+    assert model.layer_backends(mesh=mesh) == ["sharded", "sharded"]
+    x = torch.randn(cfg.n_nodes, cfg.in_dim, device=card)
+    with torch.inference_mode():
+        assert _rel_err(model(x, mesh=mesh), model(x)) <= TOL[torch.float32]
+    y = torch.randint(0, cfg.out_dim, (cfg.n_nodes,), device=card)
+    loss = model.loss(x, y, mesh=mesh)
+    loss.backward()
+    got = [w.grad.clone() for w in model.weights]
+    for w in model.weights:
+        w.grad = None
+    model.loss(x, y).backward()
+    for g, w in zip(got, model.weights, strict=True):
+        assert _rel_err(g, w.grad) <= TOL[torch.float32]

@@ -621,20 +621,26 @@ def test_subgraph_cli_equals_the_reference(capsys):
 @pytest.mark.parametrize("knob", ["autotune", "transpose", "reorder",
                                   "mesh"])
 def test_bucket_knob_rejects_bad_compositions(knob):
+    """Each knob raises ``ValueError`` with a bucket, in both packages.  A
+    non-trivial mesh: a port ``Mesh`` of two cpu entries, and for the
+    reference a stand-in with the two attributes its ``mesh_key`` reads
+    (the test process has one JAX device)."""
+    import types
+    from repro_torch.models.sharding import Mesh
     ra = _graph(100)
     value = {"autotune": True, "transpose": True, "reorder": "rcm",
-             "mesh": object()}[knob]
+             "mesh": Mesh(["cpu", "cpu"], ("x",))}[knob]
+    ref_value = value if knob != "mesh" else types.SimpleNamespace(
+        devices=np.empty((2,)), axis_names=("x",))
     bucket = (128, 128, None)
-    with pytest.raises(ValueError) if knob != "mesh" else \
-            pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError):
         api.get_schedule(as_port(ra), b_col=8, c_col=8, spec=api.FusionSpec(
             **KNOBS, bucket=bucket, **{knob: value}))
-    if knob != "mesh":
-        with pytest.raises(ValueError):
-            ref_api.get_schedule(ra, b_col=8, c_col=8,
-                                 spec=ref_api.FusionSpec(
-                                     **KNOBS, bucket=bucket,
-                                     **{knob: value}))
+    with pytest.raises(ValueError):
+        ref_api.get_schedule(ra, b_col=8, c_col=8,
+                             spec=ref_api.FusionSpec(
+                                 **KNOBS, bucket=bucket,
+                                 **{knob: ref_value}))
 
 
 def test_bucket_hit_needs_the_same_content():
