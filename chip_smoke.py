@@ -212,6 +212,35 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                transpose entries mesh-keyed and sharded.  13d: the
                power-law GeMM-SpMM on (4,): the pick, whether the layout
                pricing fell back to one device, launches, rel err.
+ 14. LM training: stablelm-1.6b with ``block_pattern="sparse-band"``
+               (the reference's own use of the pattern) at its published
+               widths.  14a: the band ``decay_band_csr(2048, 32)`` under
+               ``ssm._BAND_SPEC``, its forward and transpose entries (Eq
+               3's pick printed: ``unfused``; the mixer forces ``cuda``):
+               GeMM-SpMM at b_col = c_col = 2048, f32, on both entries
+               (must run the CUDA-core kernel), ``spmm_ell`` as both
+               entries' wavefront 1 and as the ``Aᵀ`` hybrid product at
+               2048 columns, each against its plain version (≤ 1e-4),
+               timed (CUDA events, and queued behind a sleep) beside its
+               bound and the ``torch.matmul`` + ``torch.sparse.mm``
+               chain.  14b: ``band_mix_apply`` with B 4, S 2048, d 2048,
+               f32: ``backend="cuda"`` against ``"torch"`` (≤ 1e-4) and
+               both against an f64 dense oracle (≤ 2e-3), output and the
+               gradients in x, wv, wz, w_down (the band is
+               lower-triangular, so ``Aᵀ ≠ A``); per-call time of the
+               ``cuda`` and ``unfused`` arms, forward and forward +
+               backward.  14c: the 24-layer bf16 model from seed 0 (1.54
+               B parameters), one fixed batch of 4 × 2048 tokens and
+               labels, 6 steps of ``launch.steps.make_train_step`` (AdamW,
+               lr 3e-4, warmup 1): finite losses and ``min(losses[2:]) <
+               losses[0]``, no schedule-cache miss after step 1, each
+               step 192 GeMM-SpMM and 288 ``spmm_ell`` launches and no
+               plain executor or unfused arm (they raise meanwhile); step
+               p50 / max, peak device memory, one traced step, the
+               ``inference_mode`` forward of the batch; then a 2-layer f32
+               cut of the same widths: step-1 gradients of every
+               parameter with ``impl="cuda"`` against ``impl="torch"``
+               (≤ 1e-4 per tensor).
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after: phases 4-5 (the GCN path, gradients included) must
@@ -219,7 +248,8 @@ launch the three sparse kernels, ``spmm_ell`` in every request of both
 graphs, phase 10's training runs ``spmm_ell`` and GeMM-SpMM, phase 11's
 and phase 12's paths (each call counted on its own) add to the three
 sparse kernels' launches, phase 13's sharded calls (each
-counted on its own) add to them too, phase 7's
+counted on its own) add to them too, as do phase 14's mixer and
+training steps (each counted on its own), phase 7's
 entry-point calls the FFN and MoE kernels, and phase 8 the flash kernel
 exactly once per layer of the prefill.  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
@@ -329,6 +359,17 @@ SERVE_GEMM_CACHE = 1.2e6
 # banded windows, 4 requests stacked a dispatch
 SERVE_CLI_REQUESTS, SERVE_CLI_NODES, SERVE_BATCH = 64, 32_768, 4
 SERVE_FE_REQUESTS = 16
+# phase 14: LM training.  stablelm-1.6b at its published widths with the
+# sparse-band block (the reference's own use of the pattern,
+# tests/test_sparse_layers.py), 6 AdamW steps on one fixed batch of 4 x
+# 2048 tokens; the band mixer's kernels also run alone at its shapes, and
+# a 2-layer f32 cut of the same widths holds impl="cuda" to impl="torch"
+BAND_ARCH = "stablelm-1.6b"
+BAND_REDUCED = False
+BAND_BATCH, BAND_SEQ = 4, 2048
+BAND_STEPS = 6
+BAND_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=20)
+BAND_CUT_LAYERS = 2
 GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
 # phase 2: the functions of each kernel in the library's SASS (a part of the
@@ -1348,7 +1389,8 @@ def main(device: str = "cuda") -> None:
              f"served tokens {tokens[:, :LM_REPLAY + 1].tolist()}")
     del cache, logits
     seq = torch.cat([prompts, tokens[:, :LM_REPLAY].to(prompts.dtype)], 1)
-    want = lm(seq, impl="torch")[:, LM_PROMPT:]
+    with torch.inference_mode():
+        want = lm(seq, impl="torch")[:, LM_PROMPT:]
     got = torch.stack(dec_logits, dim=1)
     abs_err, rel = rel_err(got, want)
     agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
@@ -1669,12 +1711,12 @@ def main(device: str = "cuda") -> None:
             ds.t_pad, entry.b_col, entry.c_col, ds.j_rows0.shape[1],
             ds.ell_cols0.shape[2], dtype)
 
-    def trace(tag, label, fn, warm=None):
+    def trace(tag, label, fn, warm=None, top=8):
         """One call of ``fn`` under the profiler, after a traced warm-up
         call (of ``warm``, else of ``fn``: a session can drop its first
-        ctypes launch): device time by kernel and the device's busy share
-        of the call's wall time.  Returns ``(busy us, wall us, {op or
-        kernel: calls})`` of the profiled call."""
+        ctypes launch): device time by kernel (the ``top`` largest) and the
+        device's busy share of the call's wall time.  Returns ``(busy us,
+        wall us, {op or kernel: calls})`` of the profiled call."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile, schedule
         with profile(activities=[ProfilerActivity.CPU,
@@ -1697,7 +1739,8 @@ def main(device: str = "cuda") -> None:
         print(f"[{tag} trace] {label}: device busy {busy / 1e3:.3f} ms, "
               f"{busy / wall_us:.3f} of the call's wall "
               f"({wall_us / 1e3:.3f} ms)")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        for e in sorted(events,
+                        key=lambda e: -e.self_device_time_total)[:top]:
             print(f"[{tag} trace] {label}:   {e.self_device_time_total:9.1f}"
                   f" us  x{e.count:<3d} {e.key[:100]}")
         copies = {e.key: (e.count, e.self_device_time_total)
@@ -2750,6 +2793,262 @@ def main(device: str = "cuda") -> None:
         path_launches[k] += v
     print(f"[13] phase 13 took {time.perf_counter() - t13:.1f} s")
 
+    # ---- 14. LM training: the sparse-band block at stablelm's widths ----
+    # The mixer is A·(X·Wv) with the band A as the sparse operand, forced
+    # onto the fused kernel arm (backend="cuda", the twin of the
+    # reference's forced "xla" arm); Eq 3 alone would pick the unfused arm.
+    t14 = time.perf_counter()
+    from repro_torch.kernels.tile_fused_gemm_spmm import CORE_KERNEL
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptConfig, adamw
+    launches14 = dict.fromkeys(GCN_KERNELS, 0)
+    band_cfg = dataclasses.replace(
+        get_config(BAND_ARCH, reduced=BAND_REDUCED),
+        block_pattern="sparse-band")
+    width = band_cfg.d_model
+    inner = band_cfg.n_heads * band_cfg.ssm_head_dim
+    band = ssm.decay_band_csr(BAND_SEQ, band_cfg.band_window,
+                              band_cfg.band_decay)
+    band_spec = dataclasses.replace(ssm._BAND_SPEC, dtype_bytes=4)
+    # the forward's entry (B = x_i, C = Wv) and the backward's dB entry
+    # (B = Ḋ_i, C = Wvᵀ, against Aᵀ)
+    e_band = api.get_schedule(band, b_col=width, c_col=inner,
+                              spec=band_spec)
+    e_band_t = api.get_schedule(
+        band, b_col=inner, c_col=width,
+        spec=dataclasses.replace(band_spec, transpose=True))
+    for name, e in (("band forward", e_band), ("band dB (transpose)",
+                                                e_band_t)):
+        ds = e.dsched
+        print(f"[14 band] {name}: {BAND_SEQ} rows, window "
+              f"{band_cfg.band_window}, nnz {band.nnz}; t={ds.t_pad} "
+              f"T0={ds.n_tiles0} j0_max={ds.j_rows0.shape[1]} "
+              f"w0={ds.ell_cols0.shape[2]} wf1={tuple(ds.ell_cols1.shape)} "
+              f"fused_ratio={e.sched.fused_ratio:.3f} "
+              f"saving={e.traffic_model['traffic_saving']:.3f}; Eq 3's "
+              f"auto pick {api.select_backend(e, dev)!r} (the mixer "
+              f"forces 'cuda')")
+
+    def counted14(fn):
+        """``(fn(), launches)``, counts set to 0 just before and read just
+        after; the plain executors and the unfused arm raise meanwhile."""
+        plain = {n: getattr(fused_ops, n) for n in
+                 ("fused_gemm_spmm", "fused_spmm_spmm", "_ell_rows",
+                  "unfused_gemm_spmm")}
+
+        def refuse(*args, **kwargs):
+            fail("phase 14: a plain executor or the unfused arm ran")
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        for n in plain:
+            setattr(fused_ops, n, refuse)
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            for n, f in plain.items():
+                setattr(fused_ops, n, f)
+        counts = {k: ops.launch_counts()[k] for k in GCN_KERNELS}
+        for k, v in counts.items():
+            launches14[k] += v
+        return out, counts
+
+    # ---- 14a. the two kernels at the band's shapes, f32 ----
+    band_records = {}
+    f32 = torch.float32
+    cases14 = [
+        (*gemm_case(" (band forward, CUDA cores)", e_band, f32),
+         dict(path=CORE_KERNEL)),
+        (*gemm_case(" (band dB, transpose, CUDA cores)", e_band_t, f32),
+         dict(path=CORE_KERNEL)),
+        wf1_hybrid_case(" (band wf1, forward)", e_band, f32),
+        wf1_hybrid_case(" (band wf1, dB)", e_band_t, f32),
+        full_hybrid_case(f"spmm_ell (band Aᵀ hybrid, dWv, {width} columns)",
+                         band.transpose(), width, f32)]
+    for case in cases14:
+        rec = check_case(*case, dtype=f32, tag="14a")
+        rec["queued_ms"] = queued_ms(case[1])
+        band_records[case[0]] = rec
+        print(f"[14a] {case[0]}: queued behind a sleep {rec['queued_ms']:.4f}"
+              f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+              f"library {rec['library_ms']} ms")
+    del cases14
+
+    # ---- 14b. the mixer at full width: cuda arm, plain arm, f64 oracle --
+    import torch.nn.functional as F
+    mix_cfg = dataclasses.replace(band_cfg, dtype="float32")
+    gen14 = torch.Generator(device=dev).manual_seed(14)
+    pm = ssm.band_mix_init(gen14, mix_cfg, f32, dev)
+    xm = torch.randn(BAND_BATCH, BAND_SEQ, width, device=dev, generator=gen14)
+    wm = torch.randn(BAND_BATCH, BAND_SEQ, width, device=dev, generator=gen14)
+    grad_names = ("x", "wv", "wz", "w_down")
+
+    def mix_grads(backend):
+        """The mixer's output and the gradients of ``(out · wm).sum()``
+        in x, wv, wz, w_down."""
+        leaves = {k: v.clone().requires_grad_() for k, v in pm.items()}
+        xx = xm.clone().requires_grad_()
+        out = ssm.band_mix_apply(leaves, mix_cfg, xx, band, backend=backend)
+        (out * wm).sum().backward()
+        return [out.detach(), xx.grad] + [leaves[k].grad
+                                          for k in grad_names[1:]]
+
+    got, counts = counted14(lambda: mix_grads("cuda"))
+    want = mix_grads("torch")
+    leaves = {k: v.double().requires_grad_() for k, v in pm.items()}
+    x64 = xm.double().requires_grad_()
+    a64 = torch.from_numpy(band.to_dense()).to(dev, torch.float64)
+    out64 = ((a64 @ (x64 @ leaves["wv"])) * F.silu(x64 @ leaves["wz"])
+             ) @ leaves["w_down"]
+    (out64 * wm.double()).sum().backward()
+    oracle = [out64.detach(), x64.grad] + [leaves[k].grad
+                                           for k in grad_names[1:]]
+    del out64, x64, leaves, a64
+    names = ("out",) + tuple(f"d{k}" for k in grad_names)
+    err_t = {n: rel_err(g, w)[1] for n, g, w in zip(names, got, want)}
+    err_o = {n: rel_err(g, w)[1] for n, g, w in zip(names, got, oracle)}
+    err_p = {n: rel_err(g, w)[1] for n, g, w in zip(names, want, oracle)}
+    print(f"[14b mixer] B {BAND_BATCH} S {BAND_SEQ} d {width} inner {inner} "
+          f"f32: cuda vs torch rel {', '.join(f'{k} {v:.2e}' for k, v in err_t.items())}")
+    print(f"[14b mixer] vs the f64 dense oracle: cuda "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in err_o.items())}; torch "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in err_p.items())}; "
+          f"launches of the cuda forward + backward {counts}")
+    if max(err_t.values()) > TOL["float32"]:
+        fail(f"phase 14b: the cuda arm disagrees with the plain arm {err_t}")
+    if max(err_o.values()) > MAIN_TOL or max(err_p.values()) > MAIN_TOL:
+        fail(f"phase 14b: the mixer disagrees with the f64 oracle "
+             f"{err_o} / {err_p}")
+    if counts != {**dict.fromkeys(GCN_KERNELS, 0),
+                  "tile_fused_gemm_spmm_wf0": 2 * BAND_BATCH,
+                  "spmm_ell": 3 * BAND_BATCH}:
+        fail(f"phase 14b: launches {counts}")
+    del got, want, oracle
+    mix_ms = {}
+    for backend in ("cuda", "unfused"):
+        with torch.no_grad():
+            fwd = time_ms(lambda: ssm.band_mix_apply(
+                pm, mix_cfg, xm, band, backend=backend), iters=3)
+        both = time_ms(lambda: mix_grads(backend), iters=3)
+        mix_ms[backend] = (fwd, both)
+    print(f"[14b mixer] per call (CUDA events, 3 calls after 3): "
+          + "; ".join(f"backend={b!r} forward {f:.3f} ms, forward + "
+                      f"backward {fb:.3f} ms" for b, (f, fb) in
+                      mix_ms.items())
+          + f"; Eq 3's pick {api.select_backend(e_band, dev)!r}")
+    del pm, xm, wm
+
+    # ---- 14c. full-width training: 6 AdamW steps ----
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lm = T.Transformer(band_cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in lm.parameters())
+    print(f"[14c train] {band_cfg.name} sparse-band: {n_params / 1e9:.3f} B "
+          f"parameters ({band_cfg.param_count() / 1e9:.3f} B by "
+          f"param_count), {band_cfg.n_layers} layers, d {width}, inner "
+          f"{inner}, d_ff {band_cfg.d_ff}, vocab {band_cfg.vocab_size}, "
+          f"{band_cfg.dtype}, band window {band_cfg.band_window} decay "
+          f"{band_cfg.band_decay}; built in {time.perf_counter() - t0:.1f} s")
+    gen_tok = torch.Generator(device=dev).manual_seed(140)
+    batch = {k: torch.randint(0, band_cfg.vocab_size, (BAND_BATCH, BAND_SEQ),
+                              device=dev, generator=gen_tok)
+             for k in ("tokens", "labels")}
+    step = steps.make_train_step(lm, OptConfig(**BAND_OPT))
+    state = adamw.init(lm.parameters())
+    # one GeMM-SpMM for the forward and one for dB, three spmm_ell calls
+    # (the forward's and dB's wavefront 1, Aᵀ·Ḋ for dWv), a batch row a
+    # layer (PERF.md §6)
+    expect = {**dict.fromkeys(GCN_KERNELS, 0),
+              "tile_fused_gemm_spmm_wf0": 2 * BAND_BATCH * band_cfg.n_layers,
+              "spmm_ell": 3 * BAND_BATCH * band_cfg.n_layers}
+    losses, lat, per_step, misses = [], [], [], []
+    for i in range(BAND_STEPS):
+        t0 = time.perf_counter()
+        (state, metrics), counts = counted14(lambda: step(state, batch))
+        lat.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(counts)
+        losses.append(float(metrics["loss"]))
+        misses.append(api.schedule_cache_stats()["misses"])
+        print(f"[14c train] step {i + 1}: loss {losses[-1]:.5f} grad_norm "
+              f"{float(metrics['grad_norm']):.4f} lr {metrics['lr']:.3e} "
+              f"wall {lat[-1]:.1f} ms launches {counts}")
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(lat[1:]))
+    print(f"[14c train] {BAND_STEPS} steps of {BAND_BATCH} x {BAND_SEQ} "
+          f"tokens: step p50 {p50:.1f} ms, max {max(lat[1:]):.1f} ms over "
+          f"steps 2-{BAND_STEPS} (host clock around the step + "
+          f"synchronize; step 1 {lat[0]:.1f} ms), "
+          f"{BAND_BATCH * BAND_SEQ / (p50 / 1e3):.0f} tokens/s; peak "
+          f"device memory {peak / 2**30:.2f} GiB; schedule-cache misses "
+          f"after each step {misses}")
+    if not all(np.isfinite(losses)) or not min(losses[2:]) < losses[0]:
+        fail(f"phase 14c: losses {losses}")
+    if len(set(misses)) != 1:
+        fail(f"phase 14c: re-inspected after step 1: {misses}")
+    for i, c in enumerate(per_step):
+        if c != expect:
+            fail(f"phase 14c step {i + 1}: launches {c}, expected {expect}")
+    busy, wall, _ = trace("14c", "sparse-band training step",
+                          lambda: step(state, batch), top=14)
+    print(f"[14c train] traced step: device busy {busy / 1e3:.1f} ms of "
+          f"{wall / 1e3:.1f} ms ({busy / wall:.3f}); the traced and warm-up "
+          f"steps are not counted")
+    fwd = []
+    with torch.inference_mode():
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = lm(batch["tokens"])
+            torch.cuda.synchronize()
+            fwd.append((time.perf_counter() - t0) * 1e3)
+    print(f"[14c train] prefill forward of the batch under inference_mode: "
+          f"{', '.join(f'{v:.1f}' for v in fwd)} ms; logits "
+          f"{tuple(logits.shape)} {logits.dtype}")
+    del lm, state, step, logits, metrics
+    torch.cuda.empty_cache()
+
+    # the 2-layer f32 cut of the same widths: step-1 gradients of every
+    # parameter, impl="cuda" against impl="torch"
+    cut_cfg = dataclasses.replace(band_cfg, n_layers=BAND_CUT_LAYERS,
+                                  dtype="float32")
+    cut = T.Transformer(cut_cfg, device=dev, seed=0)
+    cut_grads = {}
+    for impl in ("cuda", "torch"):
+        for p in cut.parameters():
+            p.grad = None
+
+        def cut_backward():
+            logits = cut(batch["tokens"], impl=impl)
+            steps.cross_entropy(logits, batch["labels"]).backward()
+        if impl == "cuda":
+            _, counts = counted14(cut_backward)
+        else:
+            cut_backward()
+        cut_grads[impl] = {n: p.grad.clone()
+                           for n, p in cut.named_parameters()}
+    errs = {n: rel_err(g, cut_grads["torch"][n])[1]
+            for n, g in cut_grads["cuda"].items()}
+    worst = max(errs, key=errs.get)
+    print(f"[14c cut] {BAND_CUT_LAYERS}-layer f32 cut: step-1 gradients of "
+          f"{len(errs)} parameters, impl='cuda' vs impl='torch': largest "
+          f"rel err {errs[worst]:.2e} ({worst}); launches {counts}")
+    if errs[worst] > TOL["float32"]:
+        fail(f"phase 14c: the cut's gradients disagree ({worst} "
+             f"{errs[worst]:.2e})")
+    del cut, cut_grads, batch
+    torch.cuda.empty_cache()
+
+    print(f"[14] kernel launches in phase 14's counted paths: {launches14}")
+    for k in ("spmm_ell", "tile_fused_gemm_spmm_wf0"):
+        if launches14[k] == 0:
+            fail(f"phase 14: {k} never launched")
+    for k, v in launches14.items():
+        path_launches[k] += v
+    print(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s")
+
     sources = {
         "spmm_ell": ("src/repro_torch/csrc/spmm_ell.cu",
                      "src/repro/kernels/spmm.py:40"),
@@ -2785,6 +3084,12 @@ def main(device: str = "cuda") -> None:
         extra = ({} if name != "spmm_ell" else
                  dict(case=SPMM_RECORD,
                       replaced_chain_ms=rec["replaced_chain_ms"]))
+        band_keys = [k for k in band_records if k.startswith(name)]
+        if band_keys:
+            # phase 14a: the sparse-band mixer's shapes (f32)
+            extra["band"] = {k: {f: band_records[k][f] for f in (
+                "ms", "queued_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err", "path")} for k in band_keys}
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=path_launches[name],

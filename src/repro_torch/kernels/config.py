@@ -36,6 +36,30 @@ def kernel_library(device) -> ctypes.CDLL:
     return _build.library()
 
 
+def plain_arm(x: torch.Tensor, impl: str) -> bool:
+    """Whether an LM kernel wrapper (flash attention, the FFN and MoE
+    kernels) runs its plain version: for a CPU tensor, or ``impl="torch"``.
+    """
+    if impl not in ("cuda", "torch"):
+        raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+    return x.device.type == "cpu" or impl == "torch"
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and an input of
+    a kernel without a backward requires grad: its output, written by the
+    launcher into a fresh tensor, would leave the autograd graph and the
+    inputs' gradients would be missing without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: the CUDA kernel has no backward (the JAX package's "
+            f"Pallas kernel has none either), so under grad mode its output "
+            f"would leave the autograd graph; run it under torch.no_grad() "
+            f"or torch.inference_mode(), or take the differentiable plain "
+            f"version with impl='torch' (dense-attention training on the "
+            f"card: ROADMAP Queue 1 item 2)")
+
+
 #: dtype codes the launchers take (``csrc/common.cuh``)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

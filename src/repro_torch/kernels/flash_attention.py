@@ -46,9 +46,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Query head ``h`` attends with K/V head ``h // (H // Hkv)``.
 
     CPU tensors, or ``impl="torch"``, take the plain PyTorch version; CUDA
-    tensors launch the kernel or raise."""
-    if impl not in ("cuda", "torch"):
-        raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
+    tensors launch the kernel or raise.  The kernel has no backward: under
+    grad mode, for an input that requires grad, the kernel arm raises
+    ``NotImplementedError`` (``config.refuse_grad``)."""
+    plain = config.plain_arm(q, impl)
     if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]
             or k.shape[1] == 0 or q.shape[1] % k.shape[1]):
@@ -56,9 +57,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
                          f"(B, H, Sq, D) and (B, Hkv, Sk, D) with H % Hkv "
                          f"== 0")
-    if q.device.type == "cpu" or impl == "torch":
+    if plain:
         return ref.attention(q, k, v, causal=causal, window=window,
                              sm_scale=sm_scale)
+    config.refuse_grad("flash_attention", q, k, v)
     lib = config.kernel_library(q.device)
     device = config.check_launch({}, dict(q=q, k=k, v=v))
     b, h, sq, d = q.shape

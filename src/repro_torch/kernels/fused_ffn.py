@@ -48,11 +48,12 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
     products, as the TPU kernel does; the plain version keeps H in f32.
 
     CPU tensors, or ``impl="torch"``, take the plain PyTorch version; CUDA
-    tensors launch the kernel or raise."""
-    if impl not in ("cuda", "torch"):
-        raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
-    if x.device.type == "cpu" or impl == "torch":
+    tensors launch the kernel or raise.  The kernel has no backward: under
+    grad mode, for an input that requires grad, the kernel arm raises
+    ``NotImplementedError`` (``config.refuse_grad``)."""
+    if config.plain_arm(x, impl):
         return ref.ffn(x, w1, w2, act=act)
+    config.refuse_grad("fused_ffn", x, w1, w2)
     if x.dim() != 2 or w1.dim() != 2 or w2.dim() != 2:
         raise ValueError(f"fused_ffn: x {tuple(x.shape)}, w1 "
                          f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}")

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from . import ref
+from . import config, ref
 from .fused_ffn import launch_ffn
 
 
@@ -21,11 +21,12 @@ def fused_moe_ffn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor, *,
     the TPU kernel does.
 
     CPU tensors, or ``impl="torch"``, take the plain PyTorch version; CUDA
-    tensors launch the kernel or raise."""
-    if impl not in ("cuda", "torch"):
-        raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
-    if x.device.type == "cpu" or impl == "torch":
+    tensors launch the kernel or raise.  The kernel has no backward: under
+    grad mode, for an input that requires grad, the kernel arm raises
+    ``NotImplementedError`` (``config.refuse_grad``)."""
+    if config.plain_arm(x, impl):
         return ref.moe_ffn(x, w1, w2, act=act)
+    config.refuse_grad("fused_moe_ffn", x, w1, w2)
     if x.dim() != 3 or w1.dim() != 3 or w2.dim() != 3:
         raise ValueError(f"fused_moe_ffn: x {tuple(x.shape)}, w1 "
                          f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}")

@@ -8,7 +8,9 @@ kernels.  Unlike the JAX ``ops`` entries, no wrapper drops to the plain
 version at a shape the kernel's blocks do not divide: on the card it
 launches at any shape or raises.  The three LM wrappers also take
 ``impl="torch"`` (the twin of the reference's ``impl="xla"``) to run the
-plain version on purpose.
+plain version on purpose; their kernels have no backward, so on the card
+they raise ``NotImplementedError`` under grad mode for an input that
+requires grad instead of returning an output cut from the graph.
 """
 from __future__ import annotations
 

@@ -45,11 +45,13 @@ def build(cfg, *, batch: int, prompt_len: int, seed: int, device):
     return model, prompts.to(model.device)
 
 
+@torch.inference_mode()
 def generate(model, prompts: torch.Tensor, gen: int):
     """Greedy decoding: one batched prefill of ``prompts`` fills the cache
     and yields the first token; ``gen - 1`` decode steps follow.  Returns
     ``(tokens (B, gen) int32, Timing)``; on the card each step ends in a
-    synchronize, so the times are the steps' own."""
+    synchronize, so the times are the steps' own.  Runs under
+    ``torch.inference_mode()``."""
     b, prompt_len = prompts.shape
     serve_step = steps.make_serve_step(model)
     on_card = model.device.type == "cuda"

@@ -1,12 +1,59 @@
-"""Step functions: the GCN train step and the LM's prefill / serve steps.
+"""Step functions: the LM's train / prefill / serve steps and the GCN train
+step.
 
-Twins of ``repro.launch.steps.make_gcn_train_step``, ``make_prefill_step``
-and ``make_serve_step`` without ``jit``: PyTorch runs eagerly.  The LM's
-training steps come with the LM training slice (ROADMAP Queue 1).
+Twins of ``repro.launch.steps`` without ``jit``: PyTorch runs eagerly.  The
+LM train step differentiates the model's ``forward`` with autograd and
+updates its parameters in place with ``optim.adamw``; the prefill and
+serve steps run under ``torch.inference_mode()``, so they record no graph
+now that the parameters require grad.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+from ..optim import adamw
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
+    """Mean next-token negative log-likelihood, the softmax in f32 over the
+    vocabulary (the reference's ``log_softmax`` + gather, one fused op)."""
+    return F.cross_entropy(logits.float().flatten(0, -2),
+                           labels.flatten().long())
+
+
+def make_loss_fn(model, *, impl: str = "cuda"):
+    """``loss_fn(batch) -> (loss, {"loss": loss})`` for ``batch =
+    {"tokens": (B, S), "labels": (B, S)}``, at the model's parameters."""
+    def loss_fn(batch):
+        logits = model(batch["tokens"], impl=impl)
+        loss = cross_entropy(logits, batch["labels"])
+        return loss, {"loss": loss}
+    return loss_fn
+
+
+def make_train_step(model, opt_cfg: adamw.OptConfig, *, impl: str = "cuda"):
+    """LM train step: ``step(opt_state, batch) -> (opt_state, metrics)``.
+
+    It zeroes the gradients, runs the loss's backward and one
+    ``adamw.update`` on the model's parameters in place, with the
+    weight-decay set the model states (``model.decay_mask()``).
+    ``metrics`` holds ``loss`` and ``grad_norm`` (0-d tensors; reading them
+    waits for the device) and ``lr`` (a float).  Start from ``adamw.init(model
+    .parameters())``."""
+    loss_fn = make_loss_fn(model, impl=impl)
+    params = list(model.parameters())
+    decay = model.decay_mask()
+
+    def train_step(opt_state, batch):
+        for p in params:
+            p.grad = None
+        loss, _ = loss_fn(batch)
+        loss.backward()
+        opt_state, om = adamw.update(opt_cfg, [p.grad for p in params],
+                                     opt_state, params, decay)
+        return opt_state, {"loss": loss.detach(), **om}
+    return train_step
 
 
 def make_gcn_train_step(model, *, lr: float = 0.3, backend: str = "auto",
@@ -34,7 +81,9 @@ def make_gcn_train_step(model, *, lr: float = 0.3, backend: str = "auto",
 
 
 def make_prefill_step(model):
-    """``prefill_step(tokens (B, S)) -> logits (B, S, V)``."""
+    """``prefill_step(tokens (B, S)) -> logits (B, S, V)``, under
+    ``torch.inference_mode()``."""
+    @torch.inference_mode()
     def prefill_step(tokens):
         return model(tokens)
     return prefill_step
@@ -44,7 +93,8 @@ def make_serve_step(model):
     """``serve_step(tokens, cache, cache_len) -> (next_tok (B,) int32,
     cache)``: one decode step, or the batched prefill when ``tokens`` holds
     more than one position; greedy (first maximum on ties, as
-    ``jnp.argmax``)."""
+    ``jnp.argmax``); under ``torch.inference_mode()``."""
+    @torch.inference_mode()
     def serve_step(tokens, cache, cache_len: int):
         logits, cache = model.decode_step(tokens, cache, cache_len)
         return logits[:, -1].argmax(dim=-1).to(torch.int32), cache

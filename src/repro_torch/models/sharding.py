@@ -24,7 +24,7 @@ share a device: the traffic the partition implies between shards, which
 ``cost_model.shard_comm_model`` prices.
 
 The LM's partitioning rules (``ShardingRules``, ``param_spec``) come with
-the LM's distribution (ROADMAP Queue 1 item 7).
+the LM's distribution (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 

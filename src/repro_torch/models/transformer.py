@@ -1,5 +1,7 @@
-"""Decoder-only LM of the ``attn`` block pattern: self-attention (GQA) and a
-gated FFN per block, pre-norm, as in ``repro.models.transformer``.
+"""Decoder-only LM, pre-norm, as in ``repro.models.transformer``, of two
+block patterns: ``attn`` (self-attention with GQA, then a gated FFN) and
+``sparse-band`` (the banded-decay token mixer of ``models.ssm``, then a
+gated FFN).
 
 The reference stacks its layers on a leading scan axis of one pytree; here
 the blocks are an ``nn.ModuleList`` and the layers run in a Python loop.
@@ -7,6 +9,16 @@ the blocks are an ``nn.ModuleList`` and the layers run in a Python loop.
 can compute the same model.  The KV cache keeps the reference's layout,
 ``(k, v)`` each ``(L, B, Hkv, C, dh)``, and ``decode_step`` writes into it
 in place.
+
+The parameters are trainable and ``forward`` follows the caller's grad
+mode: ``launch.steps.make_train_step`` trains the model with AdamW, and the
+serving steps run under ``torch.inference_mode()``.  On the card only the
+``sparse-band`` pattern trains: its mixer differentiates through
+``tile_fused_matmul``, while the flash kernel has no backward and its
+wrapper raises under grad (ROADMAP Queue 1).  ``cfg.remat`` has no effect
+here: no layer is recomputed in the backward (stablelm-1.6b's
+``sparse-band`` step at 4 × 2048 tokens fits the H100's 80 GB with its
+~19 GB of parameters, gradients and AdamW moments).
 
 Other block patterns, the encoder, MoE and MLA raise
 ``NotImplementedError``: later slices bring them (ROADMAP Queue 1).
@@ -18,12 +30,17 @@ import torch
 from torch import nn
 
 from . import layers as L
+from . import ssm as S
+
+#: the block patterns the port runs
+BLOCK_PATTERNS = ("attn", "sparse-band")
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not run."""
+    """Raise ``NotImplementedError`` for what the port does not run."""
     missing = [what for what, off in [
-        (f"block pattern {cfg.block_pattern!r}", cfg.block_pattern == "attn"),
+        (f"block pattern {cfg.block_pattern!r}",
+         cfg.block_pattern in BLOCK_PATTERNS),
         ("an encoder", not cfg.encoder_layers),
         ("MoE experts", not cfg.n_experts),
         ("MLA", not cfg.mla),
@@ -36,8 +53,11 @@ def check_supported(cfg) -> None:
 
 
 def _params(d: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
-                             for k, v in d.items()})
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in d.items()})
+
+
+def _gain(cfg, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(cfg.d_model, dtype=dtype, device=device))
 
 
 class Block(nn.Module):
@@ -45,11 +65,8 @@ class Block(nn.Module):
 
     def __init__(self, cfg, gen, dtype, device):
         super().__init__()
-        ones = dict(dtype=dtype, device=device)
-        self.ln1 = nn.Parameter(torch.ones(cfg.d_model, **ones),
-                                requires_grad=False)
-        self.ln2 = nn.Parameter(torch.ones(cfg.d_model, **ones),
-                                requires_grad=False)
+        self.ln1 = _gain(cfg, dtype, device)
+        self.ln2 = _gain(cfg, dtype, device)
         self.attn = _params(L.gqa_init(gen, cfg, dtype, device))
         self.ffn = _params(L.ffn_init(gen, cfg, dtype, device))
 
@@ -64,6 +81,24 @@ class Block(nn.Module):
         return x + L.ffn_apply(self.ffn, cfg, h), new_cache
 
 
+class SparseBandBlock(nn.Module):
+    """Pre-norm block: ``x + band_mix(norm(x))``, then ``x + ffn(norm(x))``.
+    No decode cache: the band needs the whole (pre-)fill window."""
+
+    def __init__(self, cfg, gen, dtype, device):
+        super().__init__()
+        self.ln1 = _gain(cfg, dtype, device)
+        self.ln2 = _gain(cfg, dtype, device)
+        self.mix = _params(S.band_mix_init(gen, cfg, dtype, device))
+        self.ffn = _params(L.ffn_init(gen, cfg, dtype, device))
+
+    def forward(self, cfg, x, a_band, impl="cuda"):
+        h = L.rms_norm(self.ln1, x, cfg.norm_eps)
+        x = x + S.band_mix_apply(self.mix, cfg, h, a_band, backend=impl)
+        h = L.rms_norm(self.ln2, x, cfg.norm_eps)
+        return x + L.ffn_apply(self.ffn, cfg, h)
+
+
 class Transformer(nn.Module):
     """The LM.  ``device=None`` means ``"cuda"``, and building the model
     raises when there is no card: it never drops to the CPU on its own
@@ -71,7 +106,9 @@ class Transformer(nn.Module):
     device from a ``torch.Generator`` seeded with ``seed`` (the reference's
     distributions, not its numbers); ``params_from_jax`` loads the
     reference's weights instead.  ``impl="torch"`` runs prefill attention
-    through the plain version of the flash kernel, on any device."""
+    through the plain version of the flash kernel, and the band mixer
+    through the plain fused executor (``backend="torch"``), on any
+    device."""
 
     def __init__(self, cfg, *, device=None, seed: int = 0):
         super().__init__()
@@ -85,15 +122,29 @@ class Transformer(nn.Module):
         self.dtype = getattr(torch, cfg.dtype)
         gen = torch.Generator(device=device).manual_seed(seed)
         self.tok = _params(L.embed_init(gen, cfg, self.dtype, device))
-        self.ln_f = nn.Parameter(
-            torch.ones(cfg.d_model, dtype=self.dtype, device=device),
-            requires_grad=False)
-        self.blocks = nn.ModuleList(Block(cfg, gen, self.dtype, device)
+        self.ln_f = _gain(cfg, self.dtype, device)
+        block = SparseBandBlock if self.sparse_band else Block
+        self.blocks = nn.ModuleList(block(cfg, gen, self.dtype, device)
                                     for _ in range(cfg.n_layers))
+
+    @property
+    def sparse_band(self) -> bool:
+        return self.cfg.block_pattern == "sparse-band"
 
     @property
     def device(self) -> torch.device:
         return self.ln_f.device
+
+    def decay_mask(self) -> list:
+        """The weight-decay set, one bool a parameter in ``parameters()``
+        order: the reference's rule, ``ndim >= 2``, on the rank each
+        parameter has in its stacked tree.  A block's parameter is stacked
+        on the layer axis there, so every one is decayed, the norm gains
+        ``ln1`` / ``ln2`` too; of the rest ``tok`` is and ``ln_f`` is not,
+        although the reference's comment says "norms/bias exempt" (ROADMAP
+        Queue 3)."""
+        stacked = {id(p) for p in self.blocks.parameters()}
+        return [p.dim() + (id(p) in stacked) >= 2 for p in self.parameters()]
 
     @torch.no_grad()
     def params_from_jax(self, params) -> None:
@@ -119,31 +170,47 @@ class Transformer(nn.Module):
         load_dict(self.tok, params["tok"])
         load(self.ln_f, params["ln_f"])
         layers = params["layers"]
-        if set(layers) != {"ln1", "ln2", "attn", "ffn"}:
-            raise ValueError(f"layer keys {sorted(layers)}")
+        mixer = "mix" if self.sparse_band else "attn"
+        if set(layers) != {"ln1", "ln2", mixer, "ffn"}:
+            raise ValueError(f"layer keys {sorted(layers)}, expected "
+                             f"{sorted({'ln1', 'ln2', mixer, 'ffn'})}")
         n = np.shape(layers["ln1"])[0]
         if n != len(self.blocks):
             raise ValueError(f"{n} layers for {len(self.blocks)} blocks")
         for i, blk in enumerate(self.blocks):
             load(blk.ln1, layers["ln1"][i])
             load(blk.ln2, layers["ln2"][i])
-            load_dict(blk.attn, layers["attn"], i)
+            load_dict(getattr(blk, mixer), layers[mixer], i)
             load_dict(blk.ffn, layers["ffn"], i)
 
-    @torch.no_grad()
     def forward(self, tokens: torch.Tensor, *, impl: str = "cuda"):
-        """tokens ``(B, S)`` → logits ``(B, S, V)``."""
+        """tokens ``(B, S)`` → logits ``(B, S, V)``; records a graph when
+        grad mode is on (the train step), none under ``inference_mode``."""
+        cfg = self.cfg
         x = self.tok["embed"][tokens]
-        pos = torch.arange(x.shape[1], device=x.device)
-        for blk in self.blocks:
-            x, _ = blk(self.cfg, x, pos, impl=impl)
+        if self.sparse_band:
+            a_band = S.decay_band_csr(x.shape[1], cfg.band_window,
+                                      cfg.band_decay)
+            for blk in self.blocks:
+                x = blk(cfg, x, a_band, impl=impl)
+        else:
+            pos = torch.arange(x.shape[1], device=x.device)
+            for blk in self.blocks:
+                x, _ = blk(cfg, x, pos, impl=impl)
         x = L.rms_norm(self.ln_f, x, self.cfg.norm_eps)
         return x @ self.tok["lm_head"]
+
+    def _check_decode(self) -> None:
+        if self.sparse_band:
+            raise NotImplementedError(
+                "sparse-band blocks have no decode cache; serve via "
+                "forward()")
 
     def init_cache(self, batch_size: int, max_len: int):
         """``(k, v)``, each ``(L, B, Hkv, C, dh)`` zeros; ``C`` is
         ``max_len``, or the window for a sliding-window model."""
         cfg = self.cfg
+        self._check_decode()
         c = min(max_len, cfg.window) if cfg.window > 0 else max_len
         shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, c, cfg.head_dim)
         return (torch.zeros(shape, dtype=self.dtype, device=self.device),
@@ -155,6 +222,7 @@ class Transformer(nn.Module):
         """One decode step (S == 1), or a batched prefill that fills an
         empty cache (S > 1, ``cache_len == 0``).  Writes the cache in place;
         returns ``(logits (B, S, V), cache)``."""
+        self._check_decode()
         x = self.tok["embed"][tokens]
         s = x.shape[1]
         pos = cache_len + torch.arange(s, device=x.device)

@@ -1,0 +1,87 @@
+"""AdamW with global-norm clipping and a warmup-cosine schedule.
+
+The twin of ``repro.optim.adamw``, on lists of tensors.  ``update`` works in
+place, PyTorch's idiom, where the reference returns a new tree: it computes
+in f32 and casts back to each parameter's dtype; ``mu`` and ``nu`` are f32.
+The step count and the learning rate stay on the host, so a step needs no
+synchronize.
+
+**The weight-decay set** is the model's to state: ``update`` takes one
+bool a parameter.  The reference decays a leaf of rank 2 or more of its
+parameter tree, in which every per-layer weight is stacked on a leading
+layer axis, so the layers' norm gains are decayed and ``ln_f`` is not;
+``models.transformer.Transformer.decay_mask`` gives that set.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+
+class OptState(NamedTuple):
+    step: int      # updates made so far
+    mu: list       # f32 first moments, one a parameter
+    nu: list       # f32 second moments
+
+
+def init(params) -> OptState:
+    """Zero moments (f32, on each parameter's device) and step 0."""
+    params = list(params)
+    return OptState(step=0, mu=[torch.zeros_like(p, dtype=torch.float32)
+                                for p in params],
+                    nu=[torch.zeros_like(p, dtype=torch.float32)
+                        for p in params])
+
+
+def schedule(cfg: OptConfig, step) -> float:
+    """Linear warmup to ``cfg.lr``, then a cosine to a tenth of it."""
+    warm = min(step / max(cfg.warmup_steps, 1), 1.0)
+    prog = min(max((step - cfg.warmup_steps)
+                   / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0), 1.0)
+    cos = 0.5 * (1.0 + math.cos(math.pi * prog))
+    return cfg.lr * warm * (0.1 + 0.9 * cos)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """``sqrt(Σ x²)`` over all tensors, in f32 (a 0-d tensor)."""
+    return torch.sqrt(sum(x.float().square().sum() for x in tensors))
+
+
+@torch.no_grad()
+def update(cfg: OptConfig, grads, state: OptState, params, decay):
+    """One AdamW step on ``params`` in place; returns ``(state, metrics)``
+    with ``metrics = {"grad_norm": pre-clip norm (0-d tensor), "lr": float}``.
+    ``decay`` holds one bool a parameter: whether weight decay applies."""
+    params, grads = list(params), list(grads)
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    step = state.step + 1
+    lr = schedule(cfg, step)
+    b1c = 1.0 - cfg.b1 ** step
+    b2c = 1.0 - cfg.b2 ** step
+    for p, g, m, v, dk in zip(params, grads, state.mu, state.nu, decay):
+        g = g.float() * scale
+        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+        v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+        step_ = (m / b1c) / ((v / b2c).sqrt_() + cfg.eps)
+        p32 = p.float()
+        if dk:
+            step_.add_(p32, alpha=cfg.weight_decay)
+        p.copy_(p32.sub_(step_, alpha=lr))
+    return OptState(step, state.mu, state.nu), {"grad_norm": gnorm,
+                                                "lr": lr}

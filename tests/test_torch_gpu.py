@@ -1,7 +1,8 @@
 """Card-only checks of the port: each CUDA kernel against its plain PyTorch
 version, the ``cuda`` arm against the ``torch`` arm (forward, gradients
-and a GCN training step, the serving tier's requests), and the LM served
-on the card.
+and a GCN training step, the serving tier's requests), the LM served on
+the card, and LM training (the sparse-band mixer and train step on the
+kernel arm against the plain arm; a dense train step refused).
 
 Every test here carries the ``gpu`` marker and skips, with its reason,
 where there is no CUDA device of compute capability 9.0+ (the decision is
@@ -971,8 +972,9 @@ def test_reduced_lm_serves_on_the_card(card):
     assert ops.launch_counts()["flash_attention"] == cfg.n_layers
     model = T.Transformer(cfg, seed=1)
     toks = torch.randint(0, cfg.vocab_size, (2, 40), device=card)
-    got = model(toks)
-    want = model(toks, impl="torch")
+    with torch.inference_mode():
+        got = model(toks)
+        want = model(toks, impl="torch")
     assert _rel_err(got, want) <= 2e-2
 
 
@@ -1112,3 +1114,98 @@ def test_sharded_gcn_serves_and_trains_on_the_card(card):
     model.loss(x, y).backward()
     for g, w in zip(got, model.weights, strict=True):
         assert _rel_err(g, w.grad) <= TOL[torch.float32]
+
+
+# ---------------------------------------------------- LM training ----
+def _band_cfg(**kw):
+    base = get_config("stablelm-1.6b", reduced=True)
+    return dataclasses.replace(base, **{
+        "block_pattern": "sparse-band", "band_window": 8, "band_decay": 0.9,
+        "ssm_head_dim": 16, "dtype": "float32", **kw})
+
+
+@pytest.mark.parametrize("b,s,d", [(2, 32, 64), (2, 2048, 2048)])
+def test_band_mix_kernel_arm_matches_plain(card, b, s, d, monkeypatch):
+    """The mixer on ``backend="cuda"`` (GeMM-SpMM and ``spmm_ell``
+    kernels, forward and backward) against ``backend="torch"``: output
+    and the gradients of ``x``, ``wv``, ``wz``, ``w_down``; small, and at
+    stablelm-1.6b's width (d = inner = 2048, window 32)."""
+    from repro_torch.models import ssm as S
+    cfg = (_band_cfg() if d == 64 else dataclasses.replace(
+        get_config("stablelm-1.6b"), block_pattern="sparse-band",
+        dtype="float32"))
+    gen_ = torch.Generator(device=card).manual_seed(21)
+    p = S.band_mix_init(gen_, cfg, torch.float32, card)
+    x = torch.randn(b, s, d, device=card, generator=gen_)
+    wgt = torch.randn(b, s, d, device=card, generator=gen_)
+    a = S.decay_band_csr(s, cfg.band_window, cfg.band_decay)
+    res = {}
+    for backend in ("torch", "cuda"):
+        leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xx = x.clone().requires_grad_()
+        if backend == "cuda":
+            _no_plain_executor(monkeypatch)
+            ops.reset_launch_counts()
+        out = S.band_mix_apply(leaves, cfg, xx, a, backend=backend)
+        (out * wgt).sum().backward()
+        res[backend] = [out.detach(), xx.grad] + [leaves[k].grad
+                                         for k in ("wv", "wz", "w_down")]
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    # per batch row: forward and dB one GeMM-SpMM each; forward wf1, dB
+    # wf1 and Aᵀ·Ḋ one spmm_ell each
+    assert counts["tile_fused_gemm_spmm_wf0"] == 2 * b
+    assert counts["spmm_ell"] == 3 * b
+    for got, want in zip(res["cuda"], res["torch"], strict=True):
+        assert _rel_err(got, want) <= TOL[torch.float32]
+
+
+def test_sparse_band_train_step_on_the_card(card, monkeypatch):
+    """Two steps of the 2-layer sparse-band model on ``impl="cuda"``
+    against ``impl="torch"`` from the same weights: the losses, and the
+    step-1 gradients of every parameter."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import OptConfig, adamw
+    cfg = _band_cfg()
+    gen_ = torch.Generator(device=card).manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab_size, (2, 64), device=card,
+                              generator=gen_) for k in ("tokens", "labels")}
+    ocfg = OptConfig(lr=1e-2, warmup_steps=1, total_steps=20)
+    runs = {}
+    for impl in ("torch", "cuda"):
+        model = T.Transformer(cfg, seed=3)
+        step = steps.make_train_step(model, ocfg, impl=impl)
+        state = adamw.init(model.parameters())
+        if impl == "cuda":
+            _no_plain_executor(monkeypatch)
+            ops.reset_launch_counts()
+        state, m1 = step(state, batch)
+        grads = [p.grad.clone() for p in model.parameters()]
+        state, m2 = step(state, batch)
+        runs[impl] = (float(m1["loss"]), float(m2["loss"]), grads)
+    counts = ops.launch_counts()
+    assert counts["tile_fused_gemm_spmm_wf0"] == 2 * 2 * 2 * cfg.n_layers
+    assert counts["spmm_ell"] == 2 * 2 * 3 * cfg.n_layers
+    (l1, l2, g), (w1, w2, wg) = runs["cuda"], runs["torch"]
+    assert abs(l1 - w1) <= 1e-5 * abs(w1) and abs(l2 - w2) <= 1e-4 * abs(w2)
+    assert l2 < l1
+    for got, want in zip(g, wg, strict=True):
+        assert _rel_err(got, want) <= TOL[torch.float32]
+
+
+def test_dense_attention_training_refuses_the_card(card):
+    """The flash kernel has no backward: a dense ``attn`` train step on
+    the card raises instead of leaving the attention weights without
+    gradients; inference on the same model still runs."""
+    from repro_torch.launch import steps
+    from repro_torch.optim import OptConfig, adamw
+    cfg = get_config("qwen2.5-3b", reduced=True)
+    model = T.Transformer(cfg, seed=0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 16), device=card)
+    step = steps.make_train_step(model, OptConfig())
+    with pytest.raises(NotImplementedError, match="no backward"):
+        step(adamw.init(model.parameters()),
+             {"tokens": toks, "labels": toks})
+    logits = steps.make_prefill_step(model)(toks)
+    assert logits.shape == (2, 16, cfg.vocab_size)
+    assert logits.grad_fn is None and bool(torch.isfinite(logits).all())

@@ -56,7 +56,7 @@ def _tokens(cfg, shape, seed=0):
 
 
 def _close(got: torch.Tensor, want, tol=TOL):
-    np.testing.assert_allclose(got.float().numpy(),
+    np.testing.assert_allclose(got.detach().float().numpy(),
                                np.asarray(want, np.float32), rtol=tol,
                                atol=tol)
 
@@ -137,7 +137,8 @@ def test_forward_bf16_matches_jax():
                       np.float32)
     got = model(torch.from_numpy(toks))
     assert got.dtype == torch.bfloat16
-    err = np.abs(got.float().numpy() - want).max() / np.abs(want).max()
+    err = np.abs(got.detach().float().numpy() - want).max() / np.abs(
+        want).max()
     assert err <= 3e-2, err
 
 
@@ -171,9 +172,9 @@ def test_prefill_logits_equal_forward():
     _, model = _models(cfg)
     toks = torch.from_numpy(_tokens(cfg, (2, 10)))
     logits, _ = model.decode_step(toks, model.init_cache(2, 16), 0)
-    _close(logits, model(toks).numpy(), 1e-5)
+    _close(logits, model(toks).detach().numpy(), 1e-5)
     prefill = steps.make_prefill_step(model)
-    _close(prefill(toks), model(toks).numpy(), 0)
+    _close(prefill(toks), model(toks).detach().numpy(), 0)
 
 
 def test_serve_main_matches_jax(monkeypatch, capsys):
