@@ -16,9 +16,10 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                functions, printed for every function whose name holds
                ``fused_ffn``, ``flash_attention`` or ``gemm_spmm``; fails
                when the bf16 FFN kernel, the bf16 flash ``wgmma`` kernel or
-               any instance of the GeMM-SpMM ``wgmma`` kernel has no
-               ``HGMMA``.  The hybrid SpMM's functions print their
-               registers and spills, and the build fails if any of them
+               any instance of the GeMM-SpMM ``wgmma`` kernel or of its
+               wide twin has no ``HGMMA``.  The hybrid SpMM's and the
+               wide GeMM-SpMM's functions print their registers and
+               spills, and the build fails if any hybrid SpMM function
                holds a float atomic (``RED`` / ``ATOM*`` on F32, F16, BF16).
   3. kernels — each kernel against its plain PyTorch version at every
                shape the main path gives it (GCN layers 1 and 2, the
@@ -152,11 +153,14 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                ogbn-mag at 1/8 of its node and edge counts (8 relations,
                935,520 stacked rows, b_col 1024): one stacked inspection
                and none in the forwards, the Eq-3 pick, ``backend="auto"``
-               and ``"cuda"`` (the
-               CUDA-core GeMM-SpMM kernel) against the per-relation loop
+               and ``"cuda"`` (the wide ``wgmma`` GeMM-SpMM kernel, which
+               the rule must pick) against the per-relation loop
                and ``backend="torch"``, weight gradients, p50 of the stack
-               against ``hetero_loop_matmul``, peak device memory, the
-               kernels at the stack's shapes; then a SpMM-SpMM stack of 16
+               (``auto`` and ``"cuda"``) against ``hetero_loop_matmul``,
+               peak device memory, the
+               kernels at the stack's shapes (the GeMM-SpMM beside the
+               CUDA-core kernel's time there, cited); then a SpMM-SpMM
+               stack of 16
                power-law relations of 8,192 nodes on ``backend="cuda"``
                against the loop on ``backend="torch"``, and the SpMM-SpMM
                kernel at the stack's own schedule and stacked op 1 against
@@ -185,7 +189,7 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                reference's power-law stream at 32,768 nodes, 128 → 128,
                4 a batch (the unfused arm, ``spmm_ell``), then the same
                front end on the banded windows (stacked 512 / 512, the
-               CUDA-core GeMM-SpMM, features made on the card); each
+               wide GeMM-SpMM, features made on the card); each
                flushed output against a per-request ``backend="torch"``
                run (rel ≤ 1e-4).
  13. sharded tile fusion over meshes (``models.sharding.Mesh``) whose
@@ -218,13 +222,16 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                ``ssm._BAND_SPEC``, its forward and transpose entries (Eq
                3's pick printed: ``unfused``; the mixer forces ``cuda``):
                GeMM-SpMM at b_col = c_col = 2048, f32, on both entries
-               (must run the CUDA-core kernel), ``spmm_ell`` as both
-               entries' wavefront 1 and as the ``Aᵀ`` hybrid product at
-               2048 columns, each against its plain version (≤ 1e-4),
-               timed (CUDA events, and queued behind a sleep) beside its
-               bound and the ``torch.matmul`` + ``torch.sparse.mm``
-               chain.  14b: ``band_mix_apply`` with B 4, S 2048, d 2048,
-               f32: ``backend="cuda"`` against ``"torch"`` (≤ 1e-4) and
+               (must run the wide ``wgmma`` kernel; printed beside the
+               CUDA-core kernel's earlier time, cited), the CUDA-core
+               GeMM-SpMM where its rule still sends a shape (t 96, b_col
+               1024), ``spmm_ell`` as both entries' wavefront 1 and as the
+               ``Aᵀ`` hybrid product at 2048 columns, each against its
+               plain version (≤ 1e-4), timed (CUDA events, and queued
+               behind a sleep) beside its bound, share and the
+               ``torch.matmul`` + ``torch.sparse.mm`` chain.  14b:
+               ``band_mix_apply`` with B 4, S 2048, d 2048, f32:
+               ``backend="cuda"`` against ``"torch"`` (≤ 1e-4) and
                both against an f64 dense oracle (≤ 2e-3), output and the
                gradients in x, wv, wz, w_down (the band is
                lower-triangular, so ``Aᵀ ≠ A``); per-call time of the
@@ -236,7 +243,8 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                losses[0]``, no schedule-cache miss after step 1, each
                step 192 GeMM-SpMM and 288 ``spmm_ell`` launches and no
                plain executor or unfused arm (they raise meanwhile); step
-               p50 / max, peak device memory, one traced step, the
+               p50 / max, peak device memory, one traced step (busy share,
+               the GeMM-SpMM's share of the busy time), the
                ``inference_mode`` forward of the batch; then a 2-layer f32
                cut of the same widths: step-1 gradients of every
                parameter with ``impl="cuda"`` against ``impl="torch"``
@@ -385,8 +393,15 @@ FLASH_WGMMA = "flash_attention_wgmma_kernel"
 # the phase-3 case whose numbers stand for spmm_ell in the JSON record: the
 # power-law GCN's layer-1 hybrid product, body and tails (f32)
 SPMM_RECORD = "spmm_ell (power-law hybrid, 128 columns)"
-# the GeMM-SpMM kernel on wgmma (GCN layers 1 and 2 must run it)
+# the GeMM-SpMM kernel on wgmma (GCN layers 1 and 2 must run it), and its
+# twin for B rows over 512 bytes (the sparse-band mixer, the hetero stack)
 GEMM_WGMMA = "tile_fused_gemm_spmm_wf0_wgmma_kernel"
+GEMM_WIDE = "tile_fused_gemm_spmm_wf0_wgmma_wide_kernel"
+# the CUDA-core GeMM-SpMM's times at the shapes the wide kernel took over
+# (PERF.md section 6: PR 21's final run at the band, PR 18's at the
+# ogbn-mag-shaped stack; NVIDIA H100 80GB HBM3, 700 W), cited, not re-run
+CORE_MS_BEFORE = {"band forward": 9.3003, "band dB": 9.2288,
+                  "mag-shaped stack": 70.78}
 
 
 def fail(msg: str) -> None:
@@ -550,7 +565,7 @@ def main(device: str = "cuda") -> None:
             print(f"[2 build] {line.strip()}")
     sass, float_atomics = sass_scan(build.path)
     for fn, (regs, st, ld) in ptxas_report(build.log).items():
-        if "spmm_hybrid" in fn:
+        if "spmm_hybrid" in fn or GEMM_WIDE in fn:
             print(f"[2 build] ptxas {fn}: {regs} registers, spill stores "
                   f"{st} bytes, spill loads {ld} bytes")
     spmm_atomics = {f: n for f, n in float_atomics.items()
@@ -568,7 +583,8 @@ def main(device: str = "cuda") -> None:
                   f"({'/'.join(TC_OPCODES)})")
     print(f"[2 build] tensor-core instructions per kernel: {tensor_core_ops}")
     for label, part in (("FFN", "fused_ffn_wgmma"), ("flash", FLASH_WGMMA),
-                        ("GeMM-SpMM", GEMM_WGMMA)):
+                        ("GeMM-SpMM", GEMM_WGMMA),
+                        ("wide GeMM-SpMM", GEMM_WIDE)):
         counts = [n for f, n in sass.items() if part in f]
         if not counts or min(counts) == 0:
             fail(f"the {label} wgmma kernel holds no HGMMA instruction: "
@@ -682,23 +698,29 @@ def main(device: str = "cuda") -> None:
     def gemm_case(label, entry, dtype):
         ds = entry.dsched
         st = fused_ops.schedule_tensors(ds, dev, dtype)
-        b_col, c_col = entry.b_col, entry.c_col
-        b = randn(ds.n_tiles0 * ds.t_pad, b_col).to(dtype)
+        return gemm_tensor_case(label, st.cols0, st.vals0, ds.t_pad,
+                                entry.b_col, entry.c_col, dtype, ds.n_i,
+                                real_rows(ds.j_rows0, ds.n_j))
+
+    def gemm_tensor_case(label, cols0, vals0, t, b_col, c_col, dtype,
+                         n_i, n_rows0):
+        """GeMM-SpMM on the tile-local fused rows ``(cols0, vals0)`` of
+        ``n_i`` real rows of B (``n_rows0`` real fused rows), with B and C
+        drawn here."""
+        b = randn(cols0.shape[0] * t, b_col).to(dtype)
         c = randn(b_col, c_col, scale=b_col ** -0.5).to(dtype)
-        nnz0 = int((st.vals0 != 0).sum())
-        n_ops = 2.0 * ds.n_i * b_col * c_col + 2.0 * nnz0 * c_col
-        moved = (nz_bytes(st.cols0, st.vals0) + row_bytes(ds.n_i, b)
-                 + row_bytes(b_col, c) + row_bytes(ds.n_i, c)       # d1
-                 + row_bytes(real_rows(ds.j_rows0, ds.n_j), c))    # rows0
+        nnz0 = int((vals0 != 0).sum())
+        n_ops = 2.0 * n_i * b_col * c_col + 2.0 * nnz0 * c_col
+        moved = (nz_bytes(cols0, vals0) + row_bytes(n_i, b)
+                 + row_bytes(b_col, c) + row_bytes(n_i, c)       # d1
+                 + row_bytes(n_rows0, c))                         # rows0
         lib = None
         if dtype == torch.float32:
-            csr0 = ref.fused_rows_csr(st.cols0, st.vals0, ds.t_pad)
+            csr0 = ref.fused_rows_csr(cols0, vals0, t)
             lib = lambda: ref.gemm_spmm_wf0_library(csr0, b, c)  # noqa: E731
         return ("tile_fused_gemm_spmm_wf0" + label,
-                lambda: ops.tile_fused_gemm_spmm_wf0(st.cols0, st.vals0, b, c,
-                                                     t=ds.t_pad),
-                lambda: ref.tile_fused_gemm_spmm_wf0(st.cols0, st.vals0, b, c,
-                                                     t=ds.t_pad),
+                lambda: ops.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, t=t),
+                lambda: ref.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, t=t),
                 moved, n_ops, lib)
 
     def sparse_mm(cols, vals, x):
@@ -1716,7 +1738,8 @@ def main(device: str = "cuda") -> None:
         call (of ``warm``, else of ``fn``: a session can drop its first
         ctypes launch): device time by kernel (the ``top`` largest) and the
         device's busy share of the call's wall time.  Returns ``(busy us,
-        wall us, {op or kernel: calls})`` of the profiled call."""
+        wall us, {op or kernel: calls}, {kernel: device us})`` of the
+        profiled call."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile, schedule
         with profile(activities=[ProfilerActivity.CPU,
@@ -1748,7 +1771,9 @@ def main(device: str = "cuda") -> None:
                   if e.key.startswith(("Memcpy", "Memset"))}
         print(f"[{tag} trace] {label}: memcpy / memset rows "
               f"{copies or 'none'}")
-        return busy, wall_us, {e.key: e.count for e in prof.key_averages()}
+        return (busy, wall_us,
+                {e.key: e.count for e in prof.key_averages()},
+                {e.key: e.self_device_time_total for e in events})
 
     def grads(a, b_or_a1, c, backend, spec):
         """Gradients of ``(w·D).sum()`` w.r.t. the dense operands, and the
@@ -2069,10 +2094,13 @@ def main(device: str = "cuda") -> None:
               lambda: layer.combine(hetero.hetero_loop_matmul(
                   relations, spec=layer.spec)))
         stacked_ms = p50_ms(lambda: layer(feats))
+        layer(feats, backend="cuda")
+        stacked_cuda_ms = p50_ms(lambda: layer(feats, backend="cuda"))
         layer.combine(hetero.hetero_loop_matmul(relations, spec=layer.spec))
         loop_ms = p50_ms(lambda: layer.combine(hetero.hetero_loop_matmul(
             relations, spec=layer.spec)))
-    print(f"[11c hetero] stacked layer p50 {stacked_ms:.3f} ms vs "
+    print(f"[11c hetero] stacked layer p50 {stacked_ms:.3f} ms (auto), "
+          f"{stacked_cuda_ms:.3f} ms (backend='cuda': the wide GeMM-SpMM) vs "
           f"hetero_loop_matmul (8 dispatches) p50 {loop_ms:.3f} ms (CUDA "
           f"events, 8 calls each, after one warm-up); "
           f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -2080,13 +2108,24 @@ def main(device: str = "cuda") -> None:
     # the stack's shapes of two kernels, against their plain versions (not
     # counted; f32, the layer's dtype)
     f32 = torch.float32
+    if gemm_path(entry)[1] != GEMM_WIDE:
+        fail(f"phase 11c: the rule picks {gemm_path(entry)[1]} for the "
+             f"stack, not {GEMM_WIDE}")
     for case in (gemm_case(" (mag-shaped stack, b_col 1024)", entry, f32)
                  + (dict(path=gemm_path(entry)[1]),),
                  full_hybrid_case(
                      f"spmm_ell (mag-shaped stack hybrid, {MAG_WIDTH} "
                      f"columns)", stack.a, MAG_WIDTH, f32)):
-        records[(case[0], "float32")] = check_case(
+        rec = records[(case[0], "float32")] = check_case(
             *case, dtype=f32, tag="11c kernels")
+        if case[0].startswith("tile_fused_gemm_spmm_wf0"):
+            print(f"[11c kernels] {case[0]}: {rec['ms']:.4f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), share "
+                  f"{rec['bound_ms'] / rec['ms']:.3f}, plain "
+                  f"{rec['plain_ms']:.4f} ms, matmul + sparse.mm "
+                  f"{rec['library_ms']:.4f} ms; the CUDA-core kernel took "
+                  f"{CORE_MS_BEFORE['mag-shaped stack']} ms here (PR 18, "
+                  f"PERF.md; not re-run)")
     del layer, feats, relations
     torch.cuda.empty_cache()
 
@@ -2367,7 +2406,8 @@ def main(device: str = "cuda") -> None:
                 ("incremental", request(other), request(patched)),
                 ("hit", request(patched), request(patched))):
             before = dict(tier.stats)
-            _, _, calls = trace(tag, f"a {how} request", fn, warm=warm)
+            _, _, calls, _ = trace(tag, f"a {how} request", fn,
+                                   warm=warm)
             key = {"hit": "exact_hits", "incremental": "incremental",
                    "rebuild": "rebuilds"}[how]
             delta = {k: tier.stats[k] - before[k] for k in before}
@@ -2460,7 +2500,7 @@ def main(device: str = "cuda") -> None:
              f"dispatches, {len(state['errs'])} outputs checked")
 
     # the same front end on the banded windows: stacked 512 / 512, the
-    # CUDA-core GeMM-SpMM; features made on the card (not copied)
+    # wide GeMM-SpMM; features made on the card (not copied)
     api.clear_schedule_cache()
     fe = serve.SubgraphFrontEnd(SERVE_COLS, SERVE_COLS, SERVE_BATCH,
                                 device=dev)
@@ -2501,7 +2541,7 @@ def main(device: str = "cuda") -> None:
             errs.append(rel_err(out, want)[1])
             if out.device.type != dev.type or out.shape != want.shape:
                 fail("phase 12c banded: an output is not on the card")
-        if rows[-1]["path"] not in (None, gemm_wf0.CORE_KERNEL):
+        if rows[-1]["path"] not in (None, GEMM_WIDE):
             fail(f"phase 12c banded: GeMM-SpMM ran {rows[-1]['path']}")
     entry = next(r.entry for r in fe.tier._residents.values())
     print(f"[12c banded] {len(errs)} requests in {fe.batches} dispatches: "
@@ -2798,7 +2838,8 @@ def main(device: str = "cuda") -> None:
     # onto the fused kernel arm (backend="cuda", the twin of the
     # reference's forced "xla" arm); Eq 3 alone would pick the unfused arm.
     t14 = time.perf_counter()
-    from repro_torch.kernels.tile_fused_gemm_spmm import CORE_KERNEL
+    from repro_torch.kernels.tile_fused_gemm_spmm import (CORE_KERNEL,
+                                                          choose_path)
     from repro_torch.models import ssm
     from repro_torch.models import transformer as T
     from repro_torch.optim import OptConfig, adamw
@@ -2857,10 +2898,22 @@ def main(device: str = "cuda") -> None:
     # ---- 14a. the two kernels at the band's shapes, f32 ----
     band_records = {}
     f32 = torch.float32
+    # the CUDA-core GeMM-SpMM still takes t % 64 != 0: t 96 at b_col 1024
+    # (the wide kernel's rows), random tile-local fused rows
+    g14 = torch.Generator().manual_seed(141)
+    t_core, n_core, j_core, w_core = 96, 128, 80, 8
+    cols_core = torch.randint(0, t_core, (n_core, j_core, w_core),
+                              generator=g14, dtype=torch.int32).to(dev)
+    vals_core = torch.randn((n_core, j_core, w_core), generator=g14).to(dev)
+    if choose_path(t_core, 1024, 128, j_core, w_core, f32) != CORE_KERNEL:
+        fail("phase 14a: the t 96 case does not take the CUDA-core kernel")
     cases14 = [
-        (*gemm_case(" (band forward, CUDA cores)", e_band, f32),
-         dict(path=CORE_KERNEL)),
-        (*gemm_case(" (band dB, transpose, CUDA cores)", e_band_t, f32),
+        (*gemm_case(" (band forward)", e_band, f32), dict(path=GEMM_WIDE)),
+        (*gemm_case(" (band dB, transpose)", e_band_t, f32),
+         dict(path=GEMM_WIDE)),
+        (*gemm_tensor_case(" (t 96, b_col 1024, CUDA cores)", cols_core,
+                           vals_core, t_core, 1024, 128, f32,
+                           n_core * t_core, n_core * j_core),
          dict(path=CORE_KERNEL)),
         wf1_hybrid_case(" (band wf1, forward)", e_band, f32),
         wf1_hybrid_case(" (band wf1, dB)", e_band_t, f32),
@@ -2870,10 +2923,15 @@ def main(device: str = "cuda") -> None:
         rec = check_case(*case, dtype=f32, tag="14a")
         rec["queued_ms"] = queued_ms(case[1])
         band_records[case[0]] = rec
-        print(f"[14a] {case[0]}: queued behind a sleep {rec['queued_ms']:.4f}"
-              f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-              f"library {rec['library_ms']} ms")
-    del cases14
+        before = next((f"; the CUDA-core kernel took {v} ms here (PR 21, "
+                       f"PERF.md; not re-run)" for k, v in
+                       CORE_MS_BEFORE.items() if f"({k}" in case[0]), "")
+        print(f"[14a] {case[0]}: {rec['ms']:.4f} ms, queued behind a sleep "
+              f"{rec['queued_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), share {rec['bound_ms'] / rec['ms']:.3f}"
+              f", plain {rec['plain_ms']:.4f} ms, library "
+              f"{rec['library_ms']} ms{before}")
+    del cases14, cols_core, vals_core
 
     # ---- 14b. the mixer at full width: cuda arm, plain arm, f64 oracle --
     import torch.nn.functional as F
@@ -2991,11 +3049,13 @@ def main(device: str = "cuda") -> None:
     for i, c in enumerate(per_step):
         if c != expect:
             fail(f"phase 14c step {i + 1}: launches {c}, expected {expect}")
-    busy, wall, _ = trace("14c", "sparse-band training step",
-                          lambda: step(state, batch), top=14)
+    busy, wall, _, by_kernel = trace("14c", "sparse-band training step",
+                                     lambda: step(state, batch), top=14)
+    gemm_us = sum(us for k, us in by_kernel.items() if "gemm_spmm" in k)
     print(f"[14c train] traced step: device busy {busy / 1e3:.1f} ms of "
-          f"{wall / 1e3:.1f} ms ({busy / wall:.3f}); the traced and warm-up "
-          f"steps are not counted")
+          f"{wall / 1e3:.1f} ms ({busy / wall:.3f}); GeMM-SpMM "
+          f"{gemm_us / 1e3:.1f} ms of the busy time ({gemm_us / busy:.3f});"
+          f" the traced and warm-up steps are not counted")
     fwd = []
     with torch.inference_mode():
         for _ in range(3):

@@ -137,6 +137,20 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// copy `bytes` (a multiple of 16) of device memory at `src` into this CTA's
+// shared memory at `dst` (both 16-byte aligned), counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar,
+                                          bool on) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n}\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar)), "r"((int)on)
+      : "memory");
+}
+
 // ask for `bytes` (a multiple of 16) of device memory at `p` (16-byte
 // aligned) to be brought into L2, without waiting and without registers
 __device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {

@@ -20,8 +20,8 @@
 // SM the fused-row gather, which reads w0 rows of D1_t from shared memory
 // per output row, is the busiest unit.
 //
-// Two device functions; the wrapper picks one by shape (never by failure)
-// and the launcher records which one ran:
+// Three device functions; the wrapper picks one by shape (never by
+// failure) and the launcher records which one ran:
 //
 // tile_fused_gemm_spmm_wf0_wgmma_kernel (t a multiple of 64, b_col and
 // c_col multiples of 8, C and two D1 tiles within shared memory).  A
@@ -52,11 +52,46 @@
 //     rows are gathered from it (common.cuh), their ELL entries prefetched
 //     into registers during the previous tile's gather.
 //
-// tile_fused_gemm_spmm_wf0_kernel (any other shape, e.g. t = 2048): the
-// first version, on the CUDA cores.  C[:, cb] is staged once per block as
-// f32; each thread owns an RM x RN register tile of D1_t and reads B from
-// device memory / L1; the host picks cb so that (t + b_col) * cb * 4 bytes
-// and the tile's fused-row entries fit in shared memory.
+// tile_fused_gemm_spmm_wf0_wgmma_wide_kernel (the same rule, for B rows
+// over 512 bytes: the sparse-band LM mixer at b_col 2048, the hetero stack
+// at b_col 1024).  Bound by operations there: at the band (t 64, 32
+// tiles, b_col = c_col = 2048) 17.2 GFLOP, as 3xTF32 0.104 ms at 495
+// TFLOP/s, against 67 MB of bytes (0.02 ms).  C's whole column block no
+// longer fits beside the D1 tiles, so k is streamed:
+//   - a pre-pass (tile_fused_gemm_spmm_wf0_c_panels_kernel) writes each
+//     128-column block of C and 128 bytes of k (32 f32 / 64 bf16 rows) as
+//     one ring stage in a scratch buffer the wrapper allocates: the
+//     K-major, swizzled, permuted panel the narrow kernel stages, as tf32
+//     hi then lo for f32 (2 b_col c_col 4 bytes: 32 MiB at the band);
+//   - a persistent grid of one block an SM walks items (a pair of tiles,
+//     a column block): the two warpgroups take the two tiles, so each C
+//     chunk feeds both.  Warp 0 refills a ring of kWideStages stages with
+//     one bulk copy a chunk (full / empty mbarriers, every wait bounded);
+//     B rows go from device memory into registers a chunk ahead, and are
+//     split into tf32 hi and lo there (B is never copied: 3.83 GB at the
+//     hetero stack);
+//   - per 128-byte chunk, four k steps of m64n128k8 tf32 wgmmas (lo*hi,
+//     hi*lo, hi*hi, as above) or of m64n128k16 bf16, one commit group,
+//     into fresh accumulators that are then added to f32 sums held in
+//     registers across chunks (kChunkSums); N = 128, zero-padded past
+//     c_col;
+//   - the epilogue is the narrow kernel's: D1 tile in shared memory, d1
+//     by 16-byte stores, fused rows gathered from the f32 tile; the next
+//     item's first chunks and B rows load under it.
+//   Shared memory: a stage is 16 KiB (bf16) or 32 KiB (f32, hi and lo);
+//   B takes none.  At the band, f32: 2 stages 64 KiB + two D1 tiles 2 *
+//   64 * 136 * 4 = 68 KiB + two tiles' entries 2 * 64 * 32 * 8 = 32 KiB +
+//   barriers and slack 1,088 bytes = 169,024 of the 232,448 bytes.  A
+//   third stage fits there (201,792) but ran no faster on an H100
+//   (benchmarks_torch/wf0_variants.py --wide): the ring is paced by L2's
+//   bandwidth, not by its depth.  A shape whose D1 tiles and entries do
+//   not fit goes to the CUDA-core kernel.
+//
+// tile_fused_gemm_spmm_wf0_kernel (any other shape, e.g. t = 2048 or t %
+// 64 != 0): the first version, on the CUDA cores.  C[:, cb] is staged once
+// per block as f32; each thread owns an RM x RN register tile of D1_t and
+// reads B from device memory / L1; the host picks cb so that (t + b_col) *
+// cb * 4 bytes and the tile's fused-row entries fit in shared memory.
 #include <type_traits>
 
 #include "common.cuh"
@@ -371,7 +406,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-int g_last_path = -1;  // 0: wgmma kernel, 1: CUDA-core kernel
+int g_last_path = -1;  // 0: wgmma kernel, 1: CUDA-core kernel, 2: wide
 
 template <typename T, int kN, int kKB>
 cudaError_t launch_wgmma(const GemmArgs& a, cudaStream_t stream) {
@@ -424,6 +459,359 @@ cudaError_t launch_wgmma_n(const GemmArgs& a, cudaStream_t stream) {
   return launch_wgmma_kb<T, 128>(a, stream);
 }
 
+// -------------------------------------------------- wide wgmma path ----
+
+constexpr int kWideN = 128;               // columns of C an item takes (N)
+constexpr int kWideStages = 2;            // C chunks in the ring
+constexpr int kWidePanel = kWideN * 128;  // 128 bytes of k over N columns
+// Each chunk's products go into fresh accumulators, which are then added
+// to f32 sums in registers: the tensor cores' own accumulation rounds
+// toward zero, which over the 768 wgmmas of K = 2048 (f32) drifted to
+// 1.5e-5 of the largest value against the plain version on an H100;
+// a chunk holds 12.
+constexpr bool kChunkSums = true;
+
+// bytes of a ring stage: one 128-byte k chunk of a column block of C,
+// twice for f32 (tf32 hi, then lo)
+__host__ __device__ constexpr int wide_stage_bytes(bool f32) {
+  return (f32 ? 2 : 1) * kWidePanel;
+}
+
+// dynamic shared memory of the wide path: the ring, then a D1 tile and an
+// entry buffer for each warpgroup, the ring's mbarriers (64 bytes) and
+// alignment slack
+inline size_t wide_smem_bytes(bool f32, int t, int j0, int w0) {
+  return (size_t)kWideStages * wide_stage_bytes(f32) +
+         2ull * t * (kWideN + 8) * 4 + 2ull * j0 * w0 * 8 + 64 + 1024;
+}
+
+// The pre-pass: block (chunk, column block) writes that stage's image,
+// the K-major, 128-byte swizzled panel the wgmma reads, with the words of
+// each 128 bytes permuted as load_a / load_b fetch B's (permuted_word);
+// zero past b_col and c_col.  f32 writes tf32 hi = rna(c), then lo =
+// rna(c - hi); bf16 writes the values.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    tile_fused_gemm_spmm_wf0_c_panels_kernel(const T* __restrict__ c,
+                                             uint4* __restrict__ panels,
+                                             int b_col, int c_col,
+                                             int n_chunks) {
+  constexpr bool kIsF32 = std::is_same<T, float>::value;
+  constexpr int kRows = kIsF32 ? 32 : 64;  // rows of C in 128 bytes of k
+  __shared__ float c_s[kRows][kWideN + 1];
+  const int k0 = blockIdx.x * kRows;
+  const int n0 = blockIdx.y * kWideN;
+  for (int e = threadIdx.x; e < kRows * kWideN; e += blockDim.x) {
+    const int k = e / kWideN;
+    const int n = e - k * kWideN;
+    c_s[k][n] = k0 + k < b_col && n0 + n < c_col
+                    ? to_f32(c[(int64_t)(k0 + k) * c_col + n0 + n])
+                    : 0.f;
+  }
+  __syncthreads();
+  uint4* hi = panels + ((int64_t)blockIdx.y * n_chunks + blockIdx.x) *
+                           (wide_stage_bytes(kIsF32) / 16);
+  uint4* lo = hi + kWidePanel / 16;  // f32 only
+  // vector e: the 16 bytes at n * 128 + (e % 8) * 16 of the panel, which
+  // hold permuted words 4 v .. 4 v + 3, v = (e % 8) ^ (n % 8)
+  for (int e = threadIdx.x; e < kWideN * 8; e += blockDim.x) {
+    const int n = e >> 3;
+    const int v = (e & 7) ^ (n & 7);
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int p = 4 * v + j;
+      // the word m with permuted_word(m) == p
+      const int i = 2 * (p >> 3) + ((p >> 2) & 1);
+      const int m = (i & 3) + 16 * (i >> 2) + 4 * (p & 3);
+      if constexpr (kIsF32) {
+        h[j] = to_tf32(c_s[m][n]);
+        l[j] = to_tf32(c_s[m][n] - __uint_as_float(h[j]));
+      } else {
+        const __nv_bfloat162 w2 =
+            __floats2bfloat162_rn(c_s[2 * m][n], c_s[2 * m + 1][n]);
+        h[j] = *reinterpret_cast<const uint32_t*>(&w2);  // exact: bf16 in
+      }
+    }
+    hi[e] = make_uint4(h[0], h[1], h[2], h[3]);
+    if constexpr (kIsF32) lo[e] = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    tile_fused_gemm_spmm_wf0_wgmma_wide_kernel(
+        const GemmArgs a, const uint8_t* __restrict__ panels, int n_chunks) {
+  constexpr bool kIsF32 = std::is_same<T, float>::value;
+  constexpr int S = kWideStages;
+  constexpr int kStage = wide_stage_bytes(kIsF32);
+  constexpr int kLd = kWideN + 8;  // D1 row stride (floats), as WgLayout
+  using W = WgmmaKMajorB<kWideN>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  // warp-uniform as far as ptxas can tell (see mbar_arrive)
+  const int warp_id = __shfl_sync(0xffffffffu, (int)threadIdx.x / 32, 0);
+  const int wg = warp_id / 4;
+  const int warp = warp_id % 4;
+  const int wtid = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int n_ent = a.j0 * a.w0;
+  uint8_t* d1_base = ring + S * kStage;
+  float* d1_s = reinterpret_cast<float*>(d1_base) + (size_t)wg * a.t * kLd;
+  uint8_t* ent_base = d1_base + 2ull * a.t * kLd * 4;
+  int2* ent_s = reinterpret_cast<int2*>(ent_base) + (size_t)wg * n_ent;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ent_base + 2ull * n_ent * 8);
+  uint64_t* empty = full + S;
+  const int row_bytes = a.b_col * (int)sizeof(T);
+  const int ld_bytes = kLd * 4;
+  const T* vals0 = static_cast<const T*>(a.vals0);
+
+  // The block's stream of chunks: item blockIdx.x + i gridDim.x (a pair of
+  // tiles, a column block) takes chunks q = i steps .. (i + 1) steps - 1,
+  // its m blocks of 64 rows one after another, each over every k chunk.
+  const int m_blocks = a.t / 64;
+  const int steps = m_blocks * n_chunks;
+  const int n_pairs = (a.n_tiles + 1) / 2;
+  const int n_items = n_pairs * ((a.c_col + kWideN - 1) / kWideN);
+  const int my_items = ((int)blockIdx.x < n_items)
+                           ? (n_items - 1 - (int)blockIdx.x) /
+                                     (int)gridDim.x + 1
+                           : 0;
+  const int total = my_items * steps;
+  auto item_of = [&](int chunk) {
+    return (int)blockIdx.x + (chunk / steps) * (int)gridDim.x;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kWgThreads / 32);  // every warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // Chunk q goes into stage q % S once all eight warps have released chunk
+  // q - S.  Warp 0 waits for that only when chunk need - 1 has not been
+  // issued; otherwise it issues what is free (flash_attention.cu's pump).
+  const bool issuer_warp = warp_id == 0;
+  int issued = 0;
+  auto pump = [&](int need) {
+    if (!issuer_warp) return;
+    while (issued < total) {
+      const int st = issued % S;
+      if (issued >= S) {
+        const uint32_t par = ((issued / S) & 1) ^ 1;
+        if (issued < need)
+          mbar_wait_or_trap(&empty[st], par);
+        else if (!mbar_test(&empty[st], par))
+          break;
+      }
+      const int item = item_of(issued);
+      const int ch = (issued % steps) % n_chunks;
+      const uint8_t* src =
+          panels + ((int64_t)(item / n_pairs) * n_chunks + ch) * kStage;
+      mbar_expect_tx(&full[st], kStage, lane == 0);
+      bulk_load(ring + st * kStage, src, kStage, &full[st], lane == 0);
+      ++issued;
+    }
+  };
+  pump(0);
+
+  // A operand of chunk q: rows r and r + 8 of this thread's 16-row warp
+  // slice of its tile's m block, 128 bytes of k (zero past B's row, and
+  // for the missing second tile of an odd last pair), loaded a chunk
+  // ahead
+  uint32_t raw[8], raw8[8];
+  auto load_b = [&](int chunk) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) raw[i] = raw8[i] = 0u;
+    const int v = 2 * (item_of(chunk) % n_pairs) + wg;
+    if (chunk >= total || v >= a.n_tiles) return;
+    const int s = chunk % steps;
+    const int mb = s / n_chunks;
+    const int ch = s - mb * n_chunks;
+    const char* p0 = static_cast<const char*>(a.b) +
+                     ((int64_t)v * a.t + mb * 64 + warp * 16 + g) * row_bytes;
+    const char* p1 = p0 + 8 * (int64_t)row_bytes;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int off = ch * 128 + h * 64 + t4 * 16;
+      if (off < row_bytes) {
+        const uint4 x0 = __ldg(reinterpret_cast<const uint4*>(p0 + off));
+        const uint4 x1 = __ldg(reinterpret_cast<const uint4*>(p1 + off));
+        raw[4 * h] = x0.x;
+        raw[4 * h + 1] = x0.y;
+        raw[4 * h + 2] = x0.z;
+        raw[4 * h + 3] = x0.w;
+        raw8[4 * h] = x1.x;
+        raw8[4 * h + 1] = x1.y;
+        raw8[4 * h + 2] = x1.z;
+        raw8[4 * h + 3] = x1.w;
+      }
+    }
+  };
+  load_b(0);
+
+  float acc[kWideN / 2], sum[kWideN / 2];
+#pragma unroll
+  for (int i = 0; i < kWideN / 2; ++i) acc[i] = sum[i] = 0.f;
+  for (int q = 0; q < total; ++q) {
+    const int item = item_of(q);
+    const int v = 2 * (item % n_pairs) + wg;
+    const bool valid = v < a.n_tiles;
+    const int s_item = q % steps;
+    const int mb = s_item / n_chunks;
+    const int ch = s_item - mb * n_chunks;
+    const int st = q % S;
+    if (s_item == 0 && valid)  // d1_s and ent_s were freed at the last item
+      stage_entries(ent_s, a.cols0 + (int64_t)v * n_ent,
+                    vals0 + (int64_t)v * n_ent, n_ent, ld_bytes, wtid, 128);
+    if (ch == 0) {
+#pragma unroll
+      for (int i = 0; i < kWideN / 2; ++i) sum[i] = 0.f;
+    }
+    const bool carry = !kChunkSums && ch > 0;  // acc holds the sums
+    // k step s uses words 2 s, 2 s + 1 of the chunk, rows r and r + 8
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint32_t w[4] = {raw[2 * s], raw8[2 * s], raw[2 * s + 1],
+                             raw8[2 * s + 1]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (kIsF32) {
+          const float x = __uint_as_float(w[i]);
+          ah[s][i] = to_tf32(x);
+          al[s][i] = to_tf32(x - __uint_as_float(ah[s][i]));
+        } else {
+          ah[s][i] = w[i];
+        }
+      }
+    }
+    load_b(q + 1);  // under this chunk's products
+    pump(q + 1);
+    mbar_wait_or_trap(&full[st], (q / S) & 1);
+    const uint64_t dh = desc(ring + st * kStage, 16, 1024);
+    const uint64_t dl = desc(ring + st * kStage + kWidePanel, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int off = 2 * s;  // 32 bytes of k a step, in 16-byte units
+      if constexpr (kIsF32) {
+        W::tf32(acc, al[s], dh + off, carry || s > 0);
+        W::tf32(acc, ah[s], dl + off, true);
+        W::tf32(acc, ah[s], dh + off, true);
+      } else {
+        W::bf16(acc, ah[s], dh + off, carry || s > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    pin(acc);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      pin(ah[s]);
+      if constexpr (kIsF32) pin(al[s]);
+    }
+    mbar_arrive(&empty[st], lane == 0);
+    pump(0);
+    if constexpr (kChunkSums) {
+#pragma unroll
+      for (int i = 0; i < kWideN / 2; ++i) sum[i] += acc[i];
+    }
+    if (ch + 1 < n_chunks) continue;
+    // the m block's sums: element 4 n + 2 r + e is (row g + 8 r, column
+    // 8 n + 2 t4 + e) of the warp's 16 rows
+#pragma unroll
+    for (int nn = 0; nn < kWideN / 8; ++nn) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = mb * 64 + warp * 16 + g + 8 * r;
+        const int i = 4 * nn + 2 * r;
+        *reinterpret_cast<float2*>(d1_s + row * kLd + 8 * nn + 2 * t4) =
+            kChunkSums ? make_float2(sum[i], sum[i + 1])
+                       : make_float2(acc[i], acc[i + 1]);
+      }
+    }
+    if (mb + 1 < m_blocks) continue;
+    // the item's epilogue, under the next item's first loads
+    const int cb0 = (item / n_pairs) * kWideN;
+    const int cb = min(kWideN, a.c_col - cb0);
+    warpgroup_sync(wg);
+    if (valid) {
+      // d1 in the operand dtype, 16-byte rows of the f32 tile
+      const int n_vec = cb / 4;
+      const int lpr = n_vec < 32 ? n_vec : 32;
+      const int rpp = 32 / lpr;
+      const int rr = lane / lpr;
+      const int qv = lane - rr * lpr;
+      T* d1 = static_cast<T*>(a.d1) + (int64_t)v * a.t * a.c_col + cb0;
+      if (rr < rpp) {
+        for (int r = warp * rpp + rr; r < a.t; r += 4 * rpp) {
+          for (int vc = qv; vc < n_vec; vc += lpr) {
+            const float4 f =
+                *reinterpret_cast<const float4*>(d1_s + r * kLd + 4 * vc);
+            const float x[4] = {f.x, f.y, f.z, f.w};
+            store_f32<T, 4>(d1 + (int64_t)r * a.c_col + 4 * vc, x);
+          }
+        }
+      }
+      fused_rows_from_tile<T, 4>(
+          ent_s, d1_s, kLd,
+          static_cast<T*>(a.rows0) + (int64_t)v * a.j0 * a.c_col, a.j0,
+          a.w0, cb, a.c_col, cb0, warp, 4);
+    }
+    warpgroup_sync(wg);  // d1_s and ent_s are free for the next item
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const GemmArgs& a, void* panels,
+                        cudaStream_t stream) {
+  constexpr bool kIsF32 = std::is_same<T, float>::value;
+  const int row_bytes = a.b_col * (int)sizeof(T);
+  // the wrapper's rule (kernels/tile_fused_gemm_spmm.py::choose_path)
+  if (a.t % 64 || a.b_col % 8 || a.c_col % 8 || row_bytes <= 512 ||
+      a.cb_max != kWideN ||
+      wide_smem_bytes(kIsF32, a.t, a.j0, a.w0) > 232448 ||
+      !aligned16(a.b) || !aligned16(a.c) || !aligned16(a.d1) ||
+      !aligned16(a.rows0) || !aligned16(panels))
+    return cudaErrorInvalidValue;
+  const int n_chunks = (row_bytes + 127) / 128;
+  const int n_cb = (a.c_col + kWideN - 1) / kWideN;
+  tile_fused_gemm_spmm_wf0_c_panels_kernel<T>
+      <<<dim3(n_chunks, n_cb), 256, 0, stream>>>(
+          static_cast<const T*>(a.c), static_cast<uint4*>(panels), a.b_col,
+          a.c_col, n_chunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = wide_smem_bytes(kIsF32, a.t, a.j0, a.w0);
+  auto kern = tile_fused_gemm_spmm_wf0_wgmma_wide_kernel<T>;
+  if ((err = cudaFuncSetAttribute(
+           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+      cudaSuccess)
+    return err;
+  int dev = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kern, kWgThreads, smem)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int n_items = (a.n_tiles + 1) / 2 * n_cb;
+  const int grid = n_items < n_sm * per_sm ? n_items : n_sm * per_sm;
+  kern<<<grid, kWgThreads, smem, stream>>>(
+      a, static_cast<const uint8_t*>(panels), n_chunks);
+  return cudaGetLastError();
+}
+
 // --------------------------------------------------- CUDA-core path ----
 
 constexpr int kThreads = 256;
@@ -434,6 +822,54 @@ constexpr int kRN = 4;  // D1 columns per thread
 // are 16-byte aligned
 __host__ __device__ inline size_t core_tile_bytes(int t, int b_col, int cb) {
   return ((size_t)(b_col + t) * cb * sizeof(float) + 15) & ~size_t(15);
+}
+
+// Rows r0 + rg + m nrg (m < M) of D1_t at this thread's columns cg + n
+// ncg (n < kRN): the k loop over C's block in shared memory, then the
+// sums into d1_s and d1 (d1_v: the tile's rows of d1 at column cb0).
+template <typename T, int M>
+__device__ __forceinline__ void core_rows(const T* __restrict__ b_t,
+                                          const float* c_s, float* d1_s,
+                                          T* __restrict__ d1_v, int r0,
+                                          int rg, int nrg, int cg, int ncg,
+                                          int cb, int cb_max, int b_col,
+                                          int c_col) {
+  float acc[M][kRN];
+  const T* brow[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    brow[m] = b_t + (int64_t)(r0 + rg + m * nrg) * b_col;
+#pragma unroll
+    for (int n = 0; n < kRN; ++n) acc[m][n] = 0.f;
+  }
+  for (int k = 0; k < b_col; ++k) {
+    float bv[M];
+    float cv[kRN];
+#pragma unroll
+    for (int m = 0; m < M; ++m) bv[m] = to_f32(brow[m][k]);
+#pragma unroll
+    for (int n = 0; n < kRN; ++n) {
+      const int jj = cg + n * ncg;
+      cv[n] = jj < cb ? c_s[k * cb + jj] : 0.f;
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+#pragma unroll
+      for (int n = 0; n < kRN; ++n) acc[m][n] = fmaf(bv[m], cv[n], acc[m][n]);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) {
+    const int r = r0 + rg + m * nrg;
+#pragma unroll
+    for (int n = 0; n < kRN; ++n) {
+      const int jj = cg + n * ncg;
+      if (jj < cb) {
+        d1_s[r * cb_max + jj] = acc[m][n];
+        d1_v[(int64_t)r * c_col + jj] = from_f32<T>(acc[m][n]);
+      }
+    }
+  }
 }
 
 template <typename T, int kVec>
@@ -465,46 +901,30 @@ __global__ void __launch_bounds__(kThreads) tile_fused_gemm_spmm_wf0_kernel(
   const int cg = threadIdx.x % ncg;
   const int rg = threadIdx.x / ncg;
   const T* b_t = b + v * t * b_col;
+  T* d1_v = d1 + v * t * c_col + cb0;
   if (rg < nrg) {
     for (int r0 = 0; r0 < t; r0 += nrg * kRM) {
-      float acc[kRM][kRN];
-      const T* brow[kRM];
-#pragma unroll
-      for (int m = 0; m < kRM; ++m) {
-        const int r = r0 + rg + m * nrg;
-        brow[m] = b_t + (int64_t)(r < t ? r : 0) * b_col;  // r >= t: unused
-#pragma unroll
-        for (int n = 0; n < kRN; ++n) acc[m][n] = 0.f;
+      // this thread's rows of the pass that lie in the tile: a row past
+      // it is never computed
+      const int n_m = min(kRM, (t - r0 - rg + nrg - 1) / nrg);
+#define REPRO_CORE_ROWS(M)                                                 \
+  case M:                                                                  \
+    core_rows<T, M>(b_t, c_s, d1_s, d1_v, r0, rg, nrg, cg, ncg, cb,        \
+                    cb_max, b_col, c_col);                                 \
+    break;
+      switch (n_m) {
+        REPRO_CORE_ROWS(8)
+        REPRO_CORE_ROWS(7)
+        REPRO_CORE_ROWS(6)
+        REPRO_CORE_ROWS(5)
+        REPRO_CORE_ROWS(4)
+        REPRO_CORE_ROWS(3)
+        REPRO_CORE_ROWS(2)
+        REPRO_CORE_ROWS(1)
+        default:
+          break;
       }
-      for (int k = 0; k < b_col; ++k) {
-        float bv[kRM];
-        float cv[kRN];
-#pragma unroll
-        for (int m = 0; m < kRM; ++m) bv[m] = to_f32(brow[m][k]);
-#pragma unroll
-        for (int n = 0; n < kRN; ++n) {
-          const int jj = cg + n * ncg;
-          cv[n] = jj < cb ? c_s[k * cb + jj] : 0.f;
-        }
-#pragma unroll
-        for (int m = 0; m < kRM; ++m) {
-#pragma unroll
-          for (int n = 0; n < kRN; ++n) acc[m][n] = fmaf(bv[m], cv[n], acc[m][n]);
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < kRM; ++m) {
-        const int r = r0 + rg + m * nrg;
-        if (r >= t) continue;
-#pragma unroll
-        for (int n = 0; n < kRN; ++n) {
-          const int jj = cg + n * ncg;
-          if (jj < cb) {
-            d1_s[r * cb_max + jj] = acc[m][n];
-            d1[(v * t + r) * c_col + cb0 + jj] = from_f32<T>(acc[m][n]);
-          }
-        }
-      }
+#undef REPRO_CORE_ROWS
     }
   }
   __syncthreads();
@@ -547,15 +967,18 @@ cudaError_t launch_core(const GemmArgs& a, cudaStream_t stream) {
 // cols0 (n_tiles, j0, w0) int32 tile-local; vals0 (n_tiles, j0, w0),
 // b (n_tiles * t, b_col), c (b_col, c_col) of one dtype; outputs
 // d1 (n_tiles * t, c_col) and rows0 (n_tiles, j0, c_col) of that dtype; all
-// contiguous.  cb: column block width; path: 0 for the wgmma kernel (cb =
-// min(c_col, 128); the shape must satisfy the wrapper's rule), 1 for the
-// CUDA-core kernel (cb chosen by the caller to fit shared memory).  Returns
-// the cudaError_t of the launch (0 on success; cudaErrorInvalidValue for a
-// shape the chosen path does not take).
+// contiguous.  panels: the wide path's scratch for C's stages (the
+// wrapper's wide_panel_bytes; unused by the other paths).  cb: column
+// block width; path: 0 for the wgmma kernel (cb = min(c_col, 128)), 2 for
+// the wide wgmma kernel (cb = 128), each only for a shape that satisfies
+// the wrapper's rule; 1 for the CUDA-core kernel (cb chosen by the caller
+// to fit shared memory).  Returns the cudaError_t of the launch (0 on
+// success; cudaErrorInvalidValue for a shape the chosen path does not
+// take).
 extern "C" int tile_fused_gemm_spmm_wf0_launch(
     const void* cols0, const void* vals0, const void* b, const void* c,
-    void* d1, void* rows0, int n_tiles, int t, int b_col, int c_col, int j0,
-    int w0, int cb, int path, int dtype, void* stream) {
+    void* d1, void* rows0, void* panels, int n_tiles, int t, int b_col,
+    int c_col, int j0, int w0, int cb, int path, int dtype, void* stream) {
   using namespace repro_torch;
   if (n_tiles == 0 || c_col == 0) {
     g_last_path = -1;
@@ -564,18 +987,22 @@ extern "C" int tile_fused_gemm_spmm_wf0_launch(
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const GemmArgs a{static_cast<const int*>(cols0), vals0, b, c, d1, rows0,
                    n_tiles, t, b_col, c_col, j0, w0, cb};
-  if ((dtype != kF32 && dtype != kBF16) || (path != 0 && path != 1))
+  if ((dtype != kF32 && dtype != kBF16) || path < 0 || path > 2)
     return (int)cudaErrorInvalidValue;
   g_last_path = path;
+  const bool f32 = dtype == kF32;
   if (path == 0)
-    return (int)(dtype == kF32 ? launch_wgmma_n<float>(a, s)
-                               : launch_wgmma_n<__nv_bfloat16>(a, s));
-  return (int)(dtype == kF32 ? launch_core<float>(a, s)
-                             : launch_core<__nv_bfloat16>(a, s));
+    return (int)(f32 ? launch_wgmma_n<float>(a, s)
+                     : launch_wgmma_n<__nv_bfloat16>(a, s));
+  if (path == 2)
+    return (int)(f32 ? launch_wide<float>(a, panels, s)
+                     : launch_wide<__nv_bfloat16>(a, panels, s));
+  return (int)(f32 ? launch_core<float>(a, s)
+                   : launch_core<__nv_bfloat16>(a, s));
 }
 
-// the path of the last launch: 0 wgmma kernel, 1 CUDA-core kernel, -1 none
-// (before any launch, or an empty one)
+// the path of the last launch: 0 wgmma kernel, 1 CUDA-core kernel, 2 wide
+// wgmma kernel, -1 none (before any launch, or an empty one)
 extern "C" int tile_fused_gemm_spmm_wf0_last_path() {
   return repro_torch::g_last_path;
 }

@@ -40,7 +40,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "spmm_ell_launch": (_P,) * 12 + (_I64,) + (_I,) * 6 + (_P,),
     "spmm_ell_last_path": (),
-    "tile_fused_gemm_spmm_wf0_launch": (_P,) * 6 + (_I,) * 9 + (_P,),
+    "tile_fused_gemm_spmm_wf0_launch": (_P,) * 7 + (_I,) * 9 + (_P,),
     "tile_fused_gemm_spmm_wf0_last_path": (),
     "tile_fused_spmm_spmm_wf0_launch": (_P,) * 8 + (_I,) * 8 + (_P,),
     "flash_attention_launch": (_P,) * 4 + (_I,) * 6 + (_F,) + (_I,) * 3

@@ -152,12 +152,14 @@ def test_spmm_body_only_runs_one_pass(card):
     assert spmm.last_path() == "row"
 
 
-# (3, 5, ...), t = 2048 and f32 rows of 1 KB (b_col 256) run the CUDA-core
-# kernel; the others the wgmma kernel: N = 128 and N = 32 (GCN layers 1
-# and 2), tile counts that leave warpgroups idle or uneven (7, 37, 300),
-# K = N = 8, c_col > 128 (two column blocks), w0 > 32 with a ragged last k
-# block (b_col 40), 512-byte rows of B in bf16, and one k block at N = 128
-# over 2,048 tiles (b_col 32: the backward's dB of GCN layer 2)
+# (3, 5, ...) and t = 2048 run the CUDA-core kernel, rows of 1 KB (b_col
+# 256, f32: two m blocks a tile) the wide wgmma kernel; the others the
+# wgmma kernel: N = 128
+# and N = 32 (GCN layers 1 and 2), tile counts that leave warpgroups idle
+# or uneven (7, 37, 300), K = N = 8, c_col > 128 (two column blocks), w0 >
+# 32 with a ragged last k block (b_col 40), 512-byte rows of B in bf16, and
+# one k block at N = 128 over 2,048 tiles (b_col 32: the backward's dB of
+# GCN layer 2)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_tiles,t,j0,w,b_col,c_col",
                          [(3, 5, 4, 3, 6, 7), (64, 64, 56, 17, 128, 128),
@@ -206,7 +208,18 @@ def _misaligned_copy(x: torch.Tensor) -> torch.Tensor:
      "tile_fused_gemm_spmm_wf0_wgmma_kernel"),
     (torch.float32, 64, 128, 128, False, "tile_fused_gemm_spmm_wf0_kernel"),
     (torch.float32, 96, 128, 128, True, "tile_fused_gemm_spmm_wf0_kernel"),
-    (torch.bfloat16, 64, 128, 36, True, "tile_fused_gemm_spmm_wf0_kernel")])
+    (torch.bfloat16, 64, 128, 36, True, "tile_fused_gemm_spmm_wf0_kernel"),
+    # rows over 512 bytes: the wide kernel, or the CUDA-core one where t is
+    # not a multiple of 64 or B is unaligned
+    (torch.float32, 64, 1024, 128, True,
+     "tile_fused_gemm_spmm_wf0_wgmma_wide_kernel"),
+    (torch.bfloat16, 64, 512, 128, True,
+     "tile_fused_gemm_spmm_wf0_wgmma_wide_kernel"),
+    (torch.bfloat16, 128, 512, 64, True,
+     "tile_fused_gemm_spmm_wf0_wgmma_wide_kernel"),
+    (torch.float32, 128, 160, 64, True, "tile_fused_gemm_spmm_wf0_kernel"),
+    (torch.float32, 96, 1024, 128, True, "tile_fused_gemm_spmm_wf0_kernel"),
+    (torch.float32, 64, 1024, 128, False, "tile_fused_gemm_spmm_wf0_kernel")])
 def test_gemm_spmm_wf0_dispatch_path(card, dtype, t, b_col, c_col, aligned,
                                      path):
     """Each path runs its own device function, as the launcher records it,
@@ -590,25 +603,122 @@ def _typed_relations(n: int, in_dim: int, card, dtype, sparse=False):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gemm_spmm_core_path_at_a_hetero_stack_shape(card, dtype):
+def test_gemm_spmm_core_path_at_a_hetero_stack_shape(card, dtype,
+                                                    monkeypatch):
     """A stacked GeMM-SpMM is ``b_col`` = Σ in-dims wide (512 here): B's
     row is past the wgmma kernel's 512 bytes, so the launcher takes the
-    CUDA-core kernel, with a column block that fits, and agrees with the
-    per-relation plain loop.  The loop runs in f32 on the same inputs:
-    the plain path in bf16 rounds each product before it sums, and on the
-    card it differed from the kernel (which sums in f32) by 7.3e-2 of the
-    largest value on the relation with a 629-entry hub row."""
+    device function ``choose_path`` picks for the stack's schedule (the
+    wide kernel where t is a multiple of 64, else the CUDA-core kernel),
+    and agrees with the per-relation plain loop.  The loop runs in f32 on
+    the same inputs: the plain path in bf16 rounds each product before it
+    sums, and on the card it differed from the kernel (which sums in f32)
+    by 7.3e-2 of the largest value on the relation with a 629-entry hub
+    row."""
     rels = _typed_relations(2048, 128, card, dtype)
+    picks = []
+    rule = gemm_wf0.choose_path
+
+    def record(*args):
+        picks.append(rule(*args))
+        return picks[-1]
+    monkeypatch.setattr(gemm_wf0, "choose_path", record)
     ops.reset_launch_counts()
     got = hetero.hetero_fused_matmul(rels, backend="cuda")
     torch.cuda.synchronize()
     assert ops.launch_counts()["tile_fused_gemm_spmm_wf0"] == 1
-    assert gemm_wf0.last_path() == gemm_wf0.CORE_KERNEL
+    assert picks and gemm_wf0.last_path() == picks[-1]
+    assert picks[-1] != gemm_wf0.WGMMA_KERNEL
     want = hetero.hetero_loop_matmul(
         [(a, b.float(), c.float()) for a, b, c in rels], backend="torch")
     tol = 2e-3 if dtype == torch.float32 else 2e-2
     for x, y in zip(got, want, strict=True):
         assert _rel_err(x, y) <= tol
+
+
+def test_gemm_spmm_core_path_below_64_row_tiles(card):
+    """The twin of the cell above at a shape the tensor-core kernels do
+    not take: t 96 (not a multiple of 64) at the stack's 2 KB rows (b_col
+    512, f32) and at 4 KB rows (b_col 1024) runs the CUDA-core kernel,
+    whose rows never pass the tile, against its plain version."""
+    for b_col in (512, 1024):
+        g = torch.Generator().manual_seed(b_col)
+        t, n_tiles, j0, w = 96, 9, 80, 5
+        cols0, vals0 = _ell(g, (n_tiles, j0, w), t, card)
+        b = torch.randn(n_tiles * t, b_col, generator=g).to(card)
+        c = (torch.randn(b_col, 64, generator=g) / b_col ** 0.5).to(card)
+        d1, rows0 = ops.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, t=t)
+        torch.cuda.synchronize()
+        assert gemm_wf0.last_path() == gemm_wf0.CORE_KERNEL
+        want_d1, want_rows = ref.tile_fused_gemm_spmm_wf0(cols0, vals0, b,
+                                                          c, t=t)
+        assert _rel_err(d1, want_d1) <= TOL[torch.float32]
+        assert _rel_err(rows0, want_rows) <= TOL[torch.float32]
+
+
+def _band_entry(transpose: bool):
+    """The full-width sparse-band mixer's schedule (stablelm-1.6b, S 2048,
+    window 32): its forward entry, or its dB entry against Aᵀ."""
+    from repro_torch.models import ssm as S
+    band = S.decay_band_csr(2048, 32, 0.9)
+    spec = dataclasses.replace(S._BAND_SPEC, dtype_bytes=4,
+                               transpose=transpose)
+    return api.get_schedule(band, b_col=2048, c_col=2048, spec=spec)
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_gemm_spmm_wide_kernel_at_the_band(card, transpose):
+    """GeMM-SpMM at the sparse-band mixer's shapes (t 64, 32 tiles, b_col
+    = c_col = 2048, f32; the forward entry and the non-symmetric dB entry)
+    runs the wide wgmma kernel and agrees with the plain version."""
+    ds = _band_entry(transpose).dsched
+    st = fused_ops.schedule_tensors(ds, card, torch.float32)
+    g = torch.Generator().manual_seed(22 + transpose)
+    b = torch.randn(ds.n_tiles0 * ds.t_pad, 2048, generator=g).to(card)
+    c = (torch.randn(2048, 2048, generator=g) / 2048 ** 0.5).to(card)
+    d1, rows0 = ops.tile_fused_gemm_spmm_wf0(st.cols0, st.vals0, b, c,
+                                             t=ds.t_pad)
+    torch.cuda.synchronize()
+    assert gemm_wf0.last_path() == gemm_wf0.WIDE_KERNEL
+    want_d1, want_rows = ref.tile_fused_gemm_spmm_wf0(st.cols0, st.vals0, b,
+                                                      c, t=ds.t_pad)
+    assert _rel_err(d1, want_d1) <= TOL[torch.float32]
+    assert _rel_err(rows0, want_rows) <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_tiles,j0,w,c_col", [
+    (301, 64, 1, 128),    # the mag-shaped stack's tiles; an odd tile count
+    (40, 60, 9, 200)])    # ragged c_col: the second block zero-padded to N
+def test_gemm_spmm_wide_kernel_at_a_stack_shape(card, n_tiles, j0, w,
+                                                c_col, dtype):
+    """The wide kernel at the ogbn-mag-shaped stack's b_col 1024 (t 64),
+    f32 and bf16, against the plain version."""
+    g = torch.Generator().manual_seed(n_tiles)
+    cols0, vals0 = _ell(g, (n_tiles, j0, w), 64, card)
+    b = torch.randn(n_tiles * 64, 1024, generator=g).to(card, dtype)
+    c = (torch.randn(1024, c_col, generator=g) / 1024 ** 0.5).to(card,
+                                                                  dtype)
+    vals0 = vals0.to(dtype)
+    d1, rows0 = ops.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, t=64)
+    torch.cuda.synchronize()
+    assert gemm_wf0.last_path() == gemm_wf0.WIDE_KERNEL
+    want_d1, want_rows = ref.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c,
+                                                      t=64)
+    assert _rel_err(d1, want_d1) <= TOL[dtype]
+    assert _rel_err(rows0, want_rows) <= TOL[dtype]
+
+
+def test_gemm_spmm_wide_kernel_gives_the_same_bits_twice(card):
+    """The wide kernel sums every output in one fixed order."""
+    g = torch.Generator().manual_seed(3)
+    cols0, vals0 = _ell(g, (33, 64, 8), 64, card)
+    b = torch.randn(33 * 64, 2048, generator=g).to(card)
+    c = (torch.randn(2048, 256, generator=g) / 2048 ** 0.5).to(card)
+    first = ops.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, t=64)
+    again = ops.tile_fused_gemm_spmm_wf0(cols0, vals0, b, c, t=64)
+    torch.cuda.synchronize()
+    assert gemm_wf0.last_path() == gemm_wf0.WIDE_KERNEL
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 def test_hetero_spmm_spmm_stack_on_the_card(card):

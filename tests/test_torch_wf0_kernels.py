@@ -7,8 +7,12 @@
   relative to its largest value, while one TF32 product misses the 1e-4
   the kernel is held to on the card (``tests/test_torch_gpu.py``,
   ``chip_smoke.py``).
+- The same at the sparse-band mixer's depth (b_col 2048): 3xTF32 in the
+  wide kernel's order, accumulated in f32 over 32-wide k chunks, stays
+  within 1e-5 of f64.
 - The launcher's choice of device function, a plain rule on the shape
-  (``kernels.tile_fused_gemm_spmm.choose_path``).
+  (``kernels.tile_fused_gemm_spmm.choose_path``), and the shared memory
+  each tensor-core kernel reckons with.
 - The unfused library chains that ``chip_smoke.py`` times as the fused
   kernels' yardsticks compute the kernels' function (``kernels/ref.py``).
 """
@@ -49,7 +53,36 @@ def test_three_tf32_products_ground_the_tolerance(seed):
     assert rel(one) > 1e-4
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_three_tf32_products_hold_at_the_band_depth(seed):
+    """The wide kernel's sum at the band (a 64-row tile, K = 2048, C
+    scaled by K^-1/2): within each 32-wide k chunk of the ring, each 8-deep
+    k step adds lo*hi, hi*lo, then hi*hi to fresh f32 accumulators, which
+    are then added to f32 sums held across the chunks (128 of C's
+    columns here)."""
+    rng = np.random.default_rng(seed)
+    k_depth, n = 2048, 128
+    a = torch.from_numpy(rng.standard_normal((64, k_depth), np.float32))
+    b = torch.from_numpy(rng.standard_normal((k_depth, n), np.float32)
+                         / np.float32(k_depth ** 0.5))
+    exact = a.double() @ b.double()
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    total = torch.zeros(64, n)
+    for k0 in range(0, k_depth, 32):          # a chunk of the ring
+        acc = torch.zeros(64, n)
+        for s in range(k0, k0 + 32, 8):       # its four k steps
+            ks = slice(s, s + 8)
+            acc = acc + a_lo[:, ks] @ b_hi[ks]
+            acc = acc + a_hi[:, ks] @ b_lo[ks]
+            acc = acc + a_hi[:, ks] @ b_hi[ks]
+        total = total + acc
+    err = float((total.double() - exact).abs().max())
+    assert err / float(exact.abs().max()) <= 1e-5
+
+
 W, C = gemm.WGMMA_KERNEL, gemm.CORE_KERNEL
+WIDE = gemm.WIDE_KERNEL
 
 
 @pytest.mark.parametrize("t,b_col,c_col,j0,w0,dtype,aligned,want", [
@@ -66,16 +99,32 @@ W, C = gemm.WGMMA_KERNEL, gemm.CORE_KERNEL
     (96, 128, 128, 56, 17, torch.float32, True, C),  # t % 64
     (64, 132, 128, 56, 17, torch.float32, True, C),  # b_col % 8
     (64, 128, 100, 56, 17, torch.float32, True, C),  # c_col % 8
-    (64, 256, 128, 56, 17, torch.float32, True, C),  # 1 KB rows
+    (64, 256, 128, 56, 17, torch.float32, True, WIDE),  # 1 KB rows
     (64, 128, 128, 56, 17, torch.float32, False, C),  # unaligned
     (256, 128, 128, 250, 17, torch.float32, True, C),  # smem
+    (64, 2048, 2048, 64, 32, torch.float32, True, WIDE),  # the band
+    (64, 1024, 128, 64, 1, torch.float32, True, WIDE),    # mag stack
+    (64, 512, 128, 56, 17, torch.bfloat16, True, WIDE),   # bf16 1 KB rows
+    (64, 136, 64, 30, 5, torch.float32, True, WIDE),      # 544-byte rows
+    (128, 512, 64, 120, 17, torch.bfloat16, True, WIDE),  # 2 m blocks
+    (96, 1024, 128, 64, 1, torch.float32, True, C),       # t % 64
+    (2048, 2048, 2048, 64, 32, torch.float32, True, C),   # t 2048
+    (64, 1024, 128, 64, 1, torch.float32, False, C),      # unaligned
+    (64, 1020, 128, 64, 1, torch.float32, True, C),       # b_col % 8
+    (64, 1024, 100, 64, 1, torch.float32, True, C),       # c_col % 8
+    (64, 2048, 2048, 64, 100, torch.float32, True, C),    # smem: entries
+    (128, 256, 64, 100, 9, torch.float32, True, WIDE),    # 2 m blocks
+    (192, 256, 64, 100, 9, torch.float32, True, C),       # smem: D1 tiles
 ])
 def test_gemm_spmm_path_rule(t, b_col, c_col, j0, w0, dtype, aligned, want):
     assert gemm.choose_path(t, b_col, c_col, j0, w0, dtype, aligned) == want
     fits = (gemm.wgmma_smem_bytes(t, b_col, c_col, j0, w0, dtype)
             <= config.SMEM_BYTES)
+    wide_fits = gemm.wide_smem_bytes(t, j0, w0, dtype) <= config.SMEM_BYTES
     if want == W:
         assert fits
+    if want == WIDE:
+        assert wide_fits
 
 
 def test_gcn_layer_1_fills_shared_memory_once():
@@ -85,6 +134,24 @@ def test_gcn_layer_1_fills_shared_memory_once():
     assert got == (2 * 4 * 128 * 128 + 2 * 64 * 136 * 4 + 2 * 56 * 17 * 8
                    + 1024)
     assert config.SMEM_BYTES // 2 < got <= config.SMEM_BYTES
+
+
+def test_band_fits_the_wide_kernel():
+    """f32 at the sparse-band mixer's schedule (t 64, j0 64, w0 32): two
+    ring stages of C's hi and lo chunk (32 KiB each), two D1 tiles of 64 ×
+    136 floats, two tiles' entries, 64 bytes of mbarriers and 1,024 of
+    slack fit one block an SM.  The scratch holds C once as stages: 2 ·
+    2048 · 2048 · 4 bytes."""
+    got = gemm.wide_smem_bytes(64, 64, 32, torch.float32)
+    assert got == (2 * 2 * 128 * 128 + 2 * 64 * 136 * 4 + 2 * 64 * 32 * 8
+                   + 64 + 1024) == 169_024
+    assert config.SMEM_BYTES // 2 < got <= config.SMEM_BYTES
+    assert gemm.wide_smem_bytes(64, 64, 32, torch.bfloat16) == got - 2 * (
+        128 * 128)
+    assert gemm.wide_panel_bytes(2048, 2048, torch.float32) == 32 * 2 ** 20
+    # ragged: 2 column blocks (c_col 200) of 5 chunks (b_col 136 f32)
+    assert gemm.wide_panel_bytes(136, 200, torch.float32) == (
+        2 * 5 * 2 * 128 * 128)
 
 
 @pytest.mark.parametrize("smem_rows,c_col,fixed,want", [
