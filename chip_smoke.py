@@ -239,16 +239,45 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                backward.  14c: the 24-layer bf16 model from seed 0 (1.54
                B parameters), one fixed batch of 4 × 2048 tokens and
                labels, 6 steps of ``launch.steps.make_train_step`` (AdamW,
-               lr 3e-4, warmup 1): finite losses and ``min(losses[2:]) <
-               losses[0]``, no schedule-cache miss after step 1, each
-               step 192 GeMM-SpMM and 288 ``spmm_ell`` launches and no
-               plain executor or unfused arm (they raise meanwhile); step
-               p50 / max, peak device memory, one traced step (busy share,
-               the GeMM-SpMM's share of the busy time), the
-               ``inference_mode`` forward of the batch; then a 2-layer f32
-               cut of the same widths: step-1 gradients of every
-               parameter with ``impl="cuda"`` against ``impl="torch"``
-               (≤ 1e-4 per tensor).
+               lr 3e-4, warmup 1) under the config's ``remat="dots"``:
+               finite losses and ``min(losses[2:]) < losses[0]``, no
+               schedule-cache miss after step 1, each step 288 GeMM-SpMM
+               and 384 ``spmm_ell`` launches (the recompute runs each
+               block's forward kernels again) and no plain executor or
+               unfused arm (they raise meanwhile); step p50 / max, peak
+               device memory, one traced step (busy share, the
+               GeMM-SpMM's share of the busy time), the ``inference_mode``
+               forward of the batch; then a 2-layer f32 cut of the same
+               widths: step-1 gradients of every parameter with
+               ``impl="cuda"`` against ``impl="torch"`` (≤ 1e-4 per
+               tensor), and under remat ``"full"`` and ``"dots"`` against
+               ``"none"`` (≤ 1e-6 per tensor; whether bit for bit is
+               printed), one forward's launches more.
+ 15. LM training: the dense decoder at full width (stablelm-1.6b's
+               ``CONFIG``: 24 layers, d 2048, 32 heads of 64, d_ff 5632,
+               vocab 100,352, bf16, ``remat="dots"``), whose attention
+               trains through ``layers.scan_attention``, the reference's
+               chunked XLA attention in plain PyTorch.  15a:
+               ``scan_attention`` at B 4, H 32, S 2048, D 64, causal: on a
+               (B 1, H 2) cut, f32 and bf16, forward and backward against
+               an f64 dense oracle (f32 ≤ 2e-3, bf16 ≤ 2^-7); the bf16
+               forward against the flash kernel under ``no_grad``, row by
+               row (≤ 2^-6); forward and forward + backward times (CUDA
+               events) beside ``F.scaled_dot_product_attention``'s (a
+               yardstick, never on the path).  15b:
+               ``launch.train.main(["--arch", "stablelm-1.6b", "--steps",
+               "16", "--batch", "4", "--seq", "2048", "--log-every",
+               "1"])`` in-process, weights from seed 0: every loss finite
+               and ``min(losses[2:]) < losses[0]``, no kernel launch
+               (the flash kernel serves only), step p50 / max over steps
+               2-16, peak device memory, one traced step (busy share,
+               device time by kernel, ``aten::bmm``'s share: the
+               attention's f32 products, forward, recompute and
+               backward).  15c: ``--arch qwen2.5-3b --reduced`` with a
+               checkpoint directory under ``build/``:
+               ``--simulate-preemption 6`` exits 17, the rerun resumes
+               from step 6, and the step-8 leaves equal an uninterrupted
+               run's bit for bit.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after: phases 4-5 (the GCN path, gradients included) must
@@ -257,7 +286,8 @@ graphs, phase 10's training runs ``spmm_ell`` and GeMM-SpMM, phase 11's
 and phase 12's paths (each call counted on its own) add to the three
 sparse kernels' launches, phase 13's sharded calls (each
 counted on its own) add to them too, as do phase 14's mixer and
-training steps (each counted on its own), phase 7's
+training steps (each counted on its own), phase 15's trainer launches
+none of the six kernels (its counts must stay 0), phase 7's
 entry-point calls the FFN and MoE kernels, and phase 8 the flash kernel
 exactly once per layer of the prefill.  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
@@ -378,6 +408,31 @@ BAND_BATCH, BAND_SEQ = 4, 2048
 BAND_STEPS = 6
 BAND_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=20)
 BAND_CUT_LAYERS = 2
+# remat recomputes the same ops on the same inputs: its gradients within
+# 1e-6 of remat="none"'s (per tensor, relative to its largest value)
+REMAT_TOL = 1e-6
+# phase 15: dense LM training at full width.  stablelm-1.6b's CONFIG as
+# published (24 layers, d 2048, 32 heads of 64, d_ff 5632, vocab 100,352,
+# bf16, remat "dots") through launch.train.main, 16 steps of 4 x 2048
+# tokens from seed 0; the training attention alone at the step's shape
+# (against an f64 oracle on the cut ATTN_CUT = (B, H) and the flash kernel
+# in full); preemption and resume at --reduced
+DENSE_ARCH = "stablelm-1.6b"
+DENSE_REDUCED = False
+DENSE_STEPS, DENSE_BATCH, DENSE_SEQ = 16, 4, 2048
+ATTN_CUT = (1, 2)
+# the cut against the f64 oracle, relative to each tensor's largest value:
+# f32 within MAIN_TOL; bf16 within 2^-7, since the output and each gradient
+# are rounded to bf16 once (half a unit in the last place, up to 2^-8 of a
+# value) beside f32 arithmetic
+ATTN_ORACLE_TOL = {"float32": MAIN_TOL, "bfloat16": 2.0 ** -7}
+# the step's device memory reckoned for remat="dots" (ROADMAP Queue 1):
+# parameters, gradients and AdamW moments ~19.7 GB, the kept products ~9.3
+# GB, the f32 logits and their gradient ~8 GB, one block's recompute ~9 GB
+DENSE_RECKONED_GB = 46
+RESUME_ARGS = ["--arch", "qwen2.5-3b", "--reduced", "--steps", "8",
+               "--batch", "2", "--seq", "64", "--ckpt-every", "3",
+               "--log-every", "100"]
 GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
 # phase 2: the functions of each kernel in the library's SASS (a part of the
@@ -1733,13 +1788,14 @@ def main(device: str = "cuda") -> None:
             ds.t_pad, entry.b_col, entry.c_col, ds.j_rows0.shape[1],
             ds.ell_cols0.shape[2], dtype)
 
-    def trace(tag, label, fn, warm=None, top=8):
+    def trace(tag, label, fn, warm=None, top=8, ops_device=None):
         """One call of ``fn`` under the profiler, after a traced warm-up
         call (of ``warm``, else of ``fn``: a session can drop its first
         ctypes launch): device time by kernel (the ``top`` largest) and the
         device's busy share of the call's wall time.  Returns ``(busy us,
         wall us, {op or kernel: calls}, {kernel: device us})`` of the
-        profiled call."""
+        profiled call; ``ops_device`` (a dict) receives each host op's
+        device time, the kernels it launched (us)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile, schedule
         with profile(activities=[ProfilerActivity.CPU,
@@ -1771,6 +1827,10 @@ def main(device: str = "cuda") -> None:
                   if e.key.startswith(("Memcpy", "Memset"))}
         print(f"[{tag} trace] {label}: memcpy / memset rows "
               f"{copies or 'none'}")
+        if ops_device is not None:
+            ops_device.update({e.key: e.device_time_total
+                               for e in prof.key_averages()
+                               if e.device_type == DeviceType.CPU})
         return (busy, wall_us,
                 {e.key: e.count for e in prof.key_averages()},
                 {e.key: e.self_device_time_total for e in events})
@@ -3016,12 +3076,18 @@ def main(device: str = "cuda") -> None:
              for k in ("tokens", "labels")}
     step = steps.make_train_step(lm, OptConfig(**BAND_OPT))
     state = adamw.init(lm.parameters())
-    # one GeMM-SpMM for the forward and one for dB, three spmm_ell calls
-    # (the forward's and dB's wavefront 1, Aᵀ·Ḋ for dWv), a batch row a
-    # layer (PERF.md §6)
+    # a batch row a layer: the forward's GeMM-SpMM and its wavefront-1
+    # spmm_ell, run again by the remat recompute in the backward (the
+    # config's remat="dots" recomputes the block, the mixer's autograd
+    # Functions included), then one GeMM-SpMM for dB and two spmm_ell
+    # calls (dB's wavefront 1, Aᵀ·Ḋ for dWv) (PERF.md §6)
+    fwd_runs = 1 if band_cfg.remat == "none" else 2
+    rows14 = BAND_BATCH * band_cfg.n_layers
     expect = {**dict.fromkeys(GCN_KERNELS, 0),
-              "tile_fused_gemm_spmm_wf0": 2 * BAND_BATCH * band_cfg.n_layers,
-              "spmm_ell": 3 * BAND_BATCH * band_cfg.n_layers}
+              "tile_fused_gemm_spmm_wf0": (fwd_runs + 1) * rows14,
+              "spmm_ell": (fwd_runs + 2) * rows14}
+    print(f"[14c train] remat {band_cfg.remat!r}: the forward's kernels run "
+          f"{fwd_runs} time(s) a step; expected launches a step {expect}")
     losses, lat, per_step, misses = [], [], [], []
     for i in range(BAND_STEPS):
         t0 = time.perf_counter()
@@ -3071,34 +3137,61 @@ def main(device: str = "cuda") -> None:
     torch.cuda.empty_cache()
 
     # the 2-layer f32 cut of the same widths: step-1 gradients of every
-    # parameter, impl="cuda" against impl="torch"
+    # parameter, impl="cuda" against impl="torch" (both under the config's
+    # remat), then remat "full" and "dots" against "none" on impl="cuda"
     cut_cfg = dataclasses.replace(band_cfg, n_layers=BAND_CUT_LAYERS,
                                   dtype="float32")
-    cut = T.Transformer(cut_cfg, device=dev, seed=0)
-    cut_grads = {}
-    for impl in ("cuda", "torch"):
-        for p in cut.parameters():
-            p.grad = None
+    cut_grads, cut_counts = {}, {}
+    for impl, remat in (("cuda", cut_cfg.remat), ("torch", cut_cfg.remat),
+                        ("cuda", "none"), ("cuda", "full"),
+                        ("cuda", "dots")):
+        cut = T.Transformer(dataclasses.replace(cut_cfg, remat=remat),
+                            device=dev, seed=0)
 
         def cut_backward():
-            logits = cut(batch["tokens"], impl=impl)
+            logits = cut(batch["tokens"], impl=impl, train=True)
             steps.cross_entropy(logits, batch["labels"]).backward()
         if impl == "cuda":
-            _, counts = counted14(cut_backward)
+            _, cut_counts[remat] = counted14(cut_backward)
         else:
             cut_backward()
-        cut_grads[impl] = {n: p.grad.clone()
-                           for n, p in cut.named_parameters()}
-    errs = {n: rel_err(g, cut_grads["torch"][n])[1]
-            for n, g in cut_grads["cuda"].items()}
+        cut_grads[impl, remat] = {n: p.grad for n, p in
+                                  cut.named_parameters()}
+        del cut
+    errs = {n: rel_err(g, cut_grads["torch", cut_cfg.remat][n])[1]
+            for n, g in cut_grads["cuda", cut_cfg.remat].items()}
     worst = max(errs, key=errs.get)
     print(f"[14c cut] {BAND_CUT_LAYERS}-layer f32 cut: step-1 gradients of "
-          f"{len(errs)} parameters, impl='cuda' vs impl='torch': largest "
-          f"rel err {errs[worst]:.2e} ({worst}); launches {counts}")
+          f"{len(errs)} parameters, impl='cuda' vs impl='torch' (remat "
+          f"{cut_cfg.remat!r}): largest rel err {errs[worst]:.2e} ({worst});"
+          f" launches by remat {cut_counts}")
     if errs[worst] > TOL["float32"]:
         fail(f"phase 14c: the cut's gradients disagree ({worst} "
              f"{errs[worst]:.2e})")
-    del cut, cut_grads, batch
+    none_grads = cut_grads["cuda", "none"]
+    for remat in ("full", "dots"):
+        errs = {n: rel_err(g, none_grads[n])[1]
+                for n, g in cut_grads["cuda", remat].items()}
+        worst = max(errs, key=errs.get)
+        same = all(torch.equal(g, none_grads[n])
+                   for n, g in cut_grads["cuda", remat].items())
+        print(f"[14c cut] remat {remat!r} vs 'none' on impl='cuda': "
+              f"largest rel err {errs[worst]:.2e} ({worst}); equal bit for "
+              f"bit: {same}")
+        if errs[worst] > REMAT_TOL:
+            fail(f"phase 14c: remat {remat!r} changes the gradients "
+                 f"({worst} {errs[worst]:.2e})")
+        # the recompute runs each block's forward once more: one
+        # GeMM-SpMM and one spmm_ell a batch row a layer
+        again = BAND_BATCH * BAND_CUT_LAYERS
+        if cut_counts[remat] != {
+                **cut_counts["none"],
+                "tile_fused_gemm_spmm_wf0":
+                    cut_counts["none"]["tile_fused_gemm_spmm_wf0"] + again,
+                "spmm_ell": cut_counts["none"]["spmm_ell"] + again}:
+            fail(f"phase 14c: remat {remat!r} launches {cut_counts[remat]}"
+                 f", expected one more forward's than {cut_counts['none']}")
+    del cut_grads, none_grads, batch
     torch.cuda.empty_cache()
 
     print(f"[14] kernel launches in phase 14's counted paths: {launches14}")
@@ -3108,6 +3201,207 @@ def main(device: str = "cuda") -> None:
     for k, v in launches14.items():
         path_launches[k] += v
     print(f"[14] phase 14 took {time.perf_counter() - t14:.1f} s")
+
+    # ---- 15. LM training: the dense decoder at full width ----
+    # The training attention is layers.scan_attention, the reference's
+    # chunked XLA attention in plain PyTorch; the flash kernel serves only
+    # and its wrapper refuses grad, so this path launches none of the six
+    # kernels, and its counts must stay 0.
+    t15 = time.perf_counter()
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import layers as LM
+    dense_cfg = get_config(DENSE_ARCH, reduced=DENSE_REDUCED)
+    bf16 = torch.bfloat16
+    heads, hd = dense_cfg.n_heads, dense_cfg.head_dim
+    g15 = torch.Generator(device=dev).manual_seed(150)
+
+    # ---- 15a. scan_attention at the training shape ----
+    cb, ch = ATTN_CUT
+    lower = torch.ones(DENSE_SEQ, DENSE_SEQ, dtype=torch.bool,
+                       device=dev).tril()
+    for dname, tol in ATTN_ORACLE_TOL.items():
+        qkv = [torch.randn(cb, ch, DENSE_SEQ, hd, device=dev, generator=g15)
+               .to(getattr(torch, dname)) for _ in range(3)]
+        wc = torch.randn(cb, ch, DENSE_SEQ, hd, device=dev, generator=g15)
+        leaves = [t.clone().requires_grad_() for t in qkv]
+        out = LM.scan_attention(*leaves, causal=True)
+        (out.float() * wc).sum().backward()
+        o64 = [t.double().requires_grad_() for t in qkv]
+        want = torch.softmax(
+            (o64[0] @ o64[1].transpose(-1, -2) / hd ** 0.5)
+            .masked_fill(~lower, float("-inf")), -1) @ o64[2]
+        (want * wc.double()).sum().backward()
+        errs15 = {n: rel_err(g, w)[1] for n, g, w in zip(
+            ("out", "dq", "dk", "dv"), [out] + [t.grad for t in leaves],
+            [want] + [t.grad for t in o64])}
+        print(f"[15a attention] scan_attention {dname} causal, B {cb} H {ch}"
+              f" S {DENSE_SEQ} D {hd}, forward and backward vs an f64 dense"
+              f" oracle: rel err "
+              f"{', '.join(f'{k} {v:.2e}' for k, v in errs15.items())} "
+              f"(limit {tol:.2e})")
+        if max(errs15.values()) > tol:
+            fail(f"phase 15a: scan_attention {dname} disagrees with the f64 "
+                 f"oracle {errs15}")
+    del qkv, wc, leaves, out, o64, lower, want
+    shape15 = (DENSE_BATCH, heads, DENSE_SEQ, hd)
+    q15, k15, v15 = (torch.randn(shape15, device=dev, generator=g15).to(bf16)
+                     for _ in range(3))
+    dout15 = torch.randn(shape15, device=dev, generator=g15).to(bf16)
+    with torch.no_grad():
+        got = LM.scan_attention(q15, k15, v15, causal=True)
+        flash = ops.flash_attention(q15, k15, v15, causal=True)
+    err_abs, err_rows = rel_err(got, flash, rows=True)
+    print(f"[15a attention] B {DENSE_BATCH} H {heads} S {DENSE_SEQ} D {hd} "
+          f"bf16 causal: scan_attention vs the flash kernel ("
+          f"{flash_last_path()}) under no_grad: max abs err {err_abs:.3e}, "
+          f"row rel err {err_rows:.3e} (limit {LM_BF16_TOL:.3e})")
+    if err_rows > LM_BF16_TOL:
+        fail(f"phase 15a: scan_attention disagrees with the flash kernel "
+             f"({err_rows:.3e})")
+    del got, flash
+
+    def fwd_bwd(attn):
+        leaves = [t.detach().requires_grad_() for t in (q15, k15, v15)]
+        attn(*leaves).backward(dout15)
+
+    def scan(*t):
+        return LM.scan_attention(*t, causal=True)
+
+    def sdpa(*t):
+        return F.scaled_dot_product_attention(*t, is_causal=True)
+    attn_ms = {}
+    for name, attn in (("scan_attention", scan), ("sdpa", sdpa)):
+        with torch.no_grad():
+            fwd = time_ms(lambda: attn(q15, k15, v15), iters=5)
+        attn_ms[name] = (fwd, time_ms(lambda: fwd_bwd(attn), iters=5))
+    with torch.no_grad():
+        flash_ms = time_ms(lambda: ops.flash_attention(q15, k15, v15,
+                                                       causal=True), iters=5)
+    (s_f, s_fb), (y_f, y_fb) = attn_ms["scan_attention"], attn_ms["sdpa"]
+    print(f"[15a attention] per call (CUDA events, 5 calls after 3): "
+          f"scan_attention forward {s_f:.3f} ms, forward + backward "
+          f"{s_fb:.3f} ms; F.scaled_dot_product_attention (a yardstick, "
+          f"never on the path) forward {y_f:.3f} ms, forward + backward "
+          f"{y_fb:.3f} ms; the flash kernel's forward {flash_ms:.3f} ms; "
+          f"under remat the step runs the forward twice a layer: "
+          f"{dense_cfg.n_layers} x ({s_f:.1f} + {s_fb:.1f}) = "
+          f"{dense_cfg.n_layers * (s_f + s_fb):.1f} ms of attention a step "
+          f"(SDPA's the same way {dense_cfg.n_layers * (y_f + y_fb):.1f} "
+          f"ms)")
+    del q15, k15, v15, dout15
+    torch.cuda.empty_cache()
+
+    # ---- 15b. the trainer: launch.train.main in-process, full width ----
+    torch.cuda.reset_peak_memory_stats()
+    held15 = torch.cuda.memory_allocated()
+    argv15 = ["--arch", DENSE_ARCH, "--steps", str(DENSE_STEPS), "--batch",
+              str(DENSE_BATCH), "--seq", str(DENSE_SEQ), "--log-every", "1"
+              ] + ["--reduced"] * DENSE_REDUCED
+    print(f"[15b train] launch.train.main({argv15}): {dense_cfg.name} "
+          f"{dense_cfg.n_layers} layers, d {dense_cfg.d_model}, {heads} "
+          f"heads of {hd}, d_ff {dense_cfg.d_ff}, vocab "
+          f"{dense_cfg.vocab_size}, {dense_cfg.dtype}, remat "
+          f"{dense_cfg.remat!r}", flush=True)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = train_cli.main(argv15)
+    torch.cuda.synchronize()
+    wall15 = time.perf_counter() - t0
+    launches15 = ops.launch_counts()
+    peak15 = torch.cuda.max_memory_allocated()
+    losses15 = run.losses
+    lat15 = [t * 1e3 for t in run.step_s]
+    p50_15 = float(np.median(lat15[1:]))
+    n_params15 = sum(p.numel() for p in run.model.parameters())
+    tokens15 = DENSE_BATCH * DENSE_SEQ
+    model_tflops = 6 * n_params15 * tokens15 / (p50_15 / 1e3) / 1e12
+    print(f"[15b train] {DENSE_STEPS} steps of {DENSE_BATCH} x {DENSE_SEQ} "
+          f"tokens in {wall15:.1f} s (model built, steps, host data): "
+          f"{n_params15 / 1e9:.3f} B parameters; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses15)}")
+    print(f"[15b train] step p50 {p50_15:.1f} ms, max {max(lat15[1:]):.1f} "
+          f"ms over steps 2-{DENSE_STEPS} (host clock around the step; "
+          f"reading the loss waits for the device; step 1 {lat15[0]:.1f} "
+          f"ms), {tokens15 / (p50_15 / 1e3):.0f} tokens/s, 6·N·tokens "
+          f"{model_tflops:.1f} TFLOP/s ({model_tflops * 1e12 / PEAK_OPS['bfloat16']:.3f}"
+          f" of the bf16 peak; attention not counted); peak device memory "
+          f"{peak15 / 2**30:.2f} GiB, of it {held15 / 2**30:.2f} GiB held "
+          f"by earlier phases: the run's own {(peak15 - held15) / 1e9:.2f}"
+          f" GB (reckoned ~{DENSE_RECKONED_GB} GB); kernel launches "
+          f"{launches15}")
+    if not all(np.isfinite(losses15)) or not min(losses15[2:]) < losses15[0]:
+        fail(f"phase 15b: losses {losses15}")
+    if len(losses15) != DENSE_STEPS:
+        fail(f"phase 15b: {len(losses15)} steps ran")
+    if any(launches15.values()):
+        fail(f"phase 15b: the dense training path launched {launches15}; "
+             f"its attention is scan_attention, no flash kernel")
+    stream15 = SyntheticStream(DataConfig(
+        vocab_size=dense_cfg.vocab_size, seq_len=DENSE_SEQ,
+        global_batch=DENSE_BATCH))
+    batch15 = {k: torch.from_numpy(v).to(dev)
+               for k, v in stream15.batch_at(DENSE_STEPS).items()}
+    state15 = [run.opt_state]
+
+    def dense_step():
+        state15[0], _ = run.train_step(state15[0], batch15)
+    ops15 = {}
+    busy, wall, _, _ = trace("15b", "dense training step", dense_step,
+                             top=14, ops_device=ops15)
+    bmm_us, mm_us = ops15.get("aten::bmm", 0.0), ops15.get("aten::mm", 0.0)
+    print(f"[15b train] traced step: device busy {busy / 1e3:.1f} ms of "
+          f"{wall / 1e3:.1f} ms ({busy / wall:.3f}); the attention's f32 "
+          f"products (aten::bmm: forward, remat recompute and backward; "
+          f"the projections are aten::mm) {bmm_us / 1e3:.1f} ms of the busy "
+          f"time ({bmm_us / busy:.3f}); aten::mm {mm_us / 1e3:.1f} ms "
+          f"({mm_us / busy:.3f})")
+    del run, state15, batch15
+    torch.cuda.empty_cache()
+
+    # ---- 15c. preemption and resume at --reduced ----
+    ck15 = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck15, ignore_errors=True)
+    d_cut, d_clean = ck15 / "interrupted", ck15 / "clean"
+    try:
+        train_cli.main(RESUME_ARGS + ["--ckpt-dir", str(d_cut),
+                                      "--simulate-preemption", "6"])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    if code != 17 or latest_step(str(d_cut)) != 6:
+        fail(f"phase 15c: the preempted run exited {code} with step "
+             f"{latest_step(str(d_cut))} saved")
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        train_cli.main(RESUME_ARGS + ["--ckpt-dir", str(d_cut)])
+    print(log.getvalue(), end="")
+    if "[restore] resumed from step 6" not in log.getvalue():
+        fail("phase 15c: the rerun did not resume from step 6")
+    train_cli.main(RESUME_ARGS + ["--ckpt-dir", str(d_clean)])
+    leaf_names = sorted(f.name for f in (d_clean / "step_00000008").iterdir()
+                        if f.suffix == ".npy")
+    differ = []
+    for f in leaf_names:
+        a = np.load(d_cut / "step_00000008" / f)
+        b = np.load(d_clean / "step_00000008" / f)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            differ.append(f"{f} {a.shape}")
+    print(f"[15c resume] {' '.join(RESUME_ARGS)}: preempted at step 6 "
+          f"(exit 17), resumed from step 6; step-8 leaves equal to an "
+          f"uninterrupted run's bit for bit: {len(leaf_names) - len(differ)}"
+          f" of {len(leaf_names)}")
+    shutil.rmtree(ck15, ignore_errors=True)
+    if differ or not leaf_names:
+        fail(f"phase 15c: resumed leaves differ from the uninterrupted "
+             f"run's: {differ}")
+    print(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s")
 
     sources = {
         "spmm_ell": ("src/repro_torch/csrc/spmm_ell.cu",

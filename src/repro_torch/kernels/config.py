@@ -56,8 +56,10 @@ def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
             f"Pallas kernel has none either), so under grad mode its output "
             f"would leave the autograd graph; run it under torch.no_grad() "
             f"or torch.inference_mode(), or take the differentiable plain "
-            f"version with impl='torch' (dense-attention training on the "
-            f"card: ROADMAP Queue 1 item 2)")
+            f"version with impl='torch'; to train, ask the model for its "
+            f"training forward (Transformer.forward(..., train=True), as "
+            f"launch.steps.make_train_step does), whose attention is "
+            f"layers.scan_attention")
 
 
 #: dtype codes the launchers take (``csrc/common.cuh``)

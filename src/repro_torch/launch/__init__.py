@@ -1,2 +1,2 @@
-"""Entry points of the port: step factories (``steps``) and the serving CLI
-(``serve``)."""
+"""Entry points of the port: step factories (``steps``), the serving CLI
+(``serve``) and the LM training driver (``train``)."""

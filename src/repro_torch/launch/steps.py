@@ -2,10 +2,11 @@
 step.
 
 Twins of ``repro.launch.steps`` without ``jit``: PyTorch runs eagerly.  The
-LM train step differentiates the model's ``forward`` with autograd and
-updates its parameters in place with ``optim.adamw``; the prefill and
-serve steps run under ``torch.inference_mode()``, so they record no graph
-now that the parameters require grad.
+LM train step differentiates the model's training forward
+(``forward(..., train=True)``: ``scan_attention`` and ``cfg.remat``) with
+autograd and updates its parameters in place with ``optim.adamw``; the
+prefill and serve steps run under ``torch.inference_mode()``, so they
+record no graph now that the parameters require grad.
 """
 from __future__ import annotations
 
@@ -24,9 +25,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
 
 def make_loss_fn(model, *, impl: str = "cuda"):
     """``loss_fn(batch) -> (loss, {"loss": loss})`` for ``batch =
-    {"tokens": (B, S), "labels": (B, S)}``, at the model's parameters."""
+    {"tokens": (B, S), "labels": (B, S)}``, at the model's parameters,
+    through its training forward."""
     def loss_fn(batch):
-        logits = model(batch["tokens"], impl=impl)
+        logits = model(batch["tokens"], impl=impl, train=True)
         loss = cross_entropy(logits, batch["labels"])
         return loss, {"loss": loss}
     return loss_fn

@@ -6,8 +6,12 @@ dicts of tensors (an ``nn.ParameterDict`` works as one) and every layer is
 ``fn(params, ..., x) -> y``.  Layouts are the reference's: attention
 tensors are ``(B, H, S, D)`` and weights are ``(in, out)``.  Prefill
 attention (``chunked_attention``) runs the hand-written flash kernel on the
-card and its plain version on the CPU; everything else is plain PyTorch
-(products outside any Pallas kernel were left to XLA by the reference).
+card and its plain version on the CPU.  Training attention
+(``scan_attention``) is the reference's own ``chunked_attention`` body, the
+XLA function its training step differentiates, in plain PyTorch: the
+reference never trains through its Pallas flash kernel, and the port's
+flash kernel has no backward.  Everything else is plain PyTorch (products
+outside any Pallas kernel were left to XLA by the reference).
 Not in this module yet: MLA, cross-attention, the MoE layer and the
 sharding rules (ROADMAP Queue 1).
 """
@@ -74,6 +78,53 @@ def chunked_attention(q, k, v, *, causal=True, window=0, impl="cuda"):
                                impl=impl)
 
 
+def scan_attention(q, k, v, *, causal=True, window=0, chunk=1024,
+                   q_offset=0):
+    """Training attention: the twin of the reference's ``chunked_attention``
+    (``repro.models.layers``), step for step, differentiated by autograd.
+
+    q ``(B, H, Sq, D)``; k, v ``(B, Hkv, Sk, D)`` with ``H % Hkv == 0``;
+    ``q_offset`` is the absolute position of ``q[:, :, 0]``.  k and v are
+    padded to whole ``chunk``s (the padding masked), each chunk is repeated
+    to H heads (``repeat_interleave``, as ``jnp.repeat``), and the online
+    softmax runs in f32 over the chunks with the reference's masks at
+    ``-1e30``; the output is cast back to q's dtype."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = h // hkv
+    scale = 1.0 / d ** 0.5
+    n_chunks = -(-sk // chunk)
+    pad = n_chunks * chunk - sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+    q32 = q.float()
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    for ci in range(n_chunks):
+        cols = slice(ci * chunk, (ci + 1) * chunk)
+        kb = k[:, :, cols].repeat_interleave(rep, dim=1).float()
+        vb = v[:, :, cols].repeat_interleave(rep, dim=1).float()
+        s = torch.einsum("bhqd,bhkd->bhqk", q32, kb) * scale
+        k_pos = ci * chunk + torch.arange(chunk, device=q.device)
+        mask = k_pos[None, :] < sk                     # padding
+        if causal:
+            mask = mask & (k_pos[None, :] <= q_pos[:, None])
+        if window > 0:
+            mask = mask & ((q_pos[:, None] - k_pos[None, :]) < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        m = m_new
+    return (acc / torch.where(l == 0, 1.0, l)).to(q.dtype)
+
+
 # ---------------------------------------------------------- GQA attention ----
 def gqa_init(gen, cfg, dtype, device=None) -> dict:
     d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -133,16 +184,25 @@ def _write_slots(cache, new, start: int) -> None:
 
 
 def gqa_attention(p, cfg, x, *, pos, cache=None, cache_len=None,
-                  window: int = 0, impl: str = "cuda"):
+                  window: int = 0, impl: str = "cuda", train: bool = False):
     """Self-attention.  With ``cache=(k_cache, v_cache)`` (this layer's
     ``(B, Hkv, C, dh)`` slabs) it runs a batched prefill from an empty cache
     (S > 1, ``cache_len == 0``) or one decode step (S == 1) and writes the
     new keys and values into the slabs in place (the reference returns new
     arrays); returns ``(out, cache)``.  When ``window > 0`` the cache is a
-    ring buffer of ``window`` slots."""
+    ring buffer of ``window`` slots.  ``train=True`` (a training forward,
+    no cache) takes ``scan_attention`` on any device and ignores ``impl``;
+    otherwise the attention is ``chunked_attention``, whose flash kernel
+    refuses grad on the card."""
     b, s, _ = x.shape
     q, k, v = gqa_qkv(p, cfg, x, pos)
-    if cache is not None:
+    if train:
+        if cache is not None:
+            raise ValueError("a training forward takes no KV cache")
+        out = scan_attention(q, k, v, causal=not cfg.is_encoder,
+                             window=window)
+        new_cache = None
+    elif cache is not None:
         k_cache, v_cache = cache
         c = k_cache.shape[2]
         if s > 1:

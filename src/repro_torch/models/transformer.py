@@ -12,22 +12,33 @@ in place.
 
 The parameters are trainable and ``forward`` follows the caller's grad
 mode: ``launch.steps.make_train_step`` trains the model with AdamW, and the
-serving steps run under ``torch.inference_mode()``.  On the card only the
-``sparse-band`` pattern trains: its mixer differentiates through
-``tile_fused_matmul``, while the flash kernel has no backward and its
-wrapper raises under grad (ROADMAP Queue 1).  ``cfg.remat`` has no effect
-here: no layer is recomputed in the backward (stablelm-1.6b's
-``sparse-band`` step at 4 × 2048 tokens fits the H100's 80 GB with its
-~19 GB of parameters, gradients and AdamW moments).
+serving steps run under ``torch.inference_mode()``.  A training forward is
+asked for explicitly, ``forward(tokens, train=True)``, never inferred from
+the grad mode.  In it an ``attn`` block's attention is
+``layers.scan_attention``, the reference's own chunked XLA attention in
+plain PyTorch (the flash kernel has no backward and its wrapper raises
+under grad on the card), and a ``sparse-band`` block's mixer
+differentiates through ``tile_fused_matmul``'s kernels.  Each block of a
+training forward runs under ``cfg.remat``, the twin of the reference's
+``_maybe_remat``: ``"none"`` keeps every activation, ``"full"``
+recomputes the whole block in the backward, and ``"dots"`` (every
+full-width config) keeps only the 2-D projections' outputs (``aten.mm`` /
+``aten.addmm``, the reference's ``dots_with_no_batch_dims_saveable``) and
+recomputes the rest, the attention's batched products included.
 
 Other block patterns, the encoder, MoE and MLA raise
 ``NotImplementedError``: later slices bring them (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
+import functools
+import operator
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 from . import ssm as S
@@ -52,6 +63,34 @@ def check_supported(cfg) -> None:
             f"have yet (ROADMAP Queue 1, the LM stack)")
 
 
+#: the ops whose outputs ``remat="dots"`` keeps for the backward: the 2-D
+#: products, as ``dots_with_no_batch_dims_saveable`` keeps the dots without
+#: batch dimensions; ``bmm`` (the attention's einsums) is recomputed
+SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(policy: str, fn):
+    """``fn`` wrapped in the remat ``policy`` (``"none"`` | ``"full"`` |
+    ``"dots"``): ``torch.utils.checkpoint`` without reentry, with the
+    selective policy for ``"dots"``."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if policy == "dots":
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _dots_policy))
+    raise ValueError(f"remat must be 'none', 'full' or 'dots', got "
+                     f"{policy!r}")
+
+
 def _params(d: dict) -> nn.ParameterDict:
     return nn.ParameterDict({k: nn.Parameter(v) for k, v in d.items()})
 
@@ -71,11 +110,12 @@ class Block(nn.Module):
         self.ffn = _params(L.ffn_init(gen, cfg, dtype, device))
 
     def forward(self, cfg, x, pos, cache=None, cache_len=None,
-                impl="cuda"):
+                impl="cuda", train=False):
         h = L.rms_norm(self.ln1, x, cfg.norm_eps)
         a, new_cache = L.gqa_attention(self.attn, cfg, h, pos=pos,
                                        cache=cache, cache_len=cache_len,
-                                       window=cfg.window, impl=impl)
+                                       window=cfg.window, impl=impl,
+                                       train=train)
         x = x + a
         h = L.rms_norm(self.ln2, x, cfg.norm_eps)
         return x + L.ffn_apply(self.ffn, cfg, h), new_cache
@@ -146,57 +186,109 @@ class Transformer(nn.Module):
         stacked = {id(p) for p in self.blocks.parameters()}
         return [p.dim() + (id(p) in stacked) >= 2 for p in self.parameters()]
 
-    @torch.no_grad()
-    def params_from_jax(self, params) -> None:
-        """Copy the reference's ``init_params(cfg, key)`` tree (arrays or
-        numpy arrays; layer weights stacked on a leading layer axis)."""
-        def load(dst, src):
-            src = np.array(src, np.float32)
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"shape {src.shape} for a parameter of "
-                                 f"shape {tuple(dst.shape)}")
-            dst.copy_(torch.from_numpy(src))
-
-        def load_dict(dst: nn.ParameterDict, src: dict, index=None):
-            if set(dst) != set(src):
-                raise ValueError(f"keys {sorted(src)} for {sorted(dst)}")
-            for name, p in dst.items():
-                load(p, src[name] if index is None else src[name][index])
-
+    def from_tree(self, tree) -> list:
+        """The leaves of a tree in the reference's layout (``init_params``'s
+        keys, each block weight stacked on a leading layer axis), one a
+        parameter in ``parameters()`` order: row ``i`` of a stacked leaf
+        for block ``i``.  Raises ``ValueError`` for other keys or another
+        layer count.  The inverse of ``to_tree``."""
         expected = {"tok", "ln_f", "layers"}
-        if set(params) != expected:
-            raise ValueError(f"keys {sorted(params)}, expected "
+        if set(tree) != expected:
+            raise ValueError(f"keys {sorted(tree)}, expected "
                              f"{sorted(expected)}")
-        load_dict(self.tok, params["tok"])
-        load(self.ln_f, params["ln_f"])
-        layers = params["layers"]
+        layers = tree["layers"]
         mixer = "mix" if self.sparse_band else "attn"
         if set(layers) != {"ln1", "ln2", mixer, "ffn"}:
             raise ValueError(f"layer keys {sorted(layers)}, expected "
                              f"{sorted({'ln1', 'ln2', mixer, 'ffn'})}")
-        n = np.shape(layers["ln1"])[0]
+        n = len(layers["ln1"])
         if n != len(self.blocks):
             raise ValueError(f"{n} layers for {len(self.blocks)} blocks")
-        for i, blk in enumerate(self.blocks):
-            load(blk.ln1, layers["ln1"][i])
-            load(blk.ln2, layers["ln2"][i])
-            load_dict(getattr(blk, mixer), layers[mixer], i)
-            load_dict(blk.ffn, layers["ffn"], i)
 
-    def forward(self, tokens: torch.Tensor, *, impl: str = "cuda"):
+        for dst, src in [(self.tok, tree["tok"]),
+                         (getattr(self.blocks[0], mixer), layers[mixer]),
+                         (self.blocks[0].ffn, layers["ffn"])]:
+            if set(dst) != set(src):
+                raise ValueError(f"keys {sorted(src)} for {sorted(dst)}")
+
+        def leaf(name):
+            path = name.split(".")
+            if path[0] != "blocks":
+                return functools.reduce(operator.getitem, path, tree)
+            return functools.reduce(operator.getitem, path[2:],
+                                    layers)[int(path[1])]
+        return [leaf(name) for name, _ in self.named_parameters()]
+
+    def to_tree(self, tensors) -> dict:
+        """One tensor a parameter, in ``parameters()`` order, as a tree in
+        the reference's layout: the blocks' tensors stacked on a leading
+        layer axis (the AdamW moments take the same form)."""
+        named = dict(zip((n for n, _ in self.named_parameters()), tensors))
+        layers = {}
+        for name, _ in self.blocks[0].named_parameters():
+            *path, leaf = name.split(".")
+            node = layers
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = torch.stack([named[f"blocks.{i}.{name}"]
+                                      for i in range(len(self.blocks))])
+        return {"tok": {k: named[f"tok.{k}"] for k in self.tok},
+                "ln_f": named["ln_f"], "layers": layers}
+
+    @torch.no_grad()
+    def param_tree(self) -> dict:
+        """The parameters as the reference's ``init_params`` tree: tensors
+        of the model's dtype on its device, the layers stacked."""
+        return self.to_tree(p.detach() for p in self.parameters())
+
+    def params_to_jax(self) -> dict:
+        """The inverse of ``params_from_jax``: the parameter tree as nested
+        numpy arrays.  numpy has no bf16, so bf16 parameters come back
+        widened to f32, exactly; ``params_from_jax`` takes them back bit
+        for bit (``param_tree`` keeps the dtype)."""
+        def to_numpy(node):
+            if isinstance(node, dict):
+                return {k: to_numpy(v) for k, v in node.items()}
+            t = node.cpu()
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        return to_numpy(self.param_tree())
+
+    @torch.no_grad()
+    def params_from_jax(self, params) -> None:
+        """Copy the reference's ``init_params(cfg, key)`` tree (arrays,
+        numpy arrays or tensors; layer weights stacked on a leading layer
+        axis)."""
+        for dst, src in zip(self.parameters(), self.from_tree(params)):
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"shape {tuple(src.shape)} for a parameter "
+                                 f"of shape {tuple(dst.shape)}")
+            if not isinstance(src, torch.Tensor):
+                src = torch.from_numpy(np.array(src, np.float32))
+            dst.copy_(src)
+
+    def forward(self, tokens: torch.Tensor, *, impl: str = "cuda",
+                train: bool = False):
         """tokens ``(B, S)`` → logits ``(B, S, V)``; records a graph when
-        grad mode is on (the train step), none under ``inference_mode``."""
+        grad mode is on, none under ``inference_mode``.  ``train=True`` is
+        a training forward: ``scan_attention`` in the ``attn`` blocks and
+        each block under ``cfg.remat``."""
         cfg = self.cfg
         x = self.tok["embed"][tokens]
         if self.sparse_band:
             a_band = S.decay_band_csr(x.shape[1], cfg.band_window,
                                       cfg.band_decay)
-            for blk in self.blocks:
-                x = blk(cfg, x, a_band, impl=impl)
+
+            def run(blk, x):
+                return blk(cfg, x, a_band, impl=impl)
         else:
             pos = torch.arange(x.shape[1], device=x.device)
-            for blk in self.blocks:
-                x, _ = blk(cfg, x, pos, impl=impl)
+
+            def run(blk, x):
+                return blk(cfg, x, pos, impl=impl, train=train)[0]
+        if train:
+            run = remat(cfg.remat, run)
+        for blk in self.blocks:
+            x = run(blk, x)
         x = L.rms_norm(self.ln_f, x, self.cfg.norm_eps)
         return x @ self.tok["lm_head"]
 

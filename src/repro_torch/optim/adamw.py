@@ -11,6 +11,11 @@ bool a parameter.  The reference decays a leaf of rank 2 or more of its
 parameter tree, in which every per-layer weight is stacked on a leading
 layer axis, so the layers' norm gains are decayed and ``ln_f`` is not;
 ``models.transformer.Transformer.decay_mask`` gives that set.
+
+``state_to_tree`` / ``state_from_tree`` carry the state to and from the
+reference's ``OptState(step, mu, nu)`` tree (``step`` an int32 0-d, the
+moments f32 in the parameter tree's layout), which is what a checkpoint
+holds.
 """
 from __future__ import annotations
 
@@ -85,3 +90,24 @@ def update(cfg: OptConfig, grads, state: OptState, params, decay):
         p.copy_(p32.sub_(step_, alpha=lr))
     return OptState(step, state.mu, state.nu), {"grad_norm": gnorm,
                                                 "lr": lr}
+
+
+def state_to_tree(state: OptState, model) -> OptState:
+    """The reference's ``OptState`` tree of ``state``: ``step`` an int32 0-d
+    tensor, ``mu`` and ``nu`` in ``model.to_tree``'s layout (f32, the
+    layers stacked)."""
+    return OptState(step=torch.tensor(state.step, dtype=torch.int32),
+                    mu=model.to_tree(state.mu), nu=model.to_tree(state.nu))
+
+
+def state_from_tree(tree, model) -> OptState:
+    """The inverse of ``state_to_tree``: from a ``(step, mu, nu)`` tree of
+    tensors (as ``checkpoint.restore`` gives it), the moments as fresh f32
+    tensors, one a parameter on its device."""
+    step, mu, nu = tree
+    params = list(model.parameters())
+
+    def moments(t):
+        return [m.to(device=p.device, dtype=torch.float32, copy=True)
+                for p, m in zip(params, model.from_tree(t))]
+    return OptState(step=int(step), mu=moments(mu), nu=moments(nu))

@@ -2,7 +2,9 @@
 version, the ``cuda`` arm against the ``torch`` arm (forward, gradients
 and a GCN training step, the serving tier's requests), the LM served on
 the card, and LM training (the sparse-band mixer and train step on the
-kernel arm against the plain arm; a dense train step refused).
+kernel arm against the plain arm; the dense train step through
+``scan_attention`` against an f64 oracle, remat's gradients, the
+trainer's resume).
 
 Every test here carries the ``gpu`` marker and skips, with its reason,
 where there is no CUDA device of compute capability 9.0+ (the decision is
@@ -23,6 +25,7 @@ the bf16 rounding of H summed over f (test_torch_lm_kernels.py grounds
 that limit at published widths).
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1304,18 +1307,129 @@ def test_sparse_band_train_step_on_the_card(card, monkeypatch):
 
 
 def test_dense_attention_training_refuses_the_card(card):
-    """The flash kernel has no backward: a dense ``attn`` train step on
-    the card raises instead of leaving the attention weights without
-    gradients; inference on the same model still runs."""
+    """The flash kernel has no backward: a dense ``attn`` forward under
+    grad that is not a training forward (the route a caller forgot) raises
+    on the card instead of leaving the attention weights without
+    gradients; the train step, whose forward is ``train=True``, trains
+    through ``scan_attention`` and launches no flash kernel; inference on
+    the same model still runs."""
     from repro_torch.launch import steps
     from repro_torch.optim import OptConfig, adamw
     cfg = get_config("qwen2.5-3b", reduced=True)
     model = T.Transformer(cfg, seed=0)
     toks = torch.randint(0, cfg.vocab_size, (2, 16), device=card)
-    step = steps.make_train_step(model, OptConfig())
     with pytest.raises(NotImplementedError, match="no backward"):
-        step(adamw.init(model.parameters()),
-             {"tokens": toks, "labels": toks})
+        model(toks)
+    step = steps.make_train_step(model, OptConfig())
+    ops.reset_launch_counts()
+    _, m = step(adamw.init(model.parameters()),
+                {"tokens": toks, "labels": toks})
+    assert bool(torch.isfinite(m["loss"]))
+    assert ops.launch_counts()["flash_attention"] == 0
     logits = steps.make_prefill_step(model)(toks)
     assert logits.shape == (2, 16, cfg.vocab_size)
     assert logits.grad_fn is None and bool(torch.isfinite(logits).all())
+
+
+def _attention_f64(q, k, v, causal, window):
+    """Dense f64 attention with the reference's masks (K/V heads repeated
+    to the query heads)."""
+    h, hkv, sq, sk = q.shape[1], k.shape[1], q.shape[2], k.shape[2]
+    q, k, v = (t.double() for t in (q, k, v))
+    k = k.repeat_interleave(h // hkv, dim=1)
+    v = v.repeat_interleave(h // hkv, dim=1)
+    s = q @ k.transpose(-1, -2) / q.shape[-1] ** 0.5
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kp <= qp
+    if window:
+        mask &= (qp - kp) < window
+    return torch.softmax(s.masked_fill(~mask, float("-inf")), -1) @ v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d,causal,window", [
+    (1, 2, 2, 2048, 64, True, 0), (2, 4, 2, 1500, 64, True, 0),
+    (1, 4, 1, 1100, 128, True, 256), (1, 2, 2, 640, 64, False, 0)])
+def test_scan_attention_on_the_card(card, b, h, hkv, s, d, causal, window,
+                                    dtype):
+    """``scan_attention`` (the training attention) and its gradients
+    against an f64 dense oracle on the card: f32 within 1e-4 and bf16
+    within 2^-7 of the largest magnitude (the output and each gradient are
+    rounded to bf16 once, half a unit in the last place: up to 2^-8 of a
+    value; the arithmetic is f32)."""
+    from repro_torch.models import layers as L
+    gen_ = torch.Generator(device=card).manual_seed(s + h)
+    q, k, v = (torch.randn(b, n, s, d, device=card, generator=gen_)
+               .to(dtype) for n in (h, hkv, hkv))
+    w = torch.randn(b, h, s, d, device=card, generator=gen_)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = L.scan_attention(*leaves, causal=causal, window=window)
+    (out.float() * w).sum().backward()
+    oracle = [t.double().requires_grad_() for t in (q, k, v)]
+    want = _attention_f64(*oracle, causal, window)
+    (want * w.double()).sum().backward()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+    assert out.dtype == dtype
+    assert _rel_err(out, want) <= tol
+    for got, ref_ in zip(leaves, oracle):
+        assert _rel_err(got.grad, ref_.grad) <= tol
+
+
+@pytest.mark.parametrize("pattern", ["attn", "sparse-band"])
+def test_remat_gradients_on_the_card(card, pattern):
+    """Step-1 gradients of a 2-layer f32 model under ``remat`` ``"full"``
+    and ``"dots"`` against ``"none"`` on the card (within 1e-6 of each
+    tensor's largest value); the sparse-band mixer recomputes its kernel
+    launches in the backward (the GeMM-SpMM and ``spmm_ell`` forward
+    launches run twice)."""
+    from repro_torch.launch import steps
+    cfg = (dataclasses.replace(get_config("stablelm-1.6b", reduced=True),
+                               dtype="float32") if pattern == "attn"
+           else _band_cfg())
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), device=card,
+                         generator=torch.Generator(device=card)
+                         .manual_seed(9))
+    grads, counts = {}, {}
+    for remat in ("none", "full", "dots"):
+        model = T.Transformer(dataclasses.replace(cfg, remat=remat), seed=0)
+        ops.reset_launch_counts()
+        steps.cross_entropy(model(toks, train=True), toks).backward()
+        torch.cuda.synchronize()
+        counts[remat] = ops.launch_counts()
+        grads[remat] = [p.grad for p in model.parameters()]
+    for remat in ("full", "dots"):
+        for got, want in zip(grads[remat], grads["none"], strict=True):
+            assert _rel_err(got, want) <= 1e-6
+    assert counts["none"]["flash_attention"] == 0
+    if pattern == "sparse-band":
+        n = 2 * cfg.n_layers
+        assert counts["none"]["tile_fused_gemm_spmm_wf0"] == 2 * n
+        assert counts["none"]["spmm_ell"] == 3 * n
+        for remat in ("full", "dots"):
+            assert counts[remat]["tile_fused_gemm_spmm_wf0"] == 3 * n
+            assert counts[remat]["spmm_ell"] == 4 * n
+
+
+def test_trainer_resumes_exactly_on_the_card(card, tmp_path, capsys):
+    """``launch.train`` at ``--reduced`` on the card: preempted after step
+    6 (exit 17), resumed from step 6, and the step-8 leaves equal an
+    uninterrupted run's bit for bit."""
+    from repro_torch.launch import train
+    args = ["--arch", "qwen2.5-3b", "--reduced", "--steps", "8", "--batch",
+            "2", "--seq", "64", "--ckpt-every", "3", "--log-every", "100"]
+    d1, d2 = str(tmp_path / "interrupted"), str(tmp_path / "clean")
+    with pytest.raises(SystemExit) as e:
+        train.main(args + ["--ckpt-dir", d1, "--simulate-preemption", "6"])
+    assert e.value.code == 17
+    run = train.main(args + ["--ckpt-dir", d1])
+    assert "[restore] resumed from step 6" in capsys.readouterr().out
+    assert run.model.device.type == "cuda"
+    train.main(args + ["--ckpt-dir", d2])
+    for f in sorted(os.listdir(os.path.join(d2, "step_00000008"))):
+        if f.endswith(".npy"):
+            a = np.load(os.path.join(d1, "step_00000008", f))
+            b = np.load(os.path.join(d2, "step_00000008", f))
+            assert a.dtype == b.dtype and np.array_equal(a, b), f

@@ -437,8 +437,8 @@ def test_train_step_matches_jax():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_decreases_loss(arch):
     """Twin of ``test_models.py::test_train_step_decreases_loss`` for the
-    port's dense archs, on the CPU (attention through the plain version,
-    which is differentiable)."""
+    port's dense archs, on the CPU (the training forward's attention,
+    ``layers.scan_attention``, the reference's chunked XLA attention)."""
     cfg = get_config(arch, reduced=True)
     model = T.Transformer(cfg, device="cpu")
     step = steps.make_train_step(
