@@ -278,6 +278,46 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                ``--simulate-preemption 6`` exits 17, the rerun resumes
                from step 6, and the step-8 leaves equal an uninterrupted
                run's bit for bit.
+ 16. MoE    — the gated MoE layer and the two MoE decoders, bf16, weights
+               from seeds (``phase_16``, run after phases 1-15 have
+               freed their tensors).  16a: granite's layer (B 4 x S 2048,
+               d 1536, 40 experts top-8, f 512) and llama4-scout's (B 2 x
+               S 2048, d 5120, 16 experts top-1 plus the shared expert, f
+               8192): output and gradients (x, router, w1, w3, w2, the
+               shared expert) against an f64 oracle evaluated on the
+               run's own routing (its top-k sets and kept slots), row by
+               row within 2^-6 (top-1's router gradient, 0 in exact
+               arithmetic, is printed); the (token, k) picks where the
+               f64 routing differs, with their gate gaps; two calls bit
+               for bit; dispatch / expert products / combine times.  16b:
+               granite-moe-3b at full width and depth served as phase 8
+               serves qwen (4 x 2048 prompts, 32 decode steps): the flash
+               kernel exactly 32 times a prefill and ``fused_moe_ffn``
+               never, two prefills bit for bit, the replayed greedy
+               picks = the served tokens, prefill and decode times; each
+               layer's top-k sets recorded (``record_routes`` wraps
+               ``layers._row_dispatch``) in the flash and the plain
+               attention's prefill: the share that agrees and the drops
+               by layer, the logits held within 5e-2 on each row's tokens
+               before its first routing difference (earlier tokens route,
+               drop and attend alike), and, printed, the plain run with
+               the flash run's routing replayed (``replay_routes``), by
+               block; decode against a full forward where both route and
+               keep alike; a 2-layer f32 cut at full width (2 x 512):
+               routing must agree, logits within 1e-3, 8 tokens decoded
+               one at a time vs the forward (cap 8: nothing drops); the
+               same tokens through all 32 layers in f32 with the routing
+               replayed, within 1e-3.  16c: a traced prefill and decode
+               step, device time of the ``record_function`` scopes
+               ``moe.dispatch`` / ``moe.experts`` / ``moe.combine`` /
+               ``attention`` and of the flash kernel, kernels a step.
+               16d: llama4-scout at full width, depth cut to 8 of 48
+               layers (the 107.8 B model does not fit one 80 GB card),
+               16b's serving checks with 16 decode steps and 8 flash
+               launches a prefill.  16e: granite training, 6 AdamW steps
+               on one fixed 4 x 2048 batch under ``remat="dots"``: losses
+               fall, no kernel launch, p50 / max, peak memory, a traced
+               step.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after: phases 4-5 (the GCN path, gradients included) must
@@ -288,8 +328,10 @@ sparse kernels' launches, phase 13's sharded calls (each
 counted on its own) add to them too, as do phase 14's mixer and
 training steps (each counted on its own), phase 15's trainer launches
 none of the six kernels (its counts must stay 0), phase 7's
-entry-point calls the FFN and MoE kernels, and phase 8 the flash kernel
-exactly once per layer of the prefill.  Launches made to
+entry-point calls the FFN and MoE kernels, phase 8 the flash kernel
+exactly once per layer of the prefill, and so do phase 16's MoE
+prefills, which never launch the MoE kernel (its training launches
+none).  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON record (with each kernel's tensor-core instruction count
@@ -299,6 +341,7 @@ in true f32 (TF32 off).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -339,6 +382,15 @@ LM_CASES = [
     ("flash_attention (whisper-medium encoder)", "flash_attention",
      dict(b=4, h=16, hkv=16, sq=1500, sk=1500, d=64, causal=False,
           window=0)),
+    # the MoE decoders' prefills (phase 16): granite-moe-3b's bf16 wgmma
+    # D64 path and llama4-scout's D128 path under its 8192 window
+    ("flash_attention (granite-moe-3b prefill)", "flash_attention",
+     dict(b=4, h=24, hkv=8, sq=2048, sk=2048, d=64, causal=True,
+          window=0)),
+    ("flash_attention (llama4-scout prefill, window 8192)",
+     "flash_attention",
+     dict(b=4, h=40, hkv=8, sq=2048, sk=2048, d=128, causal=True,
+          window=8192)),
     ("fused_ffn (stablelm-1.6b widths)", "fused_ffn",
      dict(e=0, m=8192, d=2048, f=5632, act="gelu")),
     # a 4096-token row, top-8 of 40 experts, capacity factor 1.25
@@ -354,6 +406,9 @@ LM_CASES = [
 LM_RECORD = {"flash_attention": "flash_attention (qwen2.5-3b prefill)",
              "fused_ffn": "fused_ffn (stablelm-1.6b widths)",
              "fused_moe_ffn": "fused_moe_ffn (granite-moe-3b experts)"}
+# the flash cases at the MoE prefills' shapes, also in the JSON record
+LM_MOE_FLASH = ("flash_attention (granite-moe-3b prefill)",
+                "flash_attention (llama4-scout prefill, window 8192)")
 # phase 8: qwen2.5-3b at full width; 4 prompts of 2048 tokens, 32 decode
 # steps after the prefill
 LM_ARCH = "qwen2.5-3b"
@@ -433,6 +488,46 @@ DENSE_RECKONED_GB = 46
 RESUME_ARGS = ["--arch", "qwen2.5-3b", "--reduced", "--steps", "8",
                "--batch", "2", "--seq", "64", "--ckpt-every", "3",
                "--log-every", "100"]
+# phase 16: the gated MoE layer and the two MoE decoders.  16a: the layer
+# alone at published widths, (arch, B, S), held row by row to an f64
+# oracle on the run's own routing at two bf16 units in the last place,
+# the output and (where the last field is True) the gradients.  S 1 is a
+# served decode step's shape (cap 8), which runs no backward; there a row
+# of dW2 is one slot's h[f] times its dy, and silu's relative condition
+# |1 + a·(1 - sigmoid(a))|, about |a| in the negative tail (a's spread
+# is sqrt(d / e) ≈ 6.2 at granite's widths under the experts' 1/sqrt(e)
+# init), carries the bf16 rounding of a into the row whole: 5.5e-2 on
+# the card
+MOE_LAYER_CASES = (("granite-moe-3b-a800m", 4, 2048, True),
+                   ("llama4-scout-17b-a16e", 2, 2048, True),
+                   ("granite-moe-3b-a800m", 4, 1, False),
+                   ("llama4-scout-17b-a16e", 4, 1, False))
+MOE_ORACLE_TOL = 2.0 ** -6
+MOE_REDUCED = False
+# 16b-16e: granite-moe-3b at full width and depth, served as phase 8 serves
+# qwen (4 prompts of 2048 tokens, 32 decode steps) and trained as 14c
+# trains (6 AdamW steps, one fixed batch); llama4-scout at full width,
+# depth cut to 8 of 48 layers (107.8 B parameters do not fit one 80 GB
+# card; 8 layers are 19.7 B, 39.4 GB in bf16), 16 decode steps
+MOE_ARCH, MOE_WIDE_ARCH, MOE_WIDE_LAYERS = ("granite-moe-3b-a800m",
+                                            "llama4-scout-17b-a16e", 8)
+MOE_BATCH, MOE_PROMPT, MOE_DECODE, MOE_WIDE_DECODE = 4, 2048, 32, 16
+MOE_REPLAY = 4
+# the f32 cut: 2 layers at full width, 2 x 512 tokens, flash against plain
+# attention within 1e-3 (in f32 the router logits differ by about 1e-6),
+# and 8 tokens decoded one at a time against its forward
+MOE_CUT_LAYERS, MOE_CUT_BATCH, MOE_CUT_SEQ, MOE_CUT_TOL = 2, 2, 512, 1e-3
+MOE_TRAIN_STEPS = 6
+MOE_TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=20)
+# parameters, gradients and f32 moments ~40.5 GB, activations and the
+# remat recompute ~10 GB
+MOE_RECKONED_GB = 50.5
+# phase 16's trace scopes: the function of models.layers each wraps and
+# the scope's name (a trace reads each scope's device time from its host
+# event, and leaves the GPU-side annotation ranges out of the busy time)
+SCOPES = {"_row_dispatch": "moe.dispatch", "_expert_ffn": "moe.experts",
+          "_row_combine": "moe.combine", "chunked_attention": "attention",
+          "decode_attention": "attention", "scan_attention": "attention"}
 GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
 # phase 2: the functions of each kernel in the library's SASS (a part of the
@@ -569,7 +664,91 @@ def mag_graph(seed: int = 0):
     return HeteroGraph(nodes, relations)
 
 
-def main(device: str = "cuda") -> None:
+def time_ms(fn, iters=20):
+    """ms a call: CUDA events around ``iters`` calls after 3 warm-ups."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rel_err(got, want, rows=False):
+    """(max abs error, relative error): relative to the largest |want|,
+    or with ``rows`` the largest over rows of each row's error relative
+    to that row's own largest |want| (a row is the last axis)."""
+    import torch
+    got, want = got.detach().float(), want.detach().float()
+    if not torch.isfinite(got).all():
+        fail("non-finite values in a result")
+    diff = (got - want).abs()
+    err = float(diff.max())
+    if rows:
+        return err, float((diff.amax(-1) / want.abs().amax(-1)
+                           .clamp_min(1e-30)).max())
+    return err, err / max(float(want.abs().max()), 1e-30)
+
+
+def trace(tag, label, fn, warm=None, top=8, ops_device=None):
+    """One call of ``fn`` under the profiler, after a traced warm-up
+    call (of ``warm``, else of ``fn``: a session can drop its first
+    ctypes launch): device time by kernel (the ``top`` largest) and the
+    device's busy share of the call's wall time.  Returns ``(busy us,
+    wall us, {op or kernel: calls}, {kernel: device us})`` of the
+    profiled call; ``ops_device`` (a dict) receives each host op's
+    device time, the kernels it launched (us)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        (warm or fn)()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+        prof.step()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not e.key.startswith("ProfilerStep")
+              and e.key not in SCOPES.values()]
+    busy = sum(e.self_device_time_total for e in events)
+    print(f"[{tag} trace] {label}: device busy {busy / 1e3:.3f} ms, "
+          f"{busy / wall_us:.3f} of the call's wall "
+          f"({wall_us / 1e3:.3f} ms)")
+    for e in sorted(events,
+                    key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[{tag} trace] {label}:   {e.self_device_time_total:9.1f}"
+              f" us  x{e.count:<3d} {e.key[:100]}")
+    copies = {e.key: (e.count, e.self_device_time_total)
+              for e in prof.key_averages()
+              if e.key.startswith(("Memcpy", "Memset"))}
+    print(f"[{tag} trace] {label}: memcpy / memset rows "
+          f"{copies or 'none'}")
+    if ops_device is not None:
+        ops_device.update({e.key: e.device_time_total
+                           for e in prof.key_averages()
+                           if e.device_type == DeviceType.CPU})
+    return (busy, wall_us,
+            {e.key: e.count for e in prof.key_averages()},
+            {e.key: e.self_device_time_total for e in events})
+
+
+def phases_1_to_15(device: str) -> dict:
+    """Phases 1-15; returns what the JSON record and phase 16 need (the
+    phases' own tensors are freed when it returns)."""
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
@@ -683,33 +862,6 @@ def main(device: str = "cuda") -> None:
         return torch.from_numpy(
             rng.standard_normal(shape, np.float32) * np.float32(scale)
         ).to(dev)
-
-    def time_ms(fn, iters=20):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters
-
-    def rel_err(got, want, rows=False):
-        """(max abs error, relative error): relative to the largest |want|,
-        or with ``rows`` the largest over rows of each row's error relative
-        to that row's own largest |want| (a row is the last axis)."""
-        got, want = got.float(), want.float()
-        if not torch.isfinite(got).all():
-            fail("non-finite values in a result")
-        diff = (got - want).abs()
-        err = float(diff.max())
-        if rows:
-            return err, float((diff.amax(-1) / want.abs().amax(-1)
-                               .clamp_min(1e-30)).max())
-        return err, err / max(float(want.abs().max()), 1e-30)
 
     def queued_ms(fn, iters=20):
         """Like ``time_ms``, with the calls queued behind a sleep kernel of
@@ -1787,53 +1939,6 @@ def main(device: str = "cuda") -> None:
         return gemm_wf0.last_path(), gemm_wf0.choose_path(
             ds.t_pad, entry.b_col, entry.c_col, ds.j_rows0.shape[1],
             ds.ell_cols0.shape[2], dtype)
-
-    def trace(tag, label, fn, warm=None, top=8, ops_device=None):
-        """One call of ``fn`` under the profiler, after a traced warm-up
-        call (of ``warm``, else of ``fn``: a session can drop its first
-        ctypes launch): device time by kernel (the ``top`` largest) and the
-        device's busy share of the call's wall time.  Returns ``(busy us,
-        wall us, {op or kernel: calls}, {kernel: device us})`` of the
-        profiled call; ``ops_device`` (a dict) receives each host op's
-        device time, the kernels it launched (us)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile, schedule
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            (warm or fn)()
-            torch.cuda.synchronize()
-            prof.step()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-            prof.step()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and e.self_device_time_total > 0
-                  and not e.key.startswith("ProfilerStep")]
-        busy = sum(e.self_device_time_total for e in events)
-        print(f"[{tag} trace] {label}: device busy {busy / 1e3:.3f} ms, "
-              f"{busy / wall_us:.3f} of the call's wall "
-              f"({wall_us / 1e3:.3f} ms)")
-        for e in sorted(events,
-                        key=lambda e: -e.self_device_time_total)[:top]:
-            print(f"[{tag} trace] {label}:   {e.self_device_time_total:9.1f}"
-                  f" us  x{e.count:<3d} {e.key[:100]}")
-        copies = {e.key: (e.count, e.self_device_time_total)
-                  for e in prof.key_averages()
-                  if e.key.startswith(("Memcpy", "Memset"))}
-        print(f"[{tag} trace] {label}: memcpy / memset rows "
-              f"{copies or 'none'}")
-        if ops_device is not None:
-            ops_device.update({e.key: e.device_time_total
-                               for e in prof.key_averages()
-                               if e.device_type == DeviceType.CPU})
-        return (busy, wall_us,
-                {e.key: e.count for e in prof.key_averages()},
-                {e.key: e.self_device_time_total for e in events})
 
     def grads(a, b_or_a1, c, backend, spec):
         """Gradients of ``(w·D).sum()`` w.r.t. the dense operands, and the
@@ -3402,6 +3507,625 @@ def main(device: str = "cuda") -> None:
         fail(f"phase 15c: resumed leaves differ from the uninterrupted "
              f"run's: {differ}")
     print(f"[15] phase 15 took {time.perf_counter() - t15:.1f} s")
+    return dict(records=records, band_records=band_records,
+                path_launches=path_launches,
+                tensor_core_ops=tensor_core_ops,
+                flash_record_path=flash_record_path, device_kind=device_kind,
+                t_start=t_start)
+
+
+# ---------------------------------------------------------------- phase 16 --
+@contextlib.contextmanager
+def record_routes(layers, gaps=False):
+    """While active, each call of ``layers._row_dispatch`` appends its
+    ``Dispatch`` (and with ``gaps`` the gap between each token's k-th and
+    (k+1)-th gate, recomputed from the call's inputs) to the yielded
+    list: one entry a layer of a forward or decode step.  Wraps the
+    module's function; nothing in the package changes."""
+    import torch
+    calls = []
+    dispatch = layers._row_dispatch
+
+    def record(cfg, x, router, cap):
+        xe, route = dispatch(cfg, x, router, cap)
+        gap = None
+        if gaps:
+            top = torch.softmax(x.float() @ router, -1).topk(
+                min(cfg.moe_top_k + 1, cfg.n_experts), -1).values
+            gap = top[..., -2] - top[..., -1]
+        calls.append((route, gap))
+        return xe, route
+    layers._row_dispatch = record
+    try:
+        yield calls
+    finally:
+        layers._row_dispatch = dispatch
+
+
+@contextlib.contextmanager
+def replay_routes(layers, calls):
+    """While active, the i-th call of ``layers._row_dispatch`` routes as
+    the i-th recorded call (``record_routes``' list): the same top-k sets
+    and kept slots, the gates recomputed from this call's router logits
+    on those sets.  Two runs that round differently can then be held to
+    each other through every layer without a flip between them."""
+    import torch
+    pending = iter(calls)
+    dispatch = layers._row_dispatch
+
+    def replay(cfg, x, router, cap):
+        route, _ = next(pending)
+        b, s, d = x.shape
+        k = cfg.moe_top_k
+        gates = torch.softmax(x.float() @ router, -1).gather(
+            -1, route.experts)
+        route = route._replace(
+            gates=gates / gates.sum(-1, keepdim=True).clamp_min(1e-9))
+        xe = layers._GatherRows.apply(x.reshape(b * s, d),
+                                      (route.slot_pick // k)[:, None],
+                                      route.tok_slot.view(b * s, k))
+        return xe.view(cfg.n_experts, -1, d), route
+    layers._row_dispatch = replay
+    try:
+        yield
+    finally:
+        layers._row_dispatch = dispatch
+
+
+@contextlib.contextmanager
+def held_attention(layers):
+    """While active, each prefill attention (``layers.chunked_attention``,
+    the flash kernel on the card) also runs its plain version
+    (``impl="torch"``) on the same q, k and v, and appends ``(q's shape,
+    the window, the row-wise error of the call's output against the plain
+    one)`` to the yielded list: the kernel held on the main path's own
+    inputs, one entry a layer."""
+    calls = []
+    attn = layers.chunked_attention
+
+    def held(q, k, v, *, causal=True, window=0, impl="cuda"):
+        out = attn(q, k, v, causal=causal, window=window, impl=impl)
+        want = attn(q, k, v, causal=causal, window=window, impl="torch")
+        calls.append((tuple(q.shape), window, rel_err(out, want,
+                                                      rows=True)[1]))
+        return out
+    layers.chunked_attention = held
+    try:
+        yield calls
+    finally:
+        layers.chunked_attention = attn
+
+
+@contextlib.contextmanager
+def annotated(layers):
+    """While active, the MoE layer's three steps and the attention run
+    inside the ``record_function`` scopes of ``SCOPES``, so a trace can
+    give each one's device time (forward and remat recompute; a backward
+    runs outside them)."""
+    from torch.profiler import record_function
+    saved = {name: getattr(layers, name) for name in SCOPES}
+
+    def wrap(fn, label):
+        def inner(*args, **kwargs):
+            with record_function(label):
+                return fn(*args, **kwargs)
+        return inner
+    for name, label in SCOPES.items():
+        setattr(layers, name, wrap(saved[name], label))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(layers, name, fn)
+
+
+def kept_of(route):
+    """``(B, s, k)``: whether each token's pick kept its slot."""
+    b, s, k = route.experts.shape
+    return (route.tok_slot < route.slot_pick.numel()).view(b, s, k)
+
+
+def routing_report(tag, label, runs_a, runs_b):
+    """Per layer, the share of (token) top-k sets on which two runs agree
+    and each run's dropped assignments; returns, per batch row, whether
+    every token's set agrees in every layer (dispatch is per row, so rows
+    do not affect each other's routing)."""
+    import torch
+    b, s, _ = runs_a[0][0].experts.shape
+    rows = torch.ones(b, dtype=torch.bool, device=runs_a[0][0].experts.device)
+    shares, drops = [], []
+    for (ra, _), (rb, _) in zip(runs_a, runs_b, strict=True):
+        same = (ra.experts == rb.experts).all(-1)
+        shares.append(float(same.float().mean()))
+        drops.append((int((~kept_of(ra)).sum()), int((~kept_of(rb)).sum())))
+        rows &= same.all(-1)
+    print(f"[{tag}] {label}: top-k sets agreeing by layer "
+          f"{', '.join(f'{v:.4f}' for v in shares)}; dropped assignments by"
+          f" layer (first run, second) {drops}; batch rows that route alike"
+          f" in every layer: {int(rows.sum())} of {b}")
+    return rows
+
+
+def phase_16(dev) -> dict:
+    """The gated MoE layer (16a), granite-moe-3b serving at full width and
+    depth with its f32 cut (16b), a trace (16c), llama4-scout serving at
+    full width, 8 of 48 layers (16d), and granite training (16e).
+    Returns the phase's launches by path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import last_path
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptConfig, adamw
+    t16 = time.perf_counter()
+    bf16 = torch.bfloat16
+    launches = {}
+
+    def sub_time(label, t0):
+        print(f"[16] {label} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    def leaves(tree, prefix=""):
+        """A (nested) weight dict as ``{"shared.w_up": tensor, ...}``."""
+        out = {}
+        for name, v in tree.items():
+            if isinstance(v, dict):
+                out.update(leaves(v, f"{prefix}{name}."))
+            else:
+                out[prefix + name] = v
+        return out
+
+    def nest(flat):
+        """The inverse of ``leaves``."""
+        tree = {}
+        for name, v in flat.items():
+            *path, last = name.split(".")
+            node = tree
+            for part in path:
+                node = node.setdefault(part, {})
+            node[last] = v
+        return tree
+
+    # ---- 16a. the layer alone at published widths ----
+    for arch, b, s, backward in MOE_LAYER_CASES:
+        t0 = time.perf_counter()
+        cfg = get_config(arch, reduced=MOE_REDUCED)
+        e, k, d, f = cfg.n_experts, cfg.moe_top_k, cfg.d_model, cfg.d_ff
+        cap = L.moe_capacity(cfg, s)
+        gen = torch.Generator(device=dev).manual_seed(160)
+        p = L.moe_init(gen, cfg, bf16, dev)
+        x = torch.randn(b, s, d, device=dev, generator=gen).to(bf16)
+        wgt = torch.randn(b, s, d, device=dev, generator=gen)
+
+        def layer_grads(dtype=None):
+            flat = {n: (v if dtype is None else v.to(dtype)).detach()
+                    .requires_grad_() for n, v in leaves(p).items()}
+            xs = (x if dtype is None else x.to(dtype)).detach() \
+                .requires_grad_()
+            return flat, xs
+
+        flat, xs = layer_grads()
+        with record_routes(L) as calls:
+            y = L.moe_apply(nest(flat), cfg, xs)
+        route = calls[0][0]
+        flat2, xs2 = layer_grads()
+        y2 = L.moe_apply(nest(flat2), cfg, xs2)
+        twice = torch.equal(y, y2)
+        grads = {}
+        if backward:
+            (y.float() * wgt).sum().backward()
+            (y2.float() * wgt).sum().backward()
+            grads = {"x": xs.grad, **{n: v.grad for n, v in flat.items()}}
+            twice = twice and torch.equal(xs.grad, xs2.grad) and all(
+                torch.equal(v.grad, flat2[n].grad) for n, v in flat.items())
+        del flat2, xs2, y2
+        # the f64 oracle on the run's own routing: its top-k sets (gates
+        # recomputed in f64, renormalized over the run's k picks) and its
+        # kept slots; plain indexing, not the port's gather
+        flat64, x64 = layer_grads(torch.float64)
+        p64 = nest(flat64)
+        n, n_slots = b * s, route.slot_pick.numel()
+        gates64 = torch.softmax(x64.view(n, d) @ p64["router"], -1)
+        g64 = gates64.gather(-1, route.experts.view(n, k))
+        g64 = g64 / g64.sum(-1, keepdim=True).clamp_min(1e-9)
+        ts = route.tok_slot
+        src = torch.arange(n, device=dev).repeat_interleave(k)
+        xe64 = x64.new_zeros(n_slots + 1, d).index_put(
+            (ts,), x64.view(n, d)[src])[:-1].view(e, n_slots // e, d)
+        act = L._act(cfg)
+        h64 = act(xe64 @ p64["w1"]) * (xe64 @ p64["w3"])
+        ye64 = torch.cat([(h64 @ p64["w2"]).view(n_slots, d),
+                          x64.new_zeros(1, d)])
+        y64 = (ye64[ts].view(n, k, d) * g64[..., None]).sum(1).view(b, s, d)
+        if "shared" in p64:
+            y64 = y64 + L.ffn_apply(p64["shared"], cfg, x64)
+        want = {}
+        if backward:
+            (y64 * wgt.double()).sum().backward()
+            want = {"x": x64.grad, **{nm: v.grad
+                                      for nm, v in flat64.items()}}
+        errs = {"out": rel_err(y, y64, rows=True)[1]}
+        errs.update({nm: rel_err(grads[nm], want[nm], rows=True)[1]
+                     for nm in grads if nm != "router" or k > 1})
+        # top-1: the renormalized gate is 1 whatever the logits, so the
+        # router's gradient is 0 in exact arithmetic and rounding noise in
+        # both runs; it is printed, not held row by row
+        noise = float(grads["router"].abs().max()) if grads and k == 1 \
+            else None
+        # where the f64 routing differs from the run's
+        top64 = gates64.topk(min(k + 1, e), -1)
+        e64 = top64.indices[:, :k].sort(-1).values
+        run_e = route.experts.view(n, k)
+        missing = ~(run_e[:, :, None] == e64[:, None, :]).any(-1)
+        moved = missing.any(-1)
+        gap64 = top64.values[:, k - 1] - top64.values[:, -1]
+        dropped = int((~kept_of(route)).sum())
+        print(f"[16a layer] {arch} B {b} x S {s}, d {d}, {e} experts top-"
+              f"{k}{' + shared' if 'shared' in p else ''}, f {f}, cap {cap}"
+              f" ({e * b * cap} slots for {n * k} picks), bf16: dropped "
+              f"assignments {dropped}; vs an f64 oracle on the run's "
+              f"routing{'' if backward else ' (forward only: a decode step'}"
+              f"{'' if backward else ' runs no backward)'}, row rel err "
+              + ", ".join(f"{nm} {v:.2e}" for nm, v in errs.items())
+              + f" (limit {MOE_ORACLE_TOL:.2e})"
+              + (f"; top-1, so the router's gradient is 0 in exact "
+                 f"arithmetic: its largest magnitude {noise:.2e} (the "
+                 f"oracle's {float(want['router'].abs().max()):.2e})"
+                 if noise is not None else "")
+              + f"; (token, k) picks of the "
+              f"f64 routing that differ from the run's: "
+              f"{int(missing.sum())} in {int(moved.sum())} tokens"
+              + (f", their f64 gate gaps {gap64[moved][:8].tolist()}"
+                 if bool(moved.any()) else "")
+              + f"; two calls bitwise equal (output"
+              f"{' and gradients' if backward else ''}): {twice}")
+        if max(errs.values()) > MOE_ORACLE_TOL:
+            fail(f"phase 16a {arch}: the layer disagrees with its f64 "
+                 f"oracle {errs}")
+        if not twice:
+            fail(f"phase 16a {arch}: two calls differ")
+        del flat, xs, y, grads, flat64, x64, p64, gates64, g64, xe64, h64
+        del ye64, y64, want, top64
+        torch.cuda.empty_cache()
+        with torch.no_grad():
+            xe, route = L._row_dispatch(cfg, x, p["router"], cap)
+            ye = L._expert_ffn(cfg, xe, p["w1"], p["w3"], p["w2"])
+            ms = {
+                "dispatch": time_ms(lambda: L._row_dispatch(
+                    cfg, x, p["router"], cap), iters=5),
+                "experts": time_ms(lambda: L._expert_ffn(
+                    cfg, xe, p["w1"], p["w3"], p["w2"]), iters=5),
+                "combine": time_ms(lambda: L._row_combine(
+                    ye, route, b, s, bf16), iters=5),
+                "layer": time_ms(lambda: L.moe_apply(p, cfg, x), iters=5)}
+        expert_flop = 6.0 * xe.shape[0] * xe.shape[1] * d * f
+        print(f"[16a layer] {arch} per call (CUDA events, 5 calls after 3):"
+              f" dispatch {ms['dispatch']:.3f} ms, expert products "
+              f"{ms['experts']:.3f} ms ({expert_flop / 1e12:.3f} TFLOP, "
+              f"{expert_flop / ms['experts'] / 1e9:.1f} TFLOP/s; bf16 peak "
+              f"{PEAK_OPS['bfloat16'] / 1e12:.0f}), combine "
+              f"{ms['combine']:.3f} ms, the layer {ms['layer']:.3f} ms "
+              f"(the shared expert's products included)")
+        del p, x, wgt, xe, ye, route
+        torch.cuda.empty_cache()
+        sub_time(f"16a {arch}", t0)
+
+    # ---- 16b / 16d. serving at full width ----
+    def serve_checks(tag, cfg, n_decode):
+        """Phase 8's serving run on a MoE model, with the routing recorded
+        where two runs round differently."""
+        t0 = time.perf_counter()
+        lm, prompts = serve.build(cfg, batch=MOE_BATCH,
+                                  prompt_len=MOE_PROMPT, seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(q.numel() for q in lm.parameters())
+        print(f"[{tag}] {cfg.name}: {n_params / 1e9:.3f} B parameters "
+              f"({cfg.param_count() / 1e9:.3f} B by param_count, "
+              f"{cfg.param_count(active_only=True) / 1e9:.3f} B active), "
+              f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} / "
+              f"{cfg.n_kv_heads} heads of {cfg.head_dim}, {cfg.n_experts} "
+              f"experts top-{cfg.moe_top_k}"
+              f"{' + shared' if cfg.moe_shared_expert else ''}, f "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size}, window {cfg.window}, "
+              f"{cfg.dtype}; built on the card in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        total = MOE_PROMPT + n_decode + 1
+        cache = lm.init_cache(MOE_BATCH, total)
+        with record_routes(L) as flash_routes, held_attention(L) as attn:
+            got, _ = lm.decode_step(prompts, cache, 0)
+        ran = last_path()
+        with record_routes(L) as plain_routes:
+            lm.decode_step(prompts, cache, 0, impl="torch")
+        again, _ = lm.decode_step(prompts, cache, 0)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got, again)
+        del again
+        # the whole model's logits are not held in bf16: a flip of a
+        # near-tied top-k pick between the two runs changes that token's
+        # output by a whole expert's share, and the flips spread with
+        # depth; the f32 cut below holds them.  The flash kernel is held
+        # on each layer's own q, k and v instead.
+        routing_report(tag, "prefill, flash kernel vs plain attention",
+                       flash_routes, plain_routes)
+        worst = max(err for _, _, err in attn)
+        shapes = sorted({(shape, window) for shape, window, _ in attn})
+        print(f"[{tag}] prefill logits {tuple(got.shape)}; the flash kernel "
+              f"({ran}) on each of the {len(attn)} layers' own q, k, v "
+              f"{shapes} against its plain version: row rel err by layer "
+              f"{', '.join(f'{err:.1e}' for _, _, err in attn)} (limit "
+              f"{LM_BF16_TOL:.2e}); two prefills bitwise equal: {bitwise}")
+        if len(attn) != cfg.n_layers or worst > LM_BF16_TOL:
+            fail(f"phase {tag}: the flash kernel on the prefill's own inputs"
+                 f" ({len(attn)} calls for {cfg.n_layers} layers) disagrees "
+                 f"with its plain version ({worst:.3e})")
+        if not bitwise:
+            fail(f"phase {tag}: two prefills differ")
+        del got, cache, flash_routes, plain_routes, attn
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        tokens, timing = serve.generate(lm, prompts, n_decode + 1)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        dec_ms = [t * 1e3 for t in timing.decode_s]
+        p50 = float(np.median(dec_ms))
+        print(f"[{tag}] prefill {MOE_BATCH} x {MOE_PROMPT} tokens in "
+              f"{timing.prefill_s * 1e3:.2f} ms ("
+              f"{MOE_BATCH * MOE_PROMPT / timing.prefill_s:.0f} tokens/s, "
+              f"after empty_cache); {len(dec_ms)} decode steps p50 "
+              f"{p50:.3f} ms max {max(dec_ms):.3f} ms ("
+              f"{MOE_BATCH / (p50 / 1e3):.1f} tokens/s at p50); peak memory"
+              f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; host "
+              f"clock around each step + synchronize; launches in the serve"
+              f" run {counts}; sample {tokens[0, :8].tolist()}", flush=True)
+        if tuple(tokens.shape) != (MOE_BATCH, n_decode + 1) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            fail(f"phase {tag}: tokens {tuple(tokens.shape)} out of range")
+        if counts["flash_attention"] != cfg.n_layers or \
+                counts["fused_moe_ffn"] != 0:
+            fail(f"phase {tag}: launches {counts} for one prefill of "
+                 f"{cfg.n_layers} layers (expected that many flash "
+                 f"launches and no fused_moe_ffn)")
+        serve_step = steps.make_serve_step(lm)
+        warm_ms = []
+        for _ in range(3):
+            cache = lm.init_cache(MOE_BATCH, total)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            serve_step(prompts, cache, 0)
+            torch.cuda.synchronize()
+            warm_ms.append((time.perf_counter() - t1) * 1e3)
+            del cache
+        print(f"[{tag}] prefill with the allocator warm: "
+              f"{', '.join(f'{t:.2f}' for t in warm_ms)} ms "
+              f"({MOE_BATCH * MOE_PROMPT / (min(warm_ms) / 1e3):.0f} "
+              f"tokens/s at the fastest)")
+        # replay: the same ops on a fresh cache give the served tokens
+        cache = lm.init_cache(MOE_BATCH, total)
+        logits, cache = lm.decode_step(prompts, cache, 0)
+        picks = [logits[:, -1].argmax(-1)]
+        for i in range(MOE_REPLAY):
+            logits, cache = lm.decode_step(tokens[:, i:i + 1], cache,
+                                           MOE_PROMPT + i)
+            picks.append(logits[:, 0].argmax(-1))
+        picks = torch.stack(picks, dim=1).to(tokens.dtype)
+        if not torch.equal(picks, tokens[:, :MOE_REPLAY + 1]):
+            fail(f"phase {tag}: replayed greedy picks {picks.tolist()} are "
+                 f"not the served tokens "
+                 f"{tokens[:, :MOE_REPLAY + 1].tolist()}")
+        print(f"[{tag}] {MOE_REPLAY} replayed decode steps: greedy picks = "
+              f"served tokens")
+        del cache, logits
+        torch.cuda.empty_cache()
+        sub_time(tag, t0)
+        return lm, prompts, tokens, counts
+
+    cfg_g = get_config(MOE_ARCH, reduced=MOE_REDUCED)
+    lm, prompts, tokens, counts = serve_checks("16b granite", cfg_g,
+                                               MOE_DECODE)
+    launches["granite prefill"] = counts
+
+    # ---- 16c. trace: one granite prefill and one decode step ----
+    t0 = time.perf_counter()
+    cache = lm.init_cache(MOE_BATCH, MOE_PROMPT + 2)
+    step = steps.make_serve_step(lm)
+    for what, toks, cache_len in (("prefill", prompts, 0),
+                                  ("decode step", tokens[:, :1],
+                                   MOE_PROMPT)):
+        ops_dev = {}
+        with annotated(L):
+            busy, wall, calls, by_kernel = trace(
+                "16c", f"granite {what}",
+                lambda: step(toks, cache, cache_len), top=12,
+                ops_device=ops_dev)
+        n_kernels = sum(calls.get(kn, 0) for kn in by_kernel)
+        flash_us = sum(us for kn, us in by_kernel.items()
+                       if "flash_attention" in kn)
+        shares = {lab: ops_dev.get(lab, 0.0) for lab in (
+            "moe.dispatch", "moe.experts", "moe.combine", "attention")}
+        print(f"[16c trace] granite {what}: {n_kernels} device kernels; "
+              f"device time of " + ", ".join(
+                  f"{lab} {us / 1e3:.3f} ms ({us / max(busy, 1e-9):.3f})"
+                  for lab, us in shares.items())
+              + f"; the flash kernel {flash_us / 1e3:.3f} ms "
+              f"({flash_us / max(busy, 1e-9):.3f}) of {busy / 1e3:.3f} ms "
+              f"busy")
+    del lm, prompts, tokens, cache, step
+    torch.cuda.empty_cache()
+
+    # ---- 16b. the f32 cut: 2 layers at full width ----
+    cut_cfg = dataclasses.replace(cfg_g, n_layers=MOE_CUT_LAYERS,
+                                  dtype="float32")
+    cut = T.Transformer(cut_cfg, device=dev, seed=0)
+    g_cut = torch.Generator(device=dev).manual_seed(161)
+    toks = torch.randint(0, cut_cfg.vocab_size, (MOE_CUT_BATCH,
+                                                 MOE_CUT_SEQ),
+                         device=dev, generator=g_cut)
+    with torch.inference_mode():
+        with record_routes(L, gaps=True) as ra:
+            got = cut(toks)
+        ran = last_path()
+        with record_routes(L, gaps=True) as rb:
+            want = cut(toks, impl="torch")
+    rows = routing_report("16b f32 cut", f"{MOE_CUT_LAYERS} layers, "
+                          f"{MOE_CUT_BATCH} x {MOE_CUT_SEQ} tokens", ra, rb)
+    for li, ((rta, gap), (rtb, _)) in enumerate(zip(ra, rb)):
+        diff = ~(rta.experts == rtb.experts).all(-1)
+        for r, t in diff.nonzero().tolist()[:8]:
+            print(f"[16b f32 cut] layer {li} row {r} token {t}: sets "
+                  f"{rta.experts[r, t].tolist()} / "
+                  f"{rtb.experts[r, t].tolist()}, gate gap "
+                  f"{float(gap[r, t]):.3e}")
+    err = rel_err(got[rows], want[rows])[1] if bool(rows.any()) else 0.0
+    print(f"[16b f32 cut] logits flash ({ran}) vs impl=torch on the "
+          f"{int(rows.sum())} of {MOE_CUT_BATCH} rows whose routing agrees "
+          f"everywhere: rel err {err:.3e} (tolerance {MOE_CUT_TOL})")
+    if not bool(rows.any()) or err > MOE_CUT_TOL:
+        fail(f"phase 16b: the f32 cut's logits disagree ({err:.3e}) or no "
+             f"row routes alike")
+    # the model's decode check: decode against forward where no capacity
+    # drops, 8 tokens (cap 8); the served bf16 decode step's MoE layer is
+    # held in 16a at its shape (S 1)
+    short = toks[:, :8]
+    with torch.inference_mode():
+        full = cut(short)
+        cache = cut.init_cache(MOE_CUT_BATCH, 8)
+        dec = []
+        for i in range(8):
+            lg, cache = cut.decode_step(short[:, i:i + 1], cache, i)
+            dec.append(lg[:, 0])
+    err = rel_err(torch.stack(dec, 1), full)[1]
+    print(f"[16b f32 cut] 8 tokens decoded one at a time vs the forward "
+          f"(cap {L.moe_capacity(cut_cfg, 8)}: nothing dropped): rel err "
+          f"{err:.3e} (tolerance {MOE_CUT_TOL})")
+    if err > MOE_CUT_TOL:
+        fail(f"phase 16b: the f32 cut's decode disagrees with its forward "
+             f"({err:.3e})")
+    del cut, got, want, ra, rb, full, cache, dec, lg
+    # the same tokens through all of granite's layers in f32: with the
+    # flash run's routing replayed in the plain run, the attention's f32
+    # rounding, carried through the depth, stays within the cut's bar
+    deep = T.Transformer(dataclasses.replace(cfg_g, dtype="float32"),
+                         device=dev, seed=0)
+    with torch.inference_mode():
+        with record_routes(L) as ra:
+            got = deep(toks)
+        with record_routes(L) as rb:
+            deep(toks, impl="torch")
+        with replay_routes(L, ra):
+            want = deep(toks, impl="torch")
+    routing_report("16b f32 full depth", f"{cfg_g.n_layers} layers, "
+                   f"{MOE_CUT_BATCH} x {MOE_CUT_SEQ} tokens", ra, rb)
+    err = rel_err(got, want)[1]
+    print(f"[16b f32 full depth] logits flash vs impl=torch with the flash "
+          f"run's routing replayed: rel err {err:.3e} (tolerance "
+          f"{MOE_CUT_TOL})")
+    if err > MOE_CUT_TOL:
+        fail(f"phase 16b: the f32 model's logits disagree on the flash "
+             f"run's routing ({err:.3e})")
+    del deep, toks, got, want, ra, rb
+    torch.cuda.empty_cache()
+    sub_time("16b f32 cut and 16c trace", t0)
+
+    # ---- 16d. llama4-scout at full width, depth cut to fit one card ----
+    cfg_l = get_config(MOE_WIDE_ARCH, reduced=MOE_REDUCED)
+    cfg_l = dataclasses.replace(cfg_l, n_layers=min(cfg_l.n_layers,
+                                                    MOE_WIDE_LAYERS))
+    print(f"[16d llama4] depth cut to {cfg_l.n_layers} of "
+          f"{get_config(MOE_WIDE_ARCH, reduced=MOE_REDUCED).n_layers} "
+          f"layers (the whole model does not fit one 80 GB card); every "
+          f"width as published", flush=True)
+    lm, prompts, tokens, counts = serve_checks("16d llama4", cfg_l,
+                                               MOE_WIDE_DECODE)
+    launches["llama4 prefill"] = counts
+    del lm, prompts, tokens
+    torch.cuda.empty_cache()
+
+    # ---- 16e. granite training at full width ----
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    lm = T.Transformer(cfg_g, device=dev, seed=0)
+    gen_tok = torch.Generator(device=dev).manual_seed(162)
+    batch = {kk: torch.randint(0, cfg_g.vocab_size, (MOE_BATCH, MOE_PROMPT),
+                               device=dev, generator=gen_tok)
+             for kk in ("tokens", "labels")}
+    step = steps.make_train_step(lm, OptConfig(**MOE_TRAIN_OPT))
+    state = adamw.init(lm.parameters())
+    losses, lat, per_step = [], [], []
+    for i in range(MOE_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        lat.append((time.perf_counter() - t1) * 1e3)
+        per_step.append(ops.launch_counts())
+        print(f"[16e train] step {i + 1}: loss {losses[-1]:.5f} grad_norm "
+              f"{float(metrics['grad_norm']):.4f} wall {lat[-1]:.1f} ms",
+              flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(lat[1:]))
+    launches["granite train step"] = per_step[-1]
+    print(f"[16e train] {cfg_g.name} {MOE_TRAIN_STEPS} steps of {MOE_BATCH}"
+          f" x {MOE_PROMPT} tokens, remat {cfg_g.remat!r}: step p50 "
+          f"{p50:.1f} ms, max {max(lat[1:]):.1f} ms over steps 2-"
+          f"{MOE_TRAIN_STEPS} (host clock around the step; reading the loss "
+          f"waits for the device; step 1 {lat[0]:.1f} ms), "
+          f"{MOE_BATCH * MOE_PROMPT / (p50 / 1e3):.0f} tokens/s; peak "
+          f"device memory {peak / 2**30:.2f} GiB, of it "
+          f"{held / 2**30:.2f} GiB held before the phase: the run's own "
+          f"{(peak - held) / 1e9:.2f} GB (reckoned ~{MOE_RECKONED_GB} GB); "
+          f"kernel launches a step {per_step[-1]}")
+    if not all(np.isfinite(losses)) or not min(losses[2:]) < losses[0]:
+        fail(f"phase 16e: losses {losses}")
+    if any(any(c.values()) for c in per_step):
+        fail(f"phase 16e: the MoE training path launched {per_step}")
+    ops_dev = {}
+    with annotated(L):
+        busy, wall, _, _ = trace(
+            "16e", "granite training step",
+            lambda: step(state, batch), top=12, ops_device=ops_dev)
+    parts = {lab: ops_dev.get(lab, 0.0) for lab in (
+        "moe.experts", "moe.dispatch", "moe.combine", "attention",
+        "aten::bmm", "aten::mm")}
+    print(f"[16e train] traced step: device busy {busy / 1e3:.1f} ms of "
+          f"{wall / 1e3:.1f} ms ({busy / wall:.3f}); device time of "
+          + ", ".join(f"{lab} {us / 1e3:.1f} ms ({us / busy:.3f})"
+                      for lab, us in parts.items())
+          + " (the moe.* and attention scopes hold the forward and its "
+          "remat recompute; aten::bmm the expert products and the "
+          "attention's einsums, forward, recompute and backward)")
+    del lm, state, step, batch, metrics
+    torch.cuda.empty_cache()
+    sub_time("16e", t0)
+    print(f"[16] phase 16 took {time.perf_counter() - t16:.1f} s; "
+          f"launches by path {launches}", flush=True)
+    return launches
+
+
+def main(device: str = "cuda") -> None:
+    import gc
+
+    import torch
+    run = phases_1_to_15(device)
+    from repro_torch.core.tilefusion import api
+    api.clear_schedule_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[16] device memory still allocated after phases 1-15: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    moe_launches = phase_16(torch.device(device))
+    records, band_records = run["records"], run["band_records"]
+    path_launches, tensor_core_ops = (run["path_launches"],
+                                      run["tensor_core_ops"])
+    flash_record_path, device_kind = (run["flash_record_path"],
+                                      run["device_kind"])
+    t_start = run["t_start"]
 
     sources = {
         "spmm_ell": ("src/repro_torch/csrc/spmm_ell.cu",
@@ -3438,6 +4162,19 @@ def main(device: str = "cuda") -> None:
         extra = ({} if name != "spmm_ell" else
                  dict(case=SPMM_RECORD,
                       replaced_chain_ms=rec["replaced_chain_ms"]))
+        if name in ("flash_attention", "fused_moe_ffn"):
+            # phase 16: the MoE paths' launches (a granite / llama4
+            # prefill; the MoE kernel launches on none of them)
+            extra["moe_launches"] = {path: c[name]
+                                     for path, c in moe_launches.items()}
+        if name == "flash_attention":
+            # phase 7 at the MoE prefills' shapes (bf16)
+            extra["moe_shapes"] = {label: {f: records[(label, "bfloat16")][f]
+                                           for f in ("ms", "plain_ms",
+                                                     "bound_ms", "bound_by",
+                                                     "library_ms",
+                                                     "max_abs_err")}
+                                   for label in LM_MOE_FLASH}
         band_keys = [k for k in band_records if k.startswith(name)]
         if band_keys:
             # phase 14a: the sparse-band mixer's shapes (f32)

@@ -1,5 +1,5 @@
-"""Shared LM layers: RMS norm, RoPE, GQA attention, the gated FFN and the
-embeddings.
+"""Shared LM layers: RMS norm, RoPE, GQA attention, the gated FFN, the
+gated top-k MoE layer and the embeddings.
 
 Twins of ``repro.models.layers`` in its functional style: parameters are
 dicts of tensors (an ``nn.ParameterDict`` works as one) and every layer is
@@ -11,11 +11,15 @@ card and its plain version on the CPU.  Training attention
 XLA function its training step differentiates, in plain PyTorch: the
 reference never trains through its Pallas flash kernel, and the port's
 flash kernel has no backward.  Everything else is plain PyTorch (products
-outside any Pallas kernel were left to XLA by the reference).
-Not in this module yet: MLA, cross-attention, the MoE layer and the
-sharding rules (ROADMAP Queue 1).
+outside any Pallas kernel were left to XLA by the reference): the MoE
+layer's expert products too, which the reference computes in XLA, not in
+its (ungated) MoE kernel.
+Not in this module yet: MLA, cross-attention, the MoE layer's mesh path
+and the sharding rules (ROADMAP Queue 1).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -253,6 +257,161 @@ def ffn_apply(p, cfg, x):
     reference's)."""
     h = _act(cfg)(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]
+
+
+# ------------------------------------------------------------------- MoE ----
+def moe_init(gen, cfg, dtype, device=None) -> dict:
+    """The router ``(d, e)`` in f32 whatever ``dtype``, at scale 0.02; the
+    experts' gate, up and down projections ``w1``, ``w3 (e, d, f)`` and
+    ``w2 (e, f, d)`` at ``init_weight``'s default scale, ``1/sqrt(e)`` on
+    these stacked shapes, as the reference draws them; and ``shared``, an
+    ``ffn_init`` dict, when ``cfg.moe_shared_expert`` is set."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {
+        "router": init_weight(gen, (d, e), scale=0.02, device=device),
+        "w1": init_weight(gen, (e, d, f), dtype=dtype, device=device),
+        "w3": init_weight(gen, (e, d, f), dtype=dtype, device=device),
+        "w2": init_weight(gen, (e, f, d), dtype=dtype, device=device),
+    }
+    if cfg.moe_shared_expert:
+        p["shared"] = ffn_init(gen, cfg, dtype, device)
+    return p
+
+
+def moe_capacity(cfg, s: int, capacity_factor: float = 1.25) -> int:
+    """Slots an expert has in one batch row of ``s`` tokens: ``capacity_factor
+    · s · k / e``, rounded up to a multiple of 8, at least 8."""
+    cap = int(capacity_factor * s * cfg.moe_top_k / cfg.n_experts)
+    return max(8, -(-cap // 8) * 8)
+
+
+class Dispatch(NamedTuple):
+    """The routing of a batch of rows, as the combine and the backward use
+    it: each token's experts in ascending order and their gates (f32), and
+    the two index tables between ``(token, pick)`` and the slots of
+    ``xe``, which are laid out expert by expert, then row by row (``xe (e,
+    B·cap, d)``).  A pick is dropped where its ``tok_slot`` is past the
+    last slot."""
+    experts: torch.Tensor    # (B, s, k) ascending
+    gates: torch.Tensor      # (B, s, k) f32, renormalized
+    tok_slot: torch.Tensor   # (B·s·k,) row of xe, e·B·cap where dropped
+    slot_pick: torch.Tensor  # (e·B·cap,) (token, pick), B·s·k where empty
+
+
+def _gather_sum(src, idx):
+    """``out[i] = Σ_r src[idx[i, r]]``, index ``len(src)`` reading zeros;
+    ``r`` is summed in index order."""
+    n = src.shape[0]
+    out = src.index_select(0, idx.reshape(-1).clamp(max=n - 1))
+    out = out.view(*idx.shape, src.shape[1])
+    out.masked_fill_((idx == n)[..., None], 0)
+    return out.sum(1) if idx.shape[1] > 1 else out[:, 0]
+
+
+class _GatherRows(torch.autograd.Function):
+    """``_gather_sum(src, idx)`` whose backward is ``_gather_sum`` on the
+    transposed table ``idx_t`` (for each row of ``src``, the rows of the
+    output that read it).  Dispatch and combine move rows both ways
+    without a scatter, so no float atomics: the layer and its gradients
+    give the same bits twice on the card."""
+
+    @staticmethod
+    def forward(ctx, src, idx, idx_t):
+        ctx.save_for_backward(idx, idx_t)
+        return _gather_sum(src, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, idx_t = ctx.saved_tensors
+        return _GatherRows.apply(grad.contiguous(), idx_t, idx), None, None
+
+
+def _row_dispatch(cfg, x, router, cap):
+    """Capacity dispatch of every batch row at once: ``x (B, s, d)`` →
+    ``(xe (e, B·cap, d), Dispatch)``.
+
+    The reference's ``_row_dispatch`` under ``vmap``, step for step: f32
+    router logits, softmax, top-k, the gates renormalized by ``clip(sum,
+    1e-9)``; the row's assignments sorted by expert (a stable sort, so
+    tokens stay ascending within an expert and the capacity drops the last
+    ones), each one's position by ``searchsorted``.  The rows are batched
+    by giving each its own block of ``cap`` slots under every expert; every
+    index stays inside its row."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    dev = x.device
+    gates = torch.softmax(x.float() @ router, dim=-1)          # (B, s, e)
+    top_g, top_e = torch.topk(gates, k, dim=-1)
+    top_g = top_g / top_g.sum(-1, keepdim=True).clamp_min(1e-9)
+    # a token's picks in ascending expert order: the order of the
+    # reference's sorted assignments, and of its combine's updates
+    experts, perm = top_e.sort(dim=-1)
+    gates = top_g.gather(-1, perm)
+    flat_e = experts.reshape(b, s * k)
+    order = torch.argsort(flat_e, dim=-1, stable=True)
+    se = flat_e.gather(-1, order)
+    first = torch.searchsorted(
+        se, torch.arange(e, device=dev).expand(b, e).contiguous())
+    pos = torch.arange(s * k, device=dev) - first.gather(-1, se)
+    keep = pos < cap
+    rows = torch.arange(b, device=dev)[:, None]
+    n_slots = e * b * cap
+    gslot = torch.where(keep, se * (b * cap) + rows * cap + pos, n_slots)
+    tok_slot = torch.empty_like(gslot).scatter_(-1, order, gslot)
+    slot_pick = torch.full((n_slots + 1,), b * s * k, dtype=torch.long,
+                           device=dev)
+    # dropped assignments all land on the extra entry, which is cut off
+    slot_pick.scatter_(0, gslot.reshape(-1),
+                       (order + rows * (s * k)).reshape(-1))
+    slot_pick = slot_pick[:-1]
+    route = Dispatch(experts=experts, gates=gates,
+                     tok_slot=tok_slot.reshape(-1), slot_pick=slot_pick)
+    # a slot holds token slot_pick // k; an empty one reads zeros
+    xe = _GatherRows.apply(x.reshape(b * s, d), (slot_pick // k)[:, None],
+                           route.tok_slot.view(b * s, k))
+    return xe.view(e, b * cap, d), route
+
+
+def _row_combine(ye, route: Dispatch, b: int, s: int, dtype):
+    """``ye (e, B·cap, d)`` → ``(B, s, d)``: each kept slot's output times
+    its gate rounded to ``dtype``, summed over the token's ``k`` picks in
+    ascending expert order (the order of the reference's scatter-add
+    updates; one reduction, no scatter).  A dropped pick adds zero."""
+    e_slots, d = ye.shape[0] * ye.shape[1], ye.shape[2]
+    k = route.experts.shape[-1]
+    picks = _GatherRows.apply(ye.reshape(e_slots, d), route.tok_slot[:, None],
+                              route.slot_pick[:, None])
+    y = picks.view(b * s, k, d) * route.gates.to(dtype).view(b * s, k, 1)
+    return y.sum(1).view(b, s, d).to(dtype)
+
+
+def _expert_ffn(cfg, xe, w1, w3, w2):
+    """The gated expert chain ``(act(xe·w1) ⊙ xe·w3)·w2``, batched over the
+    experts (``xe (e, n, d)``): three ``bmm``s, on cuBLAS on the card, as
+    the reference leaves its expert einsums to XLA."""
+    h = _act(cfg)(torch.bmm(xe, w1)) * torch.bmm(xe, w3)
+    return torch.bmm(h, w2)
+
+
+def moe_apply(p, cfg, x, capacity_factor: float = 1.25):
+    """Top-k MoE over ``x (B, s, d)``: capacity dispatch per batch row,
+    the gated experts, the combine, plus the shared expert where ``p``
+    has one.  The reference's single-device path (its mesh path, the
+    ``shard_map`` with f-sliced experts, is not ported yet).
+
+    Tile-fusion reading (the reference's): the dispatch one-hot is the
+    sparse A, the tokens of one expert form a fused tile, gather → two
+    expert products with the intermediate local → scatter.  The routing
+    is discontinuous: a near tie in a token's gates can pick another
+    expert when the logits round differently."""
+    b, s, _ = x.shape
+    cap = moe_capacity(cfg, s, capacity_factor)
+    xe, route = _row_dispatch(cfg, x, p["router"], cap)
+    ye = _expert_ffn(cfg, xe, p["w1"], p["w3"], p["w2"])
+    y = _row_combine(ye, route, b, s, x.dtype)
+    if "shared" in p:
+        y = y + ffn_apply(p["shared"], cfg, x)
+    return y
 
 
 # ------------------------------------------------------------- embedding ----

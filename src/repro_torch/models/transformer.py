@@ -1,5 +1,6 @@
 """Decoder-only LM, pre-norm, as in ``repro.models.transformer``, of two
-block patterns: ``attn`` (self-attention with GQA, then a gated FFN) and
+block patterns: ``attn`` (self-attention with GQA, then a gated FFN, or
+the gated top-k MoE layer when ``cfg.n_experts`` is set) and
 ``sparse-band`` (the banded-decay token mixer of ``models.ssm``, then a
 gated FFN).
 
@@ -26,8 +27,8 @@ full-width config) keeps only the 2-D projections' outputs (``aten.mm`` /
 ``aten.addmm``, the reference's ``dots_with_no_batch_dims_saveable``) and
 recomputes the rest, the attention's batched products included.
 
-Other block patterns, the encoder, MoE and MLA raise
-``NotImplementedError``: later slices bring them (ROADMAP Queue 1).
+Other block patterns, the encoder and MLA raise ``NotImplementedError``:
+later slices bring them (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -53,7 +54,6 @@ def check_supported(cfg) -> None:
         (f"block pattern {cfg.block_pattern!r}",
          cfg.block_pattern in BLOCK_PATTERNS),
         ("an encoder", not cfg.encoder_layers),
-        ("MoE experts", not cfg.n_experts),
         ("MLA", not cfg.mla),
         (f"a {cfg.frontend} frontend", cfg.frontend == "none"),
     ] if not off]
@@ -92,7 +92,18 @@ def remat(policy: str, fn):
 
 
 def _params(d: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(v) for k, v in d.items()})
+    """A (nested) dict of tensors as parameters; a nested dict, such as the
+    MoE layer's ``shared`` expert, becomes a nested ``ParameterDict``."""
+    return nn.ParameterDict({
+        k: _params(v) if isinstance(v, dict) else nn.Parameter(v)
+        for k, v in d.items()})
+
+
+def _keys(node):
+    """The key structure of a (nested) dict or ``ParameterDict``."""
+    if isinstance(node, (dict, nn.ParameterDict)):
+        return {k: _keys(v) for k, v in node.items()}
+    return None
 
 
 def _gain(cfg, dtype, device) -> nn.Parameter:
@@ -100,14 +111,20 @@ def _gain(cfg, dtype, device) -> nn.Parameter:
 
 
 class Block(nn.Module):
-    """Pre-norm block: ``x + attn(norm(x))``, then ``x + ffn(norm(x))``."""
+    """Pre-norm block: ``x + attn(norm(x))``, then ``x + ffn(norm(x))``,
+    or ``x + moe(norm(x))`` when ``cfg.n_experts`` is set (the parameters
+    ``moe`` in place of ``ffn``, as the reference's ``_attn_block_init``
+    holds them)."""
 
     def __init__(self, cfg, gen, dtype, device):
         super().__init__()
         self.ln1 = _gain(cfg, dtype, device)
         self.ln2 = _gain(cfg, dtype, device)
         self.attn = _params(L.gqa_init(gen, cfg, dtype, device))
-        self.ffn = _params(L.ffn_init(gen, cfg, dtype, device))
+        if cfg.n_experts:
+            self.moe = _params(L.moe_init(gen, cfg, dtype, device))
+        else:
+            self.ffn = _params(L.ffn_init(gen, cfg, dtype, device))
 
     def forward(self, cfg, x, pos, cache=None, cache_len=None,
                 impl="cuda", train=False):
@@ -118,6 +135,8 @@ class Block(nn.Module):
                                        train=train)
         x = x + a
         h = L.rms_norm(self.ln2, x, cfg.norm_eps)
+        if cfg.n_experts:
+            return x + L.moe_apply(self.moe, cfg, h), new_cache
         return x + L.ffn_apply(self.ffn, cfg, h), new_cache
 
 
@@ -198,18 +217,19 @@ class Transformer(nn.Module):
                              f"{sorted(expected)}")
         layers = tree["layers"]
         mixer = "mix" if self.sparse_band else "attn"
-        if set(layers) != {"ln1", "ln2", mixer, "ffn"}:
+        channel = "moe" if hasattr(self.blocks[0], "moe") else "ffn"
+        if set(layers) != {"ln1", "ln2", mixer, channel}:
             raise ValueError(f"layer keys {sorted(layers)}, expected "
-                             f"{sorted({'ln1', 'ln2', mixer, 'ffn'})}")
+                             f"{sorted({'ln1', 'ln2', mixer, channel})}")
         n = len(layers["ln1"])
         if n != len(self.blocks):
             raise ValueError(f"{n} layers for {len(self.blocks)} blocks")
 
         for dst, src in [(self.tok, tree["tok"]),
                          (getattr(self.blocks[0], mixer), layers[mixer]),
-                         (self.blocks[0].ffn, layers["ffn"])]:
-            if set(dst) != set(src):
-                raise ValueError(f"keys {sorted(src)} for {sorted(dst)}")
+                         (getattr(self.blocks[0], channel), layers[channel])]:
+            if _keys(dst) != _keys(src):
+                raise ValueError(f"keys {_keys(src)} for {_keys(dst)}")
 
         def leaf(name):
             path = name.split(".")

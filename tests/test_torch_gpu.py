@@ -4,7 +4,9 @@ and a GCN training step, the serving tier's requests), the LM served on
 the card, and LM training (the sparse-band mixer and train step on the
 kernel arm against the plain arm; the dense train step through
 ``scan_attention`` against an f64 oracle, remat's gradients, the
-trainer's resume).
+trainer's resume), and the gated MoE layer (against the same call on the
+CPU, bit for bit twice, a MoE prefill launching flash and not the MoE
+kernel).
 
 Every test here carries the ``gpu`` marker and skips, with its reason,
 where there is no CUDA device of compute capability 9.0+ (the decision is
@@ -1433,3 +1435,124 @@ def test_trainer_resumes_exactly_on_the_card(card, tmp_path, capsys):
             a = np.load(os.path.join(d1, "step_00000008", f))
             b = np.load(os.path.join(d2, "step_00000008", f))
             assert a.dtype == b.dtype and np.array_equal(a, b), f
+
+
+# ----------------------------------------------------------- the MoE layer --
+def _moe_case(arch, reduced, b, s, dtype, card, seed):
+    """(cfg, weights, x) on the card: ``moe_init`` from a seed, x normal."""
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(get_config(arch, reduced=reduced),
+                              dtype=str(dtype).split(".")[1])
+    gen = torch.Generator(device=card).manual_seed(seed)
+    p = L.moe_init(gen, cfg, dtype, card)
+    x = torch.randn(b, s, cfg.d_model, device=card, generator=gen).to(dtype)
+    return cfg, p, x
+
+
+def _to(p, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in p.items()}
+
+
+#: (arch, reduced, B, S): both REDUCED layers and granite at its published
+#: widths (d 1536, 40 experts top-8, f 512)
+MOE_CASES = [("granite-moe-3b-a800m", True, 2, 48),
+             ("llama4-scout-17b-a16e", True, 2, 48),
+             ("granite-moe-3b-a800m", False, 2, 256)]
+
+
+@pytest.mark.parametrize("arch,reduced,b,s", MOE_CASES)
+def test_moe_apply_on_the_card_matches_the_cpu(card, arch, reduced, b, s):
+    """``moe_apply`` (f32) on the card against the same call on the CPU:
+    the same routing, and the output within 1e-4 row by row.  A routing
+    difference is allowed only for a token whose k-th and (k+1)-th gates
+    lie within 1e-5 (rounding can flip such a pick); rows holding one are
+    left out of the output check, and at least one row is checked."""
+    from repro_torch.models import layers as L
+    cfg, p, x = _moe_case(arch, reduced, b, s, torch.float32, card, 30)
+    routes = {}
+
+    def run(device):
+        def record(cfg_, x_, router, cap):
+            xe, route = dispatch(cfg_, x_, router, cap)
+            routes[device] = route
+            return xe, route
+        dispatch = L._row_dispatch
+        L._row_dispatch = record
+        try:
+            with torch.no_grad():
+                return L.moe_apply(_to(p, device), cfg, x.to(device))
+        finally:
+            L._row_dispatch = dispatch
+    got, want = run(card), run("cpu")
+    same = (routes[card].experts.cpu() == routes["cpu"].experts).all(-1)
+    if not bool(same.all()):
+        gates = torch.softmax(x.cpu().float() @ p["router"].cpu(), -1)
+        top = gates.topk(cfg.moe_top_k + 1, -1).values
+        gap = top[..., -2] - top[..., -1]
+        assert float(gap[~same].max()) < 1e-5
+    rows = same.all(-1)
+    assert bool(rows.any())
+    assert _row_rel_err(got.cpu()[rows], want[rows]) <= 1e-4
+
+
+def test_moe_apply_on_the_card_is_deterministic(card):
+    """granite's layer at its published widths in bf16, B 2 × S 512: two
+    forward and backward passes give the same bits (dispatch and combine
+    gather rows both ways; no float atomics)."""
+    from repro_torch.models import layers as L
+    cfg, p, x = _moe_case("granite-moe-3b-a800m", False, 2, 512,
+                          torch.bfloat16, card, 31)
+    w = torch.randn(x.shape, device=card, dtype=x.dtype)
+
+    def run():
+        ps = {k: v.detach().requires_grad_() for k, v in p.items()}
+        xs = x.detach().requires_grad_()
+        y = L.moe_apply(ps, cfg, xs)
+        (y.float() * w).sum().backward()
+        return [y, xs.grad] + [v.grad for v in ps.values()]
+    for a, b in zip(run(), run(), strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_prefill_on_the_card_launches_flash_not_the_moe_kernel(card,
+                                                                    arch):
+    """A ``REDUCED`` MoE model's prefill on the card (f32): one flash
+    launch a layer, and the (ungated) fused MoE kernel never: the layer is
+    the reference's gated ``moe_apply`` on cuBLAS.  Against the plain
+    attention the routing must agree (f32 router logits differ by about
+    1e-6; in bf16 near-tied picks flip) and the logits within 1e-3."""
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    model = T.Transformer(cfg, seed=2)
+    gen = torch.Generator(device=card).manual_seed(32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=card,
+                         generator=gen)
+    routes = []
+
+    def record(cfg_, x, router, cap):
+        xe, route = dispatch(cfg_, x, router, cap)
+        routes.append(route.experts)
+        return xe, route
+    dispatch = L._row_dispatch
+    L._row_dispatch = record
+    try:
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            got, _ = model.decode_step(toks, model.init_cache(2, 41), 0)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        with torch.inference_mode():
+            want, _ = model.decode_step(toks, model.init_cache(2, 41), 0,
+                                        impl="torch")
+    finally:
+        L._row_dispatch = dispatch
+    assert counts["flash_attention"] == cfg.n_layers
+    assert counts["fused_moe_ffn"] == 0
+    n = cfg.n_layers
+    assert all(torch.equal(a, b) for a, b in zip(routes[:n], routes[n:],
+                                                 strict=True))
+    assert _rel_err(got, want) <= 1e-3
