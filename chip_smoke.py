@@ -84,7 +84,9 @@ Phases, in order (any failure exits non-zero; no exception is caught):
   7. LM kernels — flash attention, the fused FFN and the fused MoE FFN
                through their entry points (``kernels.ops``) at published
                widths (qwen2.5-3b prefill, hymba-1.5b's window, Whisper's
-               ragged 1500-frame encoder; stablelm-1.6b FFN widths;
+               ragged 1500-frame encoder, the granite-moe-3b,
+               llama4-scout and minicpm3-4b prefills; stablelm-1.6b FFN
+               widths;
                granite-moe-3b experts; minitron-8b FFN widths, bf16
                only: d 4096, two cluster groups), f32 and bf16, each
                against its plain version (each output row against its
@@ -318,6 +320,37 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                on one fixed 4 x 2048 batch under ``remat="dots"``: losses
                fall, no kernel launch, p50 / max, peak memory, a traced
                step.
+ 17. MLA and the attention + mamba hybrid, bf16, weights from seeds
+               (``phase_17``, run after phase 16 has freed its tensors).
+               17a: ``layers.mla_attention`` at minicpm3-4b's widths (d
+               2560, 40 heads of 64, latent rank 256) and
+               ``ssm.mamba_apply`` at hymba-1.5b's (d 1600, 25 heads of
+               64, state 16), B 4 x S 2048: the training path's output and
+               gradients (x and every weight) and the served path's
+               output (MLA: the flash kernel) against f64 oracles written
+               here (RoPE, a causal softmax, the recurrence one step at a
+               time), row by row within 2^-6, and times; the chunked
+               recurrence at hymba's head shape (B 4, S 2048, 25 heads, dk
+               16, dv 64), without and with the normalizer, from a carried
+               state, against the stepwise recurrence in f64 (output and
+               final state within 2e-3 of the largest value).  17b / 17c:
+               minicpm3-4b (4.358 B parameters) and hymba-1.5b (1.433 B)
+               at full width and depth served as phase 8 serves qwen (4 x
+               2048 prompts, 32 decode steps; hymba's prefill wraps its
+               1024-slot ring): the flash kernel on each layer's own q, k,
+               v against its plain version (row by row within 2^-6), the
+               prefill logits against the plain attention (within 5e-2),
+               the flash kernel exactly once a layer and nothing else,
+               cold and warm prefill, decode p50 / max, the replayed picks
+               = the served tokens, a traced prefill and decode step (the
+               attention, mamba and recurrence scopes); then a 2-layer f32
+               cut at full width: flash against plain, and 8 tokens
+               decoded after the prefill (minicpm3 2 x 512, hymba 2 x 1536
+               past its ring) against the forward, within 1e-3.  17d: 6
+               AdamW steps of each under ``remat="dots"`` on one fixed
+               batch (hymba 4 x 2048, minicpm3 2 x 2048: 4 rows do not
+               fit the card): losses fall, no kernel launch, p50 / max,
+               peak memory, a traced step.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after: phases 4-5 (the GCN path, gradients included) must
@@ -331,7 +364,8 @@ none of the six kernels (its counts must stay 0), phase 7's
 entry-point calls the FFN and MoE kernels, phase 8 the flash kernel
 exactly once per layer of the prefill, and so do phase 16's MoE
 prefills, which never launch the MoE kernel (its training launches
-none).  Launches made to
+none), and phase 17's MLA and hybrid prefills, which launch nothing else
+(their training launches none).  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON record (with each kernel's tensor-core instruction count
@@ -391,6 +425,11 @@ LM_CASES = [
      "flash_attention",
      dict(b=4, h=40, hkv=8, sq=2048, sk=2048, d=128, causal=True,
           window=8192)),
+    # minicpm3-4b's MLA prefill (phase 17): 40 query heads over 40
+    # expanded K/V heads of 64 (rep 1), the bf16 wgmma D64 path
+    ("flash_attention (minicpm3-4b prefill)", "flash_attention",
+     dict(b=4, h=40, hkv=40, sq=2048, sk=2048, d=64, causal=True,
+          window=0)),
     ("fused_ffn (stablelm-1.6b widths)", "fused_ffn",
      dict(e=0, m=8192, d=2048, f=5632, act="gelu")),
     # a 4096-token row, top-8 of 40 experts, capacity factor 1.25
@@ -409,6 +448,8 @@ LM_RECORD = {"flash_attention": "flash_attention (qwen2.5-3b prefill)",
 # the flash cases at the MoE prefills' shapes, also in the JSON record
 LM_MOE_FLASH = ("flash_attention (granite-moe-3b prefill)",
                 "flash_attention (llama4-scout prefill, window 8192)")
+# the flash case at minicpm3-4b's prefill shape, also in the JSON record
+LM_MLA_FLASH = "flash_attention (minicpm3-4b prefill)"
 # phase 8: qwen2.5-3b at full width; 4 prompts of 2048 tokens, 32 decode
 # steps after the prefill
 LM_ARCH = "qwen2.5-3b"
@@ -527,7 +568,47 @@ MOE_RECKONED_GB = 50.5
 # event, and leaves the GPU-side annotation ranges out of the busy time)
 SCOPES = {"_row_dispatch": "moe.dispatch", "_expert_ffn": "moe.experts",
           "_row_combine": "moe.combine", "chunked_attention": "attention",
-          "decode_attention": "attention", "scan_attention": "attention"}
+          "decode_attention": "attention", "scan_attention": "attention",
+          "mamba_apply": "mamba",
+          "chunked_linear_recurrence": "recurrence",
+          "linear_recurrence_step": "recurrence"}
+# phase 17: multi-head latent attention (minicpm3-4b) and the attention +
+# mamba hybrid (hymba-1.5b), bf16, weights from seeds.  17a: each layer
+# alone at its model's published widths, B 4 x S 2048, output and
+# gradients held row by row to an f64 oracle at two bf16 units in the last
+# place; the chunked recurrence at hymba's head shape held to the stepwise
+# recurrence in f64 at the parity bar, relative to the largest value
+P17_MLA, P17_HYBRID = "minicpm3-4b", "hymba-1.5b"
+P17_REDUCED = False
+P17_LAYER_BATCH, P17_LAYER_SEQ = 4, 2048
+P17_ORACLE_TOL = 2.0 ** -6
+P17_RECURRENCE = dict(b=4, s=2048, h=25, dk=16, dv=64)
+# 17b / 17c: each model at full width and depth served as phase 8 serves
+# qwen (4 prompts of 2048 tokens, 32 decode steps); the f32 cuts: 2 layers
+# at full width, (B, S) tokens, flash against the plain attention and 8
+# tokens decoded after them against the forward, within 1e-3 (hymba's 1536
+# tokens overfill its 1024-slot ring, so its decode reads a wrapped ring)
+P17_BATCH, P17_PROMPT, P17_DECODE, P17_REPLAY = 4, 2048, 32, 4
+# whether the bf16 prefill logits are held to the plain attention's at
+# LM_TOL; both models' f32 logits are, at P17_CUT_TOL, through every layer.
+# hymba-1.5b's bf16 logits are printed only: its blocks grow the
+# difference between the two attentions 50-80 times over its 32 layers,
+# in f32 (4.3e-7 after block 1, 3.4e-5 after block 32) as in bf16 (4.4e-3,
+# 0.23), where minicpm3-4b's 62 grow it 2-6 times (PERF.md section 6):
+# one bf16 unit a layer then reaches 0.24 at hymba's logits
+P17_BF16_HELD = {P17_MLA: True, P17_HYBRID: False}
+P17_CUT_LAYERS, P17_CUT_TOL, P17_CUT_DECODE = 2, 1e-3, 8
+P17_CUT_SHAPE = {P17_MLA: (2, 512), P17_HYBRID: (2, 1536)}
+# 17d: 6 AdamW steps of each model on one fixed batch of 2048-token rows
+# under the config's remat="dots".  minicpm3-4b's batch is cut to 2 rows:
+# its parameters, gradients and f32 moments are 52.3 GB, the kept products
+# 0.42 GB a layer at 8,192 tokens (26 GB over 62 layers), so 4 rows pass
+# the card's 80 GB; 2 rows are reckoned at ~72 GB.  hymba-1.5b: 17.2 GB
+# of state, ~11.6 GB of kept products, one block's recompute ~7 GB
+P17_TRAIN_STEPS = 6
+P17_TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=20)
+P17_TRAIN_BATCH = {P17_MLA: 2, P17_HYBRID: 4}
+P17_RECKONED_GB = {P17_MLA: 72, P17_HYBRID: 37}
 GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
 # phase 2: the functions of each kernel in the library's SASS (a part of the
@@ -707,6 +788,7 @@ def trace(tag, label, fn, warm=None, top=8, ops_device=None):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
+    t_trace = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
@@ -719,7 +801,8 @@ def trace(tag, label, fn, warm=None, top=8, ops_device=None):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
         prof.step()
-    events = [e for e in prof.key_averages()
+    averages = prof.key_averages()
+    events = [e for e in averages
               if e.device_type == DeviceType.CUDA
               and e.self_device_time_total > 0
               and not e.key.startswith("ProfilerStep")
@@ -733,16 +816,17 @@ def trace(tag, label, fn, warm=None, top=8, ops_device=None):
         print(f"[{tag} trace] {label}:   {e.self_device_time_total:9.1f}"
               f" us  x{e.count:<3d} {e.key[:100]}")
     copies = {e.key: (e.count, e.self_device_time_total)
-              for e in prof.key_averages()
+              for e in averages
               if e.key.startswith(("Memcpy", "Memset"))}
     print(f"[{tag} trace] {label}: memcpy / memset rows "
-          f"{copies or 'none'}")
+          f"{copies or 'none'}; the trace took "
+          f"{time.perf_counter() - t_trace:.1f} s")
     if ops_device is not None:
         ops_device.update({e.key: e.device_time_total
-                           for e in prof.key_averages()
+                           for e in averages
                            if e.device_type == DeviceType.CPU})
     return (busy, wall_us,
-            {e.key: e.count for e in prof.key_averages()},
+            {e.key: e.count for e in averages},
             {e.key: e.self_device_time_total for e in events})
 
 
@@ -3597,26 +3681,28 @@ def held_attention(layers):
 
 
 @contextlib.contextmanager
-def annotated(layers):
-    """While active, the MoE layer's three steps and the attention run
-    inside the ``record_function`` scopes of ``SCOPES``, so a trace can
-    give each one's device time (forward and remat recompute; a backward
-    runs outside them)."""
+def annotated(module):
+    """While active, the functions of ``module`` named in ``SCOPES`` (the
+    MoE layer's three steps and the attention in ``models.layers``; the
+    mamba heads and the recurrence in ``models.ssm``) run inside their
+    ``record_function`` scopes, so a trace can give each one's device time
+    (forward and remat recompute; a backward runs outside them)."""
     from torch.profiler import record_function
-    saved = {name: getattr(layers, name) for name in SCOPES}
+    saved = {name: getattr(module, name) for name in SCOPES
+             if hasattr(module, name)}
 
     def wrap(fn, label):
         def inner(*args, **kwargs):
             with record_function(label):
                 return fn(*args, **kwargs)
         return inner
-    for name, label in SCOPES.items():
-        setattr(layers, name, wrap(saved[name], label))
+    for name, fn in saved.items():
+        setattr(module, name, wrap(fn, SCOPES[name]))
     try:
         yield
     finally:
         for name, fn in saved.items():
-            setattr(layers, name, fn)
+            setattr(module, name, fn)
 
 
 def kept_of(route):
@@ -4108,6 +4194,494 @@ def phase_16(dev) -> dict:
     return launches
 
 
+def rope_f64(x, pos):
+    """Interleaved-pair RoPE (θ = 10000) in f64: the oracles' own, written
+    apart from the port's ``layers.apply_rope``."""
+    import torch
+    d = x.shape[-1]
+    inv = 10000.0 ** (-torch.arange(0, d, 2, dtype=torch.float64,
+                                     device=x.device) / d)
+    ang = pos.double()[:, None] * inv
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., ::2], x[..., 1::2]
+    return torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                       -1).flatten(-2)
+
+
+def mla_f64(p, cfg, x):
+    """Multi-head latent attention in f64 without a cache: the latent
+    expanded to K and V, RoPE on q and k, a causal softmax over the
+    whole sequence."""
+    import torch
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    pos = torch.arange(s, device=x.device)
+
+    def heads(t):
+        return t.view(b, s, h, dh).transpose(1, 2)
+    q = rope_f64(heads(x @ p["wq"]), pos)
+    lat = x @ p["w_dkv"]
+    k = rope_f64(heads(lat @ p["w_uk"]), pos)
+    v = heads(lat @ p["w_uv"])
+    scores = (q @ k.transpose(-1, -2)) / dh ** 0.5
+    causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
+    att = torch.softmax(scores.masked_fill(~causal, float("-inf")), -1)
+    return (att @ v).transpose(1, 2).reshape(b, s, h * dh) @ p["wo"]
+
+
+def recurrence_f64(q, k, v, log_a, h0=None, normalize=False):
+    """The linear recurrence one step at a time in f64: ``H_t = a_t H_{t-1}
+    + k_tᵀ v_t``, ``o_t = q_t H_t`` (with ``normalize`` a ones column joins
+    v and ``o = num / max(|n|, 1)``).  Returns ``(o, H_S)``."""
+    import torch
+    b, s, h, dk = q.shape
+    dv = v.shape[-1]
+    if normalize:
+        v = torch.cat([v, v.new_ones(b, s, h, 1)], -1)
+    state = q.new_zeros(b, h, dk, v.shape[-1]) if h0 is None else h0
+    decay = torch.exp(log_a)[..., None, None]
+    outs = []
+    for t in range(s):
+        state = state * decay[:, t] + k[:, t, :, :, None] * v[:, t, :, None]
+        outs.append(torch.einsum("bhk,bhkv->bhv", q[:, t], state))
+    o = torch.stack(outs, 1)
+    if normalize:
+        o = o[..., :dv] / o[..., dv:].abs().clamp_min(1.0)
+    return o, state
+
+
+def mamba_f64(p, cfg, x):
+    """hymba's mamba heads in f64: the projections, dt and the decay, and
+    ``recurrence_f64`` from a zero state (no normalizer)."""
+    import torch.nn.functional as F
+    b, s, _ = x.shape
+    h, dh, n = cfg.n_heads, cfg.ssm_head_dim, cfg.ssm_state
+    xin, z = (x @ p["w_in"]).chunk(2, -1)
+    bc = (xin @ p["w_bc"]).view(b, s, h, 2 * n)
+    dt = F.softplus(xin @ p["w_dt"])
+    v = xin.view(b, s, h, dh) * dt[..., None]
+    o, _ = recurrence_f64(bc[..., n:], bc[..., :n], v,
+                          -dt * p["a_log"].exp())
+    return (o.reshape(b, s, h * dh) * F.silu(z)) @ p["w_out_proj"]
+
+
+def block_drift(lm, tokens):
+    """The model's forward over ``tokens`` with the flash kernel and with
+    the plain attention (``impl="torch"``): ``(the logits' rel err, each
+    block's output rel err)``, read by forward hooks on the blocks."""
+    import torch
+    outs = {"cuda": [], "torch": []}
+
+    def run(impl):
+        hooks = [blk.register_forward_hook(
+            lambda mod, args, out, impl=impl: outs[impl].append(out[0]))
+            for blk in lm.blocks]
+        try:
+            with torch.inference_mode():
+                return lm(tokens, impl=impl)
+        finally:
+            for h in hooks:
+                h.remove()
+    got, want = run("cuda"), run("torch")
+    return rel_err(got, want)[1], [rel_err(a, b)[1] for a, b in
+                                   zip(outs["cuda"], outs["torch"])]
+
+
+def phase_17(dev) -> dict:
+    """Multi-head latent attention and the attention + mamba hybrid: the
+    layers and the recurrence alone (17a), minicpm3-4b (17b) and hymba-1.5b
+    (17c) served at full width and depth with their f32 cuts and traces,
+    and both trained (17d).  Returns the phase's launches by path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import last_path
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptConfig, adamw
+    t17 = time.perf_counter()
+    bf16, f64 = torch.bfloat16, torch.float64
+    launches = {}
+    cfgs = {arch: get_config(arch, reduced=P17_REDUCED)
+            for arch in (P17_MLA, P17_HYBRID)}
+
+    def sub_time(label, t0):
+        print(f"[17] {label} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    # ---- 17a. the layers alone at published widths ----
+    b, s = P17_LAYER_BATCH, P17_LAYER_SEQ
+    # (arch, init, layer, its f64 oracle, batch rows the oracle takes at
+    # once: a row's f64 scores are 1.3 GB at 40 heads, and the stepwise
+    # recurrence's launches do not grow with the rows)
+    for arch, init, layer, oracle, rows in (
+            (P17_MLA, L.mla_init, "mla_attention", mla_f64, 1),
+            (P17_HYBRID, S.mamba_init, "mamba_apply", mamba_f64, b)):
+        t0 = time.perf_counter()
+        cfg = cfgs[arch]
+        pos = torch.arange(s, device=dev)
+        if layer == "mla_attention":
+            def fwd(p_, x_, train):
+                return L.mla_attention(p_, cfg, x_, pos=pos, train=train)[0]
+        else:
+            def fwd(p_, x_, train):
+                return S.mamba_apply(p_, cfg, x_)[0]
+        for dtype in (torch.float32, bf16):
+            dname = str(dtype).split(".")[1]
+            # the same draws in both dtypes (init_weight draws in f32 and
+            # casts); the loss weights are bf16 values, so the upstream
+            # gradient is the same in the run and in the oracle
+            gen = torch.Generator(device=dev).manual_seed(170)
+            p = init(gen, cfg, dtype, dev)
+            x = torch.randn(b, s, cfg.d_model, device=dev,
+                            generator=gen).to(dtype)
+            wgt = torch.randn(b, s, cfg.d_model, device=dev,
+                              generator=gen).to(bf16).float()
+            leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+            xs = x.detach().requires_grad_()
+            y = fwd(leaves, xs, True)
+            (y.float() * wgt).sum().backward()
+            grads = {"x": xs.grad, **{k: v.grad for k, v in leaves.items()}}
+            with torch.no_grad():
+                served = fwd(p, x, False)
+            # the oracle on the same (rounded) weights and inputs, ``rows``
+            # batch rows at a time; weight gradients summed over them
+            p64 = {k: v.detach().to(f64).requires_grad_()
+                   for k, v in p.items()}
+            y64, gx64 = [], []
+            for r in range(0, b, rows):
+                x64 = x[r:r + rows].to(f64).requires_grad_()
+                yr = oracle(p64, cfg, x64)
+                (yr * wgt[r:r + rows].double()).sum().backward()
+                y64.append(yr.detach())
+                gx64.append(x64.grad)
+            y64 = torch.cat(y64)
+            want = {"x": torch.cat(gx64),
+                    **{k: v.grad for k, v in p64.items()}}
+            errs = {"out (train path)": rel_err(y, y64, rows=True)[1],
+                    "out (served path)": rel_err(served, y64, rows=True)[1]}
+            errs.update({f"d{k}": rel_err(g, want[k], rows=True)[1]
+                         for k, g in grads.items()})
+            tol = P17_ORACLE_TOL if dtype == bf16 else TOL["float32"]
+            print(f"[17a layer] {arch} {layer} B {b} x S {s}, d "
+                  f"{cfg.d_model}, {cfg.n_heads} heads, {dname}, vs an f64 "
+                  f"oracle, row rel err " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in errs.items())
+                  + f" (limit {tol:.2e})", flush=True)
+            if max(errs.values()) > tol:
+                fail(f"phase 17a {arch}: {layer} in {dname} disagrees with "
+                     f"its f64 oracle {errs}")
+            del leaves, xs, y, grads, served, p64, y64, gx64, want
+            torch.cuda.empty_cache()
+
+            def train_call():
+                ps = {k: v.detach().requires_grad_() for k, v in p.items()}
+                (fwd(ps, x, True).float() * wgt).sum().backward()
+            with torch.no_grad():
+                fwd_ms = time_ms(lambda: fwd(p, x, False), iters=5)
+            train_ms = time_ms(train_call, iters=5)
+            print(f"[17a layer] {arch} {layer} {dname} per call (CUDA "
+                  f"events, 5 calls after 3): served forward {fwd_ms:.3f} "
+                  f"ms, training forward + backward {train_ms:.3f} ms")
+            del p, x, wgt
+        torch.cuda.empty_cache()
+        sub_time(f"17a {arch}", t0)
+
+    # the chunked recurrence at hymba's head shape against the stepwise
+    # recurrence in f64, from a carried-in state
+    t0 = time.perf_counter()
+    rs = P17_RECURRENCE
+    gen = torch.Generator(device=dev).manual_seed(171)
+
+    def draw(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+    q = draw(rs["b"], rs["s"], rs["h"], rs["dk"])
+    k = draw(rs["b"], rs["s"], rs["h"], rs["dk"])
+    v = draw(rs["b"], rs["s"], rs["h"], rs["dv"])
+    log_a = -draw(rs["b"], rs["s"], rs["h"]).abs()
+    for normalize in (False, True):
+        h0 = draw(rs["b"], rs["h"], rs["dk"], rs["dv"] + normalize)
+        with torch.no_grad():
+            o, hf = S.chunked_linear_recurrence(q, k, v, log_a, h0=h0,
+                                                normalize=normalize)
+            o64, hf64 = recurrence_f64(q.double(), k.double(), v.double(),
+                                       log_a.double(), h0.double(),
+                                       normalize)
+            ms = time_ms(lambda: S.chunked_linear_recurrence(
+                q, k, v, log_a, h0=h0, normalize=normalize), iters=5)
+        err_o, err_h = rel_err(o, o64)[1], rel_err(hf, hf64)[1]
+        print(f"[17a recurrence] B {rs['b']} x S {rs['s']}, {rs['h']} heads,"
+              f" dk {rs['dk']}, dv {rs['dv']}, normalize={normalize}, chunk "
+              f"128, f32 vs the stepwise recurrence in f64: rel err output "
+              f"{err_o:.3e}, h_final {err_h:.3e} (limit {MAIN_TOL}); "
+              f"{ms:.3f} ms a call (CUDA events, 5 calls after 3)")
+        if max(err_o, err_h) > MAIN_TOL:
+            fail(f"phase 17a: the chunked recurrence disagrees with the "
+                 f"stepwise one (normalize={normalize}: {err_o:.3e}, "
+                 f"{err_h:.3e})")
+    del q, k, v, log_a, h0, o, hf, o64, hf64
+    torch.cuda.empty_cache()
+    sub_time("17a recurrence", t0)
+
+    # ---- 17b / 17c. serving at full width and depth ----
+    def serve_checks(tag, cfg):
+        """Phase 8's serving run: the flash kernel held on each layer's
+        own q, k, v, the prefill logits against the plain attention,
+        launches, times, the replayed picks and a trace."""
+        t0 = time.perf_counter()
+        lm, prompts = serve.build(cfg, batch=P17_BATCH,
+                                  prompt_len=P17_PROMPT, seed=0, device=dev)
+        torch.cuda.synchronize()
+        n_params = sum(q.numel() for q in lm.parameters())
+        print(f"[{tag}] {cfg.name}: {n_params / 1e9:.3f} B parameters, "
+              f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} / "
+              f"{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+              + (f"MLA rank {cfg.mla_kv_rank}, " if cfg.mla else "")
+              + (f"mamba state {cfg.ssm_state} x {cfg.ssm_head_dim}, "
+                 if cfg.block_pattern == "attn+mamba" else "")
+              + f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window "
+              f"{cfg.window}, {cfg.dtype}; built on the card in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        total = P17_PROMPT + P17_DECODE + 1
+        cache = lm.init_cache(P17_BATCH, total)
+        with held_attention(L) as attn:
+            got, _ = lm.decode_step(prompts, cache, 0)
+        ran = last_path()
+        want, _ = lm.decode_step(prompts, lm.init_cache(P17_BATCH, total), 0,
+                                 impl="torch")
+        abs_err, rel = rel_err(got, want)
+        agree = float((got[:, -1].argmax(-1) == want[:, -1].argmax(-1))
+                      .float().mean())
+        worst = max(err for _, _, err in attn)
+        shapes = sorted({(shape, window) for shape, window, _ in attn})
+        print(f"[{tag}] prefill logits {tuple(got.shape)} vs impl=torch: "
+              f"max_abs={abs_err:.3e} rel={rel:.3e} (tolerance {LM_TOL}); "
+              f"next-token agreement {agree:.2f}; the flash kernel ({ran}) "
+              f"on each of the {len(attn)} layers' own q, k, v {shapes} "
+              f"against its plain version: row rel err by layer "
+              f"{', '.join(f'{err:.1e}' for _, _, err in attn)} (limit "
+              f"{LM_BF16_TOL:.2e})", flush=True)
+        if len(attn) != cfg.n_layers or worst > LM_BF16_TOL:
+            fail(f"phase {tag}: the flash kernel on the prefill's own inputs"
+                 f" ({len(attn)} calls for {cfg.n_layers} layers) disagrees "
+                 f"with its plain version ({worst:.3e})")
+        if P17_BF16_HELD[cfg.name] and rel > LM_TOL:
+            fail(f"phase {tag}: bf16 prefill logits disagree with the plain "
+                 f"attention (rel {rel:.3e} > {LM_TOL})")
+        del got, want, cache, attn
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        tokens, timing = serve.generate(lm, prompts, P17_DECODE + 1)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        dec_ms = [t * 1e3 for t in timing.decode_s]
+        p50 = float(np.median(dec_ms))
+        print(f"[{tag}] prefill {P17_BATCH} x {P17_PROMPT} tokens in "
+              f"{timing.prefill_s * 1e3:.2f} ms ("
+              f"{P17_BATCH * P17_PROMPT / timing.prefill_s:.0f} tokens/s, "
+              f"after empty_cache); {len(dec_ms)} decode steps p50 "
+              f"{p50:.3f} ms max {max(dec_ms):.3f} ms ("
+              f"{P17_BATCH / (p50 / 1e3):.1f} tokens/s at p50); peak memory"
+              f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; host "
+              f"clock around each step + synchronize; launches in the serve"
+              f" run {counts}; sample {tokens[0, :8].tolist()}", flush=True)
+        if tuple(tokens.shape) != (P17_BATCH, P17_DECODE + 1) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            fail(f"phase {tag}: tokens {tuple(tokens.shape)} out of range")
+        if counts["flash_attention"] != cfg.n_layers or \
+                sum(counts.values()) != cfg.n_layers:
+            fail(f"phase {tag}: launches {counts} for one prefill of "
+                 f"{cfg.n_layers} layers (expected that many flash "
+                 f"launches and nothing else)")
+        serve_step = steps.make_serve_step(lm)
+        warm_ms = []
+        for _ in range(3):
+            cache = lm.init_cache(P17_BATCH, total)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            serve_step(prompts, cache, 0)
+            torch.cuda.synchronize()
+            warm_ms.append((time.perf_counter() - t1) * 1e3)
+            del cache
+        print(f"[{tag}] prefill with the allocator warm: "
+              f"{', '.join(f'{t:.2f}' for t in warm_ms)} ms "
+              f"({P17_BATCH * P17_PROMPT / (min(warm_ms) / 1e3):.0f} "
+              f"tokens/s at the fastest)")
+        cache = lm.init_cache(P17_BATCH, total)
+        logits, cache = lm.decode_step(prompts, cache, 0)
+        picks = [logits[:, -1].argmax(-1)]
+        for i in range(P17_REPLAY):
+            logits, cache = lm.decode_step(tokens[:, i:i + 1], cache,
+                                           P17_PROMPT + i)
+            picks.append(logits[:, 0].argmax(-1))
+        picks = torch.stack(picks, dim=1).to(tokens.dtype)
+        if not torch.equal(picks, tokens[:, :P17_REPLAY + 1]):
+            fail(f"phase {tag}: replayed greedy picks {picks.tolist()} are "
+                 f"not the served tokens "
+                 f"{tokens[:, :P17_REPLAY + 1].tolist()}")
+        print(f"[{tag}] {P17_REPLAY} replayed decode steps: greedy picks = "
+              f"served tokens")
+        del cache, logits
+        # trace: one prefill and one decode step
+        cache = lm.init_cache(P17_BATCH, P17_PROMPT + 2)
+        for what, toks, cache_len in (("prefill", prompts, 0),
+                                      ("decode step", tokens[:, :1],
+                                       P17_PROMPT)):
+            ops_dev = {}
+            with annotated(L), annotated(S):
+                busy, wall, calls, by_kernel = trace(
+                    tag, f"{cfg.name} {what}",
+                    lambda: serve_step(toks, cache, cache_len), top=12,
+                    ops_device=ops_dev)
+            n_kernels = sum(calls.get(kn, 0) for kn in by_kernel)
+            flash_us = sum(us for kn, us in by_kernel.items()
+                           if "flash_attention" in kn)
+            shares = {lab: ops_dev.get(lab, 0.0)
+                      for lab in ("attention", "mamba", "recurrence")}
+            print(f"[{tag} trace] {cfg.name} {what}: {n_kernels} device "
+                  f"kernels; device time of " + ", ".join(
+                      f"{lab} {us / 1e3:.3f} ms ({us / max(busy, 1e-9):.3f})"
+                      for lab, us in shares.items())
+                  + f"; the flash kernel {flash_us / 1e3:.3f} ms "
+                  f"({flash_us / max(busy, 1e-9):.3f}) of {busy / 1e3:.3f} "
+                  f"ms busy")
+        del cache
+        # through the depth: each block's output with the flash kernel
+        # against the plain attention (one prompt, the forward), bf16 and
+        # then the same weights in f32, which is held
+        for dtype in ("bfloat16", "float32"):
+            if dtype == "float32":
+                lm.float()
+            err, by_block = block_drift(lm, prompts[:1])
+            print(f"[{tag}] {dtype} at full depth, one prompt, flash vs "
+                  f"impl=torch: logits rel err {err:.3e}; block outputs "
+                  f"by block {', '.join(f'{e:.1e}' for e in by_block)}",
+                  flush=True)
+        if err > P17_CUT_TOL:
+            fail(f"phase {tag}: the f32 model's logits disagree with the "
+                 f"plain attention ({err:.3e} > {P17_CUT_TOL})")
+        del lm, prompts, tokens, serve_step
+        torch.cuda.empty_cache()
+        sub_time(tag, t0)
+        return counts
+
+    def f32_cut(tag, cfg):
+        """2 layers at full width in f32: the prefill's logits with the
+        flash kernel against the plain attention, and 8 tokens decoded
+        after the prefill against the forward over prompt + tokens."""
+        t0 = time.perf_counter()
+        cut_cfg = dataclasses.replace(cfg, n_layers=P17_CUT_LAYERS,
+                                      dtype="float32")
+        cut = T.Transformer(cut_cfg, device=dev, seed=0)
+        nb, ns = P17_CUT_SHAPE[cfg.name]
+        g = torch.Generator(device=dev).manual_seed(172)
+        toks = torch.randint(0, cut_cfg.vocab_size,
+                             (nb, ns + P17_CUT_DECODE), device=dev,
+                             generator=g)
+        with torch.inference_mode():
+            full = cut(toks)
+            ran = last_path()
+            plain = cut(toks, impl="torch")
+            cache = cut.init_cache(nb, ns + P17_CUT_DECODE)
+            pre, cache = cut.decode_step(toks[:, :ns], cache, 0)
+            dec = []
+            for i in range(P17_CUT_DECODE):
+                lg, cache = cut.decode_step(toks[:, ns + i:ns + i + 1],
+                                            cache, ns + i)
+                dec.append(lg[:, 0])
+        errs = {"flash vs plain": rel_err(full, plain)[1],
+                "prefill vs forward": rel_err(pre, full[:, :ns])[1],
+                "decode vs forward": rel_err(torch.stack(dec, 1),
+                                             full[:, ns:])[1]}
+        print(f"[{tag} f32 cut] {P17_CUT_LAYERS} layers at full width, "
+              f"{nb} x {ns} tokens + {P17_CUT_DECODE} decoded ({ran}"
+              + (f"; the {cut_cfg.window}-slot ring wrapped"
+                 if 0 < cut_cfg.window < ns else "")
+              + "): rel err " + ", ".join(f"{k} {v:.3e}"
+                                          for k, v in errs.items())
+              + f" (tolerance {P17_CUT_TOL})")
+        if max(errs.values()) > P17_CUT_TOL:
+            fail(f"phase {tag}: the f32 cut disagrees {errs}")
+        del cut, toks, full, plain, cache, pre, dec, lg
+        torch.cuda.empty_cache()
+        sub_time(f"{tag} f32 cut", t0)
+
+    for tag, arch in (("17b minicpm3", P17_MLA), ("17c hymba", P17_HYBRID)):
+        launches[f"{arch} prefill"] = serve_checks(tag, cfgs[arch])
+        f32_cut(tag, cfgs[arch])
+
+    # ---- 17d. training at full width ----
+    for arch in (P17_HYBRID, P17_MLA):
+        t0 = time.perf_counter()
+        cfg = cfgs[arch]
+        nb = P17_TRAIN_BATCH[arch]
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        lm = T.Transformer(cfg, device=dev, seed=0)
+        gen_tok = torch.Generator(device=dev).manual_seed(173)
+        batch = {kk: torch.randint(0, cfg.vocab_size, (nb, P17_PROMPT),
+                                   device=dev, generator=gen_tok)
+                 for kk in ("tokens", "labels")}
+        step = steps.make_train_step(lm, OptConfig(**P17_TRAIN_OPT))
+        state = adamw.init(lm.parameters())
+        losses, lat, per_step = [], [], []
+        for i in range(P17_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            lat.append((time.perf_counter() - t1) * 1e3)
+            per_step.append(ops.launch_counts())
+            print(f"[17d train] {arch} step {i + 1}: loss {losses[-1]:.5f} "
+                  f"grad_norm {float(metrics['grad_norm']):.4f} wall "
+                  f"{lat[-1]:.1f} ms", flush=True)
+        peak = torch.cuda.max_memory_allocated()
+        p50 = float(np.median(lat[1:]))
+        launches[f"{arch} train step"] = per_step[-1]
+        print(f"[17d train] {arch} {P17_TRAIN_STEPS} steps of {nb} x "
+              f"{P17_PROMPT} tokens, remat {cfg.remat!r}: step p50 "
+              f"{p50:.1f} ms, max {max(lat[1:]):.1f} ms over steps 2-"
+              f"{P17_TRAIN_STEPS} (host clock around the step; reading the "
+              f"loss waits for the device; step 1 {lat[0]:.1f} ms), "
+              f"{nb * P17_PROMPT / (p50 / 1e3):.0f} tokens/s; peak device "
+              f"memory {peak / 2**30:.2f} GiB, of it {held / 2**30:.2f} GiB "
+              f"held before: the run's own {(peak - held) / 1e9:.2f} GB "
+              f"(reckoned ~{P17_RECKONED_GB[arch]} GB); kernel launches a "
+              f"step {per_step[-1]}")
+        if not all(np.isfinite(losses)) or not min(losses[2:]) < losses[0]:
+            fail(f"phase 17d {arch}: losses {losses}")
+        if any(any(c.values()) for c in per_step):
+            fail(f"phase 17d {arch}: the training path launched {per_step}")
+        ops_dev = {}
+        with annotated(L), annotated(S):
+            # no warm-up call: six steps ran, and training launches no
+            # ctypes kernel that a profiler session could drop
+            busy, wall, _, _ = trace(
+                "17d", f"{arch} training step", lambda: step(state, batch),
+                warm=lambda: None, top=10, ops_device=ops_dev)
+        parts = {lab: ops_dev.get(lab, 0.0) for lab in (
+            "attention", "mamba", "recurrence", "aten::bmm", "aten::mm")}
+        print(f"[17d train] {arch} traced step: device busy "
+              f"{busy / 1e3:.1f} ms of {wall / 1e3:.1f} ms "
+              f"({busy / wall:.3f}); device time of " + ", ".join(
+                  f"{lab} {us / 1e3:.1f} ms ({us / busy:.3f})"
+                  for lab, us in parts.items())
+              + " (the attention, mamba and recurrence scopes hold the "
+              "forward and its remat recompute)")
+        del lm, state, step, batch, metrics
+        torch.cuda.empty_cache()
+        sub_time(f"17d {arch}", t0)
+    print(f"[17] phase 17 took {time.perf_counter() - t17:.1f} s; "
+          f"launches by path {launches}", flush=True)
+    return launches
+
+
 def main(device: str = "cuda") -> None:
     import gc
 
@@ -4120,6 +4694,11 @@ def main(device: str = "cuda") -> None:
     print(f"[16] device memory still allocated after phases 1-15: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     moe_launches = phase_16(torch.device(device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[17] device memory still allocated after phase 16: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    p17_launches = phase_17(torch.device(device))
     records, band_records = run["records"], run["band_records"]
     path_launches, tensor_core_ops = (run["path_launches"],
                                       run["tensor_core_ops"])
@@ -4167,14 +4746,19 @@ def main(device: str = "cuda") -> None:
             # prefill; the MoE kernel launches on none of them)
             extra["moe_launches"] = {path: c[name]
                                      for path, c in moe_launches.items()}
+        # phase 17: the MLA and hybrid paths' launches (a minicpm3-4b /
+        # hymba-1.5b prefill, a training step of each)
+        extra["mla_hybrid_launches"] = {path: c[name] for path, c in
+                                        p17_launches.items()}
         if name == "flash_attention":
-            # phase 7 at the MoE prefills' shapes (bf16)
+            # phase 7 at the MoE prefills' and minicpm3-4b's shapes (bf16)
+            fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                      "max_abs_err")
             extra["moe_shapes"] = {label: {f: records[(label, "bfloat16")][f]
-                                           for f in ("ms", "plain_ms",
-                                                     "bound_ms", "bound_by",
-                                                     "library_ms",
-                                                     "max_abs_err")}
+                                           for f in fields}
                                    for label in LM_MOE_FLASH}
+            extra["mla_shape"] = {f: records[(LM_MLA_FLASH, "bfloat16")][f]
+                                  for f in fields}
         band_keys = [k for k in band_records if k.startswith(name)]
         if band_keys:
             # phase 14a: the sparse-band mixer's shapes (f32)

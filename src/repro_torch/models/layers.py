@@ -1,5 +1,6 @@
-"""Shared LM layers: RMS norm, RoPE, GQA attention, the gated FFN, the
-gated top-k MoE layer and the embeddings.
+"""Shared LM layers: RMS norm, RoPE, GQA attention, multi-head latent
+attention (MLA), the gated FFN, the gated top-k MoE layer and the
+embeddings.
 
 Twins of ``repro.models.layers`` in its functional style: parameters are
 dicts of tensors (an ``nn.ParameterDict`` works as one) and every layer is
@@ -14,8 +15,8 @@ flash kernel has no backward.  Everything else is plain PyTorch (products
 outside any Pallas kernel were left to XLA by the reference): the MoE
 layer's expert products too, which the reference computes in XLA, not in
 its (ungated) MoE kernel.
-Not in this module yet: MLA, cross-attention, the MoE layer's mesh path
-and the sharding rules (ROADMAP Queue 1).
+Not in this module yet: cross-attention, the MoE layer's mesh path and
+the sharding rules (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -178,13 +179,14 @@ def decode_attention(q, k_cache, v_cache, n_valid):
     return torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype)
 
 
-def _write_slots(cache, new, start: int) -> None:
-    """``cache[:, :, start:start + s] = new`` in place, with the start
+def _write_slots(cache, new, start: int, axis: int = 2) -> None:
+    """``new`` written into ``cache`` at ``start`` along ``axis`` (the KV
+    slabs' slot axis 2, the MLA latent's 1) in place, with the start
     clamped into range as ``jax.lax.dynamic_update_slice_in_dim`` clamps
     it."""
-    s, c = new.shape[2], cache.shape[2]
+    s, c = new.shape[axis], cache.shape[axis]
     start = max(0, min(start, c - s))
-    cache[:, :, start:start + s] = new.to(cache.dtype)
+    cache.narrow(axis, start, s).copy_(new)
 
 
 def gqa_attention(p, cfg, x, *, pos, cache=None, cache_len=None,
@@ -233,6 +235,73 @@ def gqa_attention(p, cfg, x, *, pos, cache=None, cache_len=None,
         new_cache = None
     out = out.transpose(1, 2).reshape(b, s, -1)
     return out @ p["wo"], new_cache
+
+
+# ------------------------------------------------------------------- MLA ----
+def mla_init(gen, cfg, dtype, device=None) -> dict:
+    """The query and output projections ``wq (d, h·dh)``, ``wo (h·dh,
+    d)``, the latent down-projection ``w_dkv (d, r)`` and the latent's
+    K and V up-projections ``w_uk``, ``w_uv (r, h·dh)``."""
+    d, h, dh, r = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.mla_kv_rank
+    return {
+        "wq": init_weight(gen, (d, h * dh), dtype=dtype, device=device),
+        "w_dkv": init_weight(gen, (d, r), dtype=dtype, device=device),
+        "w_uk": init_weight(gen, (r, h * dh), dtype=dtype, device=device),
+        "w_uv": init_weight(gen, (r, h * dh), dtype=dtype, device=device),
+        "wo": init_weight(gen, (h * dh, d), dtype=dtype, device=device),
+    }
+
+
+def _mla_expand(p, cfg, lat, pos):
+    """The latent ``(B, S, r)`` expanded to K and V ``(B, h, S, dh)``, RoPE
+    applied to K at ``pos``."""
+    b, s, _ = lat.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    k = (lat @ p["w_uk"]).reshape(b, s, h, dh).transpose(1, 2)
+    v = (lat @ p["w_uv"]).reshape(b, s, h, dh).transpose(1, 2)
+    if cfg.rope != "none":
+        k = apply_rope(k, pos)
+    return k, v
+
+
+def mla_attention(p, cfg, x, *, pos, cache=None, cache_len=None,
+                  impl: str = "cuda", train: bool = False):
+    """Multi-head latent attention, the reference's ``mla_attention`` step
+    for step: the cache holds the rank-``r`` latent ``x·W_dkv``, and K and
+    V are re-expanded from it at every use (``h`` heads each, so the
+    attention is multi-head).
+
+    With ``cache`` (this layer's latent slab ``(B, max_len, r)``) the
+    fresh latent is written into it at ``cache_len`` in place.  A prefill
+    (S > 1) attends over its own expanded latent through
+    ``chunked_attention`` (the flash kernel on the card); a decode step
+    (S == 1) re-expands the whole cache, RoPE at ``arange(max_len)``, and
+    masks all but the first ``min(cache_len + 1, max_len)`` slots in
+    ``decode_attention``.  ``train=True`` (no cache) takes
+    ``scan_attention``.  Returns ``(out, cache)``."""
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    q = (x @ p["wq"]).reshape(b, s, h, dh).transpose(1, 2)
+    lat = x @ p["w_dkv"]                                   # (B, S, r)
+    if cfg.rope != "none":
+        q = apply_rope(q, pos)
+    if train:
+        if cache is not None:
+            raise ValueError("a training forward takes no latent cache")
+        k, v = _mla_expand(p, cfg, lat, pos)
+        out = scan_attention(q, k, v, causal=True)
+    elif cache is not None and s == 1:
+        _write_slots(cache, lat, cache_len, axis=1)
+        sk = cache.shape[1]
+        k, v = _mla_expand(p, cfg, cache, torch.arange(sk, device=x.device))
+        out = decode_attention(q, k, v, min(cache_len + 1, sk))
+    else:
+        if cache is not None:
+            _write_slots(cache, lat, cache_len, axis=1)
+        k, v = _mla_expand(p, cfg, lat, pos)
+        out = chunked_attention(q, k, v, causal=True, impl=impl)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return out @ p["wo"], cache
 
 
 # ------------------------------------------------------------------- FFN ----

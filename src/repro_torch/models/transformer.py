@@ -1,21 +1,26 @@
-"""Decoder-only LM, pre-norm, as in ``repro.models.transformer``, of two
-block patterns: ``attn`` (self-attention with GQA, then a gated FFN, or
-the gated top-k MoE layer when ``cfg.n_experts`` is set) and
+"""Decoder-only LM, pre-norm, as in ``repro.models.transformer``, of three
+block patterns: ``attn`` (self-attention, then a gated FFN, or the gated
+top-k MoE layer when ``cfg.n_experts`` is set; the attention is GQA, or
+multi-head latent attention when ``cfg.mla`` is set), ``attn+mamba``
+(hymba's hybrid: sliding-window GQA and the mamba heads of ``models.ssm``
+in parallel on one normed input, averaged, then a gated FFN) and
 ``sparse-band`` (the banded-decay token mixer of ``models.ssm``, then a
 gated FFN).
 
 The reference stacks its layers on a leading scan axis of one pytree; here
 the blocks are an ``nn.ModuleList`` and the layers run in a Python loop.
 ``params_from_jax`` loads the reference's stacked tree, so both packages
-can compute the same model.  The KV cache keeps the reference's layout,
-``(k, v)`` each ``(L, B, Hkv, C, dh)``, and ``decode_step`` writes into it
-in place.
+can compute the same model.  The decode caches keep the reference's
+layouts and ``decode_step`` writes into them in place: ``(k, v)`` each
+``(L, B, Hkv, C, dh)`` for GQA; the latent ``(L, B, max_len, r)`` for
+MLA; ``(k, v, state)`` for the hybrid, the mamba state ``(L, B, H, n,
+dh)`` in f32.
 
 The parameters are trainable and ``forward`` follows the caller's grad
 mode: ``launch.steps.make_train_step`` trains the model with AdamW, and the
 serving steps run under ``torch.inference_mode()``.  A training forward is
 asked for explicitly, ``forward(tokens, train=True)``, never inferred from
-the grad mode.  In it an ``attn`` block's attention is
+the grad mode.  In it the attention (GQA, MLA, the hybrid's) is
 ``layers.scan_attention``, the reference's own chunked XLA attention in
 plain PyTorch (the flash kernel has no backward and its wrapper raises
 under grad on the card), and a ``sparse-band`` block's mixer
@@ -27,8 +32,8 @@ full-width config) keeps only the 2-D projections' outputs (``aten.mm`` /
 ``aten.addmm``, the reference's ``dots_with_no_batch_dims_saveable``) and
 recomputes the rest, the attention's batched products included.
 
-Other block patterns, the encoder and MLA raise ``NotImplementedError``:
-later slices bring them (ROADMAP Queue 1).
+The ``mlstm7+slstm`` pattern and the encoder raise
+``NotImplementedError``: later slices bring them (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ from . import layers as L
 from . import ssm as S
 
 #: the block patterns the port runs
-BLOCK_PATTERNS = ("attn", "sparse-band")
+BLOCK_PATTERNS = ("attn", "attn+mamba", "sparse-band")
 
 
 def check_supported(cfg) -> None:
@@ -54,7 +59,6 @@ def check_supported(cfg) -> None:
         (f"block pattern {cfg.block_pattern!r}",
          cfg.block_pattern in BLOCK_PATTERNS),
         ("an encoder", not cfg.encoder_layers),
-        ("MLA", not cfg.mla),
         (f"a {cfg.frontend} frontend", cfg.frontend == "none"),
     ] if not off]
     if missing:
@@ -114,13 +118,15 @@ class Block(nn.Module):
     """Pre-norm block: ``x + attn(norm(x))``, then ``x + ffn(norm(x))``,
     or ``x + moe(norm(x))`` when ``cfg.n_experts`` is set (the parameters
     ``moe`` in place of ``ffn``, as the reference's ``_attn_block_init``
-    holds them)."""
+    holds them).  The attention is MLA when ``cfg.mla`` is set (its
+    parameters under ``attn`` too), else GQA."""
 
     def __init__(self, cfg, gen, dtype, device):
         super().__init__()
         self.ln1 = _gain(cfg, dtype, device)
         self.ln2 = _gain(cfg, dtype, device)
-        self.attn = _params(L.gqa_init(gen, cfg, dtype, device))
+        init = L.mla_init if cfg.mla else L.gqa_init
+        self.attn = _params(init(gen, cfg, dtype, device))
         if cfg.n_experts:
             self.moe = _params(L.moe_init(gen, cfg, dtype, device))
         else:
@@ -129,15 +135,50 @@ class Block(nn.Module):
     def forward(self, cfg, x, pos, cache=None, cache_len=None,
                 impl="cuda", train=False):
         h = L.rms_norm(self.ln1, x, cfg.norm_eps)
-        a, new_cache = L.gqa_attention(self.attn, cfg, h, pos=pos,
-                                       cache=cache, cache_len=cache_len,
-                                       window=cfg.window, impl=impl,
-                                       train=train)
+        if cfg.mla:
+            a, new_cache = L.mla_attention(self.attn, cfg, h, pos=pos,
+                                           cache=cache, cache_len=cache_len,
+                                           impl=impl, train=train)
+        else:
+            a, new_cache = L.gqa_attention(self.attn, cfg, h, pos=pos,
+                                           cache=cache, cache_len=cache_len,
+                                           window=cfg.window, impl=impl,
+                                           train=train)
         x = x + a
         h = L.rms_norm(self.ln2, x, cfg.norm_eps)
         if cfg.n_experts:
             return x + L.moe_apply(self.moe, cfg, h), new_cache
         return x + L.ffn_apply(self.ffn, cfg, h), new_cache
+
+
+class HybridBlock(nn.Module):
+    """hymba's pre-norm block: ``x + (attn(h) + mamba(h)) / 2`` on one
+    ``h = norm(x)``, the attention GQA under ``cfg.window``, then ``x +
+    ffn(norm(x))``.  With ``cache = (k, v, state)``, this layer's KV slabs
+    and mamba state, all three are written in place."""
+
+    def __init__(self, cfg, gen, dtype, device):
+        super().__init__()
+        self.ln1 = _gain(cfg, dtype, device)
+        self.ln2 = _gain(cfg, dtype, device)
+        self.attn = _params(L.gqa_init(gen, cfg, dtype, device))
+        self.mamba = _params(S.mamba_init(gen, cfg, dtype, device))
+        self.ffn = _params(L.ffn_init(gen, cfg, dtype, device))
+
+    def forward(self, cfg, x, pos, cache=None, cache_len=None,
+                impl="cuda", train=False):
+        h = L.rms_norm(self.ln1, x, cfg.norm_eps)
+        a, _ = L.gqa_attention(self.attn, cfg, h, pos=pos,
+                               cache=None if cache is None else cache[:2],
+                               cache_len=cache_len, window=cfg.window,
+                               impl=impl, train=train)
+        m, state = S.mamba_apply(self.mamba, cfg, h,
+                                 cache=None if cache is None else cache[2])
+        if cache is not None:
+            cache[2].copy_(state)
+        x = x + (a + m) * 0.5
+        h = L.rms_norm(self.ln2, x, cfg.norm_eps)
+        return x + L.ffn_apply(self.ffn, cfg, h), cache
 
 
 class SparseBandBlock(nn.Module):
@@ -182,7 +223,8 @@ class Transformer(nn.Module):
         gen = torch.Generator(device=device).manual_seed(seed)
         self.tok = _params(L.embed_init(gen, cfg, self.dtype, device))
         self.ln_f = _gain(cfg, self.dtype, device)
-        block = SparseBandBlock if self.sparse_band else Block
+        block = {"sparse-band": SparseBandBlock,
+                 "attn+mamba": HybridBlock}.get(cfg.block_pattern, Block)
         self.blocks = nn.ModuleList(block(cfg, gen, self.dtype, device)
                                     for _ in range(cfg.n_layers))
 
@@ -216,18 +258,18 @@ class Transformer(nn.Module):
             raise ValueError(f"keys {sorted(tree)}, expected "
                              f"{sorted(expected)}")
         layers = tree["layers"]
-        mixer = "mix" if self.sparse_band else "attn"
-        channel = "moe" if hasattr(self.blocks[0], "moe") else "ffn"
-        if set(layers) != {"ln1", "ln2", mixer, channel}:
+        block = {name.split(".")[0]
+                 for name, _ in self.blocks[0].named_parameters()}
+        if set(layers) != block:
             raise ValueError(f"layer keys {sorted(layers)}, expected "
-                             f"{sorted({'ln1', 'ln2', mixer, channel})}")
+                             f"{sorted(block)}")
         n = len(layers["ln1"])
         if n != len(self.blocks):
             raise ValueError(f"{n} layers for {len(self.blocks)} blocks")
 
-        for dst, src in [(self.tok, tree["tok"]),
-                         (getattr(self.blocks[0], mixer), layers[mixer]),
-                         (getattr(self.blocks[0], channel), layers[channel])]:
+        for dst, src in [(self.tok, tree["tok"])] + [
+                (getattr(self.blocks[0], k), layers[k]) for k in sorted(block)
+                if isinstance(getattr(self.blocks[0], k), nn.ParameterDict)]:
             if _keys(dst) != _keys(src):
                 raise ValueError(f"keys {_keys(src)} for {_keys(dst)}")
 
@@ -290,8 +332,8 @@ class Transformer(nn.Module):
                 train: bool = False):
         """tokens ``(B, S)`` → logits ``(B, S, V)``; records a graph when
         grad mode is on, none under ``inference_mode``.  ``train=True`` is
-        a training forward: ``scan_attention`` in the ``attn`` blocks and
-        each block under ``cfg.remat``."""
+        a training forward: ``scan_attention`` in the ``attn`` and
+        ``attn+mamba`` blocks and each block under ``cfg.remat``."""
         cfg = self.cfg
         x = self.tok["embed"][tokens]
         if self.sparse_band:
@@ -319,14 +361,26 @@ class Transformer(nn.Module):
                 "forward()")
 
     def init_cache(self, batch_size: int, max_len: int):
-        """``(k, v)``, each ``(L, B, Hkv, C, dh)`` zeros; ``C`` is
-        ``max_len``, or the window for a sliding-window model."""
+        """Zeros in the reference's layout of the model's cache family:
+        ``(k, v)``, each ``(L, B, Hkv, C, dh)`` (``C`` is ``max_len``, or
+        the window for a sliding-window model); for MLA the latent ``(L, B,
+        max_len, r)``; for ``attn+mamba`` ``(k, v, state)`` with the mamba
+        state ``(L, B, H, n, dh)`` in f32."""
         cfg = self.cfg
         self._check_decode()
+
+        def zeros(*shape, dtype=self.dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+        if cfg.mla:
+            return zeros(cfg.n_layers, batch_size, max_len, cfg.mla_kv_rank)
         c = min(max_len, cfg.window) if cfg.window > 0 else max_len
         shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, c, cfg.head_dim)
-        return (torch.zeros(shape, dtype=self.dtype, device=self.device),
-                torch.zeros(shape, dtype=self.dtype, device=self.device))
+        kv = (zeros(*shape), zeros(*shape))
+        if cfg.block_pattern == "attn+mamba":
+            return kv + (zeros(cfg.n_layers, batch_size, cfg.n_heads,
+                               cfg.ssm_state, cfg.ssm_head_dim,
+                               dtype=torch.float32),)
+        return kv
 
     @torch.no_grad()
     def decode_step(self, tokens: torch.Tensor, cache, cache_len: int, *,
@@ -338,9 +392,9 @@ class Transformer(nn.Module):
         x = self.tok["embed"][tokens]
         s = x.shape[1]
         pos = cache_len + torch.arange(s, device=x.device)
-        k_cache, v_cache = cache
         for i, blk in enumerate(self.blocks):
-            x, _ = blk(self.cfg, x, pos, cache=(k_cache[i], v_cache[i]),
-                       cache_len=cache_len, impl=impl)
+            layer = cache[i] if self.cfg.mla else tuple(c[i] for c in cache)
+            x, _ = blk(self.cfg, x, pos, cache=layer, cache_len=cache_len,
+                       impl=impl)
         x = L.rms_norm(self.ln_f, x, self.cfg.norm_eps)
         return x @ self.tok["lm_head"], cache

@@ -4,9 +4,10 @@ and a GCN training step, the serving tier's requests), the LM served on
 the card, and LM training (the sparse-band mixer and train step on the
 kernel arm against the plain arm; the dense train step through
 ``scan_attention`` against an f64 oracle, remat's gradients, the
-trainer's resume), and the gated MoE layer (against the same call on the
+trainer's resume), the gated MoE layer (against the same call on the
 CPU, bit for bit twice, a MoE prefill launching flash and not the MoE
-kernel).
+kernel), and MLA, the mamba heads and the chunked recurrence (against
+the CPU; the MLA and hybrid prefills launching flash).
 
 Every test here carries the ``gpu`` marker and skips, with its reason,
 where there is no CUDA device of compute capability 9.0+ (the decision is
@@ -1556,3 +1557,118 @@ def test_moe_prefill_on_the_card_launches_flash_not_the_moe_kernel(card,
     assert all(torch.equal(a, b) for a, b in zip(routes[:n], routes[n:],
                                                  strict=True))
     assert _rel_err(got, want) <= 1e-3
+
+
+# ------------------------------------------- MLA and the mamba hybrid --
+def _on(tree, device):
+    return {k: v.to(device) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("path", ["prefill", "decode"])
+@pytest.mark.parametrize("reduced", [True, False])
+def test_mla_attention_on_the_card_matches_the_cpu(card, reduced, path):
+    """``mla_attention`` (f32) on the card against the same call on the
+    CPU, at ``REDUCED`` and at minicpm3-4b's published widths (d 2560, 40
+    heads of 64, rank 256): a prefill of 96 tokens into the latent cache
+    (the flash kernel on the card) and a decode step at slot 60 of it
+    (the whole cache re-expanded); the output and the cache within 1e-4."""
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(get_config("minicpm3-4b", reduced=reduced),
+                              dtype="float32")
+    gen = torch.Generator(device=card).manual_seed(40)
+    p = L.mla_init(gen, cfg, torch.float32, card)
+    s, cache_len = (96, 0) if path == "prefill" else (1, 60)
+    x = torch.randn(2, s, cfg.d_model, device=card, generator=gen)
+    cache = torch.randn(2, 96, cfg.mla_kv_rank, device=card, generator=gen)
+    out = {}
+    for device in (card, "cpu"):
+        c = cache.to(device, copy=True)
+        with torch.inference_mode():
+            y, _ = L.mla_attention(
+                _on(p, device), cfg, x.to(device),
+                pos=cache_len + torch.arange(s, device=device), cache=c,
+                cache_len=cache_len)
+        out[str(device)] = (y.cpu(), c.cpu())
+    (got, got_c), (want, want_c) = out[str(card)], out["cpu"]
+    assert _rel_err(got, want) <= 1e-4
+    assert _rel_err(got_c, want_c) <= 1e-4
+
+
+@pytest.mark.parametrize("s", [200, 1])
+@pytest.mark.parametrize("reduced", [True, False])
+def test_mamba_apply_on_the_card_matches_the_cpu(card, reduced, s):
+    """``mamba_apply`` (f32) on the card against the CPU, at ``REDUCED``
+    and at hymba-1.5b's widths (d 1600, 25 heads of 64, state 16): S 200
+    (the chunked recurrence, two chunks of 128) and a decode step (S 1),
+    each from a carried-in state; output and state within 1e-4."""
+    from repro_torch.models import ssm as S
+    cfg = dataclasses.replace(get_config("hymba-1.5b", reduced=reduced),
+                              dtype="float32")
+    gen = torch.Generator(device=card).manual_seed(41)
+    p = S.mamba_init(gen, cfg, torch.float32, card)
+    p["a_log"] = torch.randn(cfg.n_heads, device=card, generator=gen) * 0.5
+    x = torch.randn(2, s, cfg.d_model, device=card, generator=gen)
+    state = torch.randn(2, cfg.n_heads, cfg.ssm_state, cfg.ssm_head_dim,
+                        device=card, generator=gen)
+    with torch.inference_mode():
+        got = S.mamba_apply(p, cfg, x, cache=state)
+        want = S.mamba_apply(_on(p, "cpu"), cfg, x.cpu(), cache=state.cpu())
+    for a, b in zip(got, want, strict=True):
+        assert _rel_err(a.cpu(), b) <= 1e-4
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_chunked_recurrence_on_the_card_matches_the_cpu(card, normalize):
+    """``chunked_linear_recurrence`` at hymba's head shape (25 heads, dk
+    16, dv 64), B 2 × S 300 (chunks of 128, the last padded), from a
+    carried-in state, on the card against the CPU within 1e-4, and its
+    gradients too."""
+    from repro_torch.models import ssm as S
+    gen = torch.Generator(device=card).manual_seed(42)
+    b, s, h, dk, dv = 2, 300, 25, 16, 64
+
+    def draw(*shape):
+        return torch.randn(*shape, device=card, generator=gen)
+    q, k = draw(b, s, h, dk) * 0.25, draw(b, s, h, dk) * 0.25
+    v = draw(b, s, h, dv)
+    log_a = -draw(b, s, h).abs() * 0.1
+    h0 = draw(b, h, dk, dv + normalize)
+    w = draw(b, s, h, dv)
+
+    def run(device):
+        leaves = [t.detach().to(device).requires_grad_()
+                  for t in (q, k, v, log_a, h0)]
+        o, hf = S.chunked_linear_recurrence(*leaves[:4], h0=leaves[4],
+                                            normalize=normalize)
+        ((o * w.to(device)).sum() + hf.sum()).backward()
+        return [o.detach(), hf.detach()] + [t.grad for t in leaves]
+    for a, b_ in zip(run(card), run("cpu"), strict=True):
+        assert _rel_err(a.cpu(), b_) <= 1e-4
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "hymba-1.5b"])
+def test_mla_and_hybrid_prefills_on_the_card_launch_flash(card, arch):
+    """A ``REDUCED`` f32 prefill of 40 tokens (past hymba's 32-slot ring)
+    on the card: one flash launch a layer, the logits within 1e-3 of the
+    plain attention's (``impl="torch"``), and a decode step after it on
+    each cache within 1e-3 too."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    model = T.Transformer(cfg, seed=3)
+    gen = torch.Generator(device=card).manual_seed(43)
+    toks = torch.randint(0, cfg.vocab_size, (2, 41), device=card,
+                         generator=gen)
+    logits = []
+    for impl in ("cuda", "torch"):
+        cache = model.init_cache(2, 41)
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            pre, cache = model.decode_step(toks[:, :40], cache, 0, impl=impl)
+            dec, cache = model.decode_step(toks[:, 40:], cache, 40,
+                                           impl=impl)
+        torch.cuda.synchronize()
+        if impl == "cuda":
+            assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+        logits.append((pre, dec))
+    for a, b in zip(*logits, strict=True):
+        assert _rel_err(a, b) <= 1e-3

@@ -228,14 +228,13 @@ def test_serve_main_runs_on_the_cpu(capsys):
 
 # ------------------------------------------------------ what raises ----
 def test_other_archs_raise_not_implemented():
-    for arch in ["minicpm3-4b", "hymba-1.5b", "whisper-medium",
-                 "xlstm-1.3b", "qwen2-vl-72b"]:
+    for arch in ["whisper-medium", "xlstm-1.3b", "qwen2-vl-72b"]:
         jax_get_config(arch)                          # the reference has it
         with pytest.raises(NotImplementedError, match=arch):
             get_config(arch)
-    mla = jax_get_config("minicpm3-4b", reduced=True)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        T.Transformer(mla, device="cpu")
+    xlstm = jax_get_config("xlstm-1.3b", reduced=True)
+    with pytest.raises(NotImplementedError, match="mlstm7\\+slstm"):
+        T.Transformer(xlstm, device="cpu")
 
 
 def test_serve_subgraphs_raise_not_implemented(monkeypatch):

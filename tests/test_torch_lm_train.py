@@ -38,7 +38,8 @@ TOL = 2e-3
 BF16_TOL = 3e-2
 B, SEQ = 2, 32
 ARCHS = ["qwen2.5-3b", "stablelm-1.6b", "minitron-8b",
-         "granite-moe-3b-a800m", "llama4-scout-17b-a16e"]
+         "granite-moe-3b-a800m", "llama4-scout-17b-a16e", "minicpm3-4b",
+         "hymba-1.5b"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -438,9 +439,9 @@ def test_train_step_matches_jax():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_step_decreases_loss(arch):
     """Twin of ``test_models.py::test_train_step_decreases_loss`` for the
-    port's dense and MoE archs, on the CPU (the training forward's
-    attention, ``layers.scan_attention``, the reference's chunked XLA
-    attention)."""
+    port's dense, MoE, MLA and hybrid archs, on the CPU (the training
+    forward's attention, ``layers.scan_attention``, the reference's
+    chunked XLA attention)."""
     cfg = get_config(arch, reduced=True)
     model = T.Transformer(cfg, device="cpu")
     step = steps.make_train_step(
