@@ -351,6 +351,44 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                batch (hymba 4 x 2048, minicpm3 2 x 2048: 4 rows do not
                fit the card): losses fall, no kernel launch, p50 / max,
                peak memory, a traced step.
+ 18. the xLSTM stack (xlstm-1.3b), bf16, weights from seeds (``phase_18``).
+               18a: ``ssm.mlstm_apply`` and ``ssm.slstm_apply`` at published
+               widths (d 2048, 4 heads of 512), B 4 x S 2048, output and
+               gradients against f64 oracles written here (the mLSTM in
+               its parallel form, the sLSTM one step at a time): f32
+               within 1e-4; bf16 within 2^-6 against the oracle rounding
+               to bf16 where the model rounds (the unrounded oracle's
+               errors printed: the normalizer's ``max(|n|, 1)`` flips
+               under bf16 q / k), row by row, the gate weights head by
+               head; the normalized chunked recurrence at the mLSTM's
+               head shape against the stepwise one in f64 (2e-3 of the
+               largest value).  18b: served at full width and depth as
+               phase 8 serves qwen (no kernel launches: attention-free),
+               replayed picks, the sLSTM's host cost from profiles of a 4 x
+               256 prefill, one sLSTM layer over it and a decode step; an
+               8-layer f32 cut decoding 8 tokens against its forward
+               within 1e-3.  18c: 6 AdamW steps at full width and depth on
+               one fixed 4 x 2048 batch (no step traced).
+ 19. the encoder-decoder and the vision stub, bf16 (``phase_19``).  19a: the
+               flash kernel at whisper-medium's shapes (the encoder's
+               non-causal 1500 frames, the decoder's causal 416, the
+               cross-attention's 416 and 1 queries over 1500 frames) and
+               qwen2-vl-72b's prefill, against its plain version row by
+               row within 2^-6, on ``flash_attention_wgmma_kernel``,
+               timed beside SDPA.  19b: whisper-medium at full width and
+               depth on seeded unit-normal frames (never zeros), 4 x 416
+               tokens and 32 decode steps (72 flash launches a prefill, 48
+               a decode step, which runs the encoder again), the kernel on
+               each call's own q, k, v, the cross-attention's output norms
+               (non-zero), the decode step split into the encoder and the
+               rest, replayed picks, a traced decode step; a 2 + 2 layer
+               f32 cut (flash vs plain, 8 decoded tokens vs the forward,
+               1e-3).  19c: 6 AdamW steps at 4 x 448 over seeded frames.
+               19d: qwen2-vl-72b at full width, 24 of 80 layers (the 72.8 B
+               model does not fit one card), 4 x 2048 seeded embeddings,
+               32 decode steps on tokens (24 flash launches), peak memory
+               under 75 GiB; its 2-layer f32 cut.  19e: a 2-layer cut
+               trained 6 steps on the ``"embeds"`` data kind at 2 x 2048.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after: phases 4-5 (the GCN path, gradients included) must
@@ -365,7 +403,10 @@ entry-point calls the FFN and MoE kernels, phase 8 the flash kernel
 exactly once per layer of the prefill, and so do phase 16's MoE
 prefills, which never launch the MoE kernel (its training launches
 none), and phase 17's MLA and hybrid prefills, which launch nothing else
-(their training launches none).  Launches made to
+(their training launches none); phase 18's xLSTM paths launch none of
+the six kernels, and phase 19's whisper serve run launches flash 72
+times a prefill and 48 times a decode step, qwen2-vl's 24 times a
+prefill, and nothing else (their training launches none).  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON record (with each kernel's tensor-core instruction count
@@ -609,6 +650,77 @@ P17_TRAIN_STEPS = 6
 P17_TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=20)
 P17_TRAIN_BATCH = {P17_MLA: 2, P17_HYBRID: 4}
 P17_RECKONED_GB = {P17_MLA: 72, P17_HYBRID: 37}
+# phase 18: the xLSTM stack (xlstm-1.3b), bf16, weights from seeds.  18a:
+# the mLSTM and sLSTM blocks alone at published widths (d 2048, 4 heads
+# of 512), B 4 x S 2048, output and gradients against f64 oracles (f32
+# within 1e-4, bf16 within two bf16 units, row by row); the normalized
+# chunked recurrence at the mLSTM's head shape against the stepwise one
+# in f64 at the parity bar
+P18_ARCH = "xlstm-1.3b"
+P18_REDUCED = False
+P18_LAYER_BATCH, P18_LAYER_SEQ = 4, 2048
+P18_ORACLE_TOL = 2.0 ** -6
+# the mLSTM's gate weights (inner, heads), whose gradients are held head by
+# head (their rows of 4 values hold no scale: one of 2048 rows of dw_i
+# peaked at 6.5 where the median row peaks at 70, and read 2.8e-2 against
+# a whole-tensor error of 2.9e-3, B 2 x S 1024 on the CPU)
+P18_GATES = ("w_f", "w_i")
+P18_RECURRENCE = dict(b=4, s=2048, h=4, dk=512, dv=512)
+# 18b: served at full width and depth as phase 8 serves qwen (no kernel
+# may launch: the stack is attention-free); the sLSTM's host cost read
+# from a profile of a short prefill (4 x 256), never of a whole training
+# step (~5 x 10^5 launches); an 8-layer (one group) f32 cut decodes 8
+# tokens against its forward within 1e-3
+P18_BATCH, P18_PROMPT, P18_DECODE, P18_REPLAY = 4, 2048, 32, 4
+P18_PROFILE_SHAPE = (4, 256)
+P18_CUT_LAYERS, P18_CUT_SHAPE, P18_CUT_DECODE = 8, (2, 512), 8
+P18_CUT_TOL = 1e-3
+# 18c: 6 AdamW steps at full width and depth on one fixed 4 x 2048 batch
+# under remat="dots" (the mLSTM blocks; the sLSTM runs outside it).
+# Reckoned: 1.49 B parameters, 17.9 GB of state; ~8 GB of kept mLSTM
+# products; the sLSTM's graph ~1.6 GB a layer (6); one mLSTM block's
+# recompute ~4 GB
+P18_TRAIN_STEPS = 6
+P18_TRAIN_SHAPE = (4, 2048)
+P18_TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=20)
+P18_RECKONED_GB = 36
+# phase 19: the encoder-decoder (whisper-medium) and the vision stub
+# (qwen2-vl-72b), bf16.  19a: the flash kernel at every shape these paths
+# give it (bf16, the wgmma path), against its plain version row by row
+# within 2^-6, timed beside SDPA: (label, b, h, hkv, sq, sk, d, causal)
+P19_FLASH_CASES = (
+    ("whisper encoder self-attention", 4, 16, 16, 1500, 1500, 64, False),
+    ("whisper decoder self-attention", 4, 16, 16, 416, 416, 64, True),
+    ("whisper cross-attention, prefill", 4, 16, 16, 416, 1500, 64, False),
+    ("whisper cross-attention, decode step", 4, 16, 16, 1, 1500, 64,
+     False),
+    ("qwen2-vl-72b prefill", 4, 64, 8, 2048, 2048, 128, True),
+)
+# 19b: whisper-medium at full width and depth: seeded unit-normal frames
+# (never zeros: an encoder on zeros gives zeros, and the cross-attention
+# then adds nothing), 4 x 416 tokens, 32 decode steps (448 positions, the
+# decoder's published context); flash 72 launches a prefill (24 encoder,
+# 24 self, 24 cross) and 48 a decode step (24 encoder, 24 cross); a 2 + 2
+# layer f32 cut.  19c: 6 AdamW steps at 4 x 448 with seeded frames
+P19_WHISPER, P19_VL = "whisper-medium", "qwen2-vl-72b"
+P19_REDUCED = False
+P19_BATCH, P19_PROMPT, P19_DECODE, P19_REPLAY = 4, 416, 32, 4
+P19_CUT_LAYERS, P19_CUT_SHAPE, P19_CUT_DECODE = 2, (2, 256), 8
+P19_CUT_TOL = 1e-3
+P19_TRAIN_STEPS = 6
+P19_TRAIN_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=20)
+P19_TRAIN_SEQ = 448
+# 19d: qwen2-vl-72b at full width, 24 of 80 layers: 0.878 B parameters a
+# layer (1.76 GB in bf16) and 5.1 GB for the embedding, the head and
+# frontend_proj, so the 80 layers (~145 GB) do not fit one 80 GB card and
+# 24 are ~47 GB; 4 x 2048 seeded embeddings, then 32 decode steps on
+# tokens; flash 24 launches a prefill.  19e: a 2-layer cut at full width
+# trained 6 steps on the "embeds" data kind at 2 x 2048: ~52 GB of
+# parameters, gradients and f32 moments
+P19_VL_LAYERS, P19_VL_PROMPT = 24, 2048
+P19_PEAK_GIB = 75
+P19_VL_TRAIN_LAYERS, P19_VL_TRAIN_SHAPE = 2, (2, 2048)
+P19_RECKONED_GB = {P19_WHISPER: 14, P19_VL: 60}
 GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
 # phase 2: the functions of each kernel in the library's SASS (a part of the
@@ -4682,6 +4794,788 @@ def phase_17(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 18 --
+def once_ms(fn):
+    """ms of one call of ``fn`` on the host clock, synchronized on both
+    sides: what a host-bound call costs (its launches paced by the host)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def mlstm_f64(p, cfg, x, rnd=None):
+    """xLSTM's mLSTM block in f64, in the parallel form of its
+    recurrence: ``o_t = Σ_{j<=t} exp(F_t - F_j) (q_t·k_j) v_j`` over the
+    normalizer ``max(|Σ_j exp(F_t - F_j) q_t·k_j|, 1)``, ``F`` the running
+    sum of the log forget gates, k scaled by ``1/sqrt(dh)`` and the input
+    gate; gated by ``silu(gate)``.  ``rnd``, when given, is applied where a
+    bf16 model rounds (each bf16 product, the scaled and gated k, the
+    recurrence's output, the gate) and nowhere else."""
+    import torch
+    import torch.nn.functional as F
+    rnd = rnd or (lambda t: t)
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.ssm_head_dim
+
+    def heads(t):
+        return t.view(b, s, h, dh).transpose(1, 2)
+    main, gate = rnd(x @ p["w_up"]).chunk(2, -1)
+    i_gate = torch.sigmoid(main @ p["w_i"]).transpose(1, 2)[..., None]
+    q = heads(rnd(main @ p["wq"]))
+    k = rnd(rnd(heads(rnd(main @ p["wk"])) / dh ** 0.5) * rnd(i_gate))
+    v = heads(rnd(main @ p["wv"]))
+    cum = F.logsigmoid(main @ p["w_f"]).transpose(1, 2).cumsum(-1)
+    causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
+    decay = (cum[..., :, None] - cum[..., None, :]).masked_fill(
+        ~causal, float("-inf"))
+    w = (q @ k.transpose(-1, -2)) * torch.exp(decay)
+    o = (w @ v) / w.sum(-1, keepdim=True).abs().clamp_min(1.0)
+    o = rnd(o.transpose(1, 2).reshape(b, s, h * dh))
+    return rnd(rnd(o * rnd(F.silu(gate))) @ p["w_down"])
+
+
+def slstm_f64(p, cfg, x, rnd=None):
+    """xLSTM's sLSTM block in f64, one step at a time from zeros: ``u =
+    x_t·w_up + hid·w_rec``, ``c = σ(f)·c + σ(i)·tanh(z)``, ``hid =
+    σ(o)·tanh(c)``.  ``rnd``, when given, is applied where a bf16 model
+    rounds (the up-projection, the hidden states, the output)."""
+    import torch
+    rnd = rnd or (lambda t: t)
+    b, s, _ = x.shape
+    inner = cfg.n_heads * cfg.ssm_head_dim
+    pre = rnd(x @ p["w_up"])
+    c = x.new_zeros(b, inner)
+    hid = x.new_zeros(b, inner)
+    hs = []
+    for t in range(s):
+        z, i, f, o = (pre[:, t] + hid @ p["w_rec"]).chunk(4, -1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(z)
+        hid = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(hid)
+    return rnd(rnd(torch.stack(hs, 1)) @ p["w_down"])
+
+
+def train_steps(tag, lm, batch, opt, n_steps):
+    """``n_steps`` AdamW steps of ``lm`` on one fixed ``batch`` with the
+    launch counts from 0 before each: ``(losses, host ms a step, launches a
+    step, peak device bytes)``; fails unless the losses are finite and
+    fall (``min(losses[2:]) < losses[0]``) and no kernel launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.optim import OptConfig, adamw
+    torch.cuda.reset_peak_memory_stats()
+    step = steps.make_train_step(lm, OptConfig(**opt))
+    state = adamw.init(lm.parameters())
+    losses, lat, per_step = [], [], []
+    for i in range(n_steps):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        lat.append((time.perf_counter() - t1) * 1e3)
+        per_step.append(ops.launch_counts())
+        print(f"[{tag}] step {i + 1}: loss {losses[-1]:.5f} grad_norm "
+              f"{float(metrics['grad_norm']):.4f} wall {lat[-1]:.1f} ms",
+              flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not min(losses[2:]) < losses[0]:
+        fail(f"phase {tag}: losses {losses}")
+    if any(any(c.values()) for c in per_step):
+        fail(f"phase {tag}: the training path launched {per_step}")
+    return losses, lat, per_step[-1], peak
+
+
+def phase_18(dev) -> dict:
+    """The xLSTM stack: the mLSTM and sLSTM blocks and the normalized
+    recurrence alone (18a), xlstm-1.3b served at full width and depth with
+    the sLSTM's host cost and an 8-layer f32 cut (18b), and trained (18c).
+    Returns the phase's launches by path (all zero: attention-free)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    t18 = time.perf_counter()
+    bf16, f64 = torch.bfloat16, torch.float64
+    cfg = get_config(P18_ARCH, reduced=P18_REDUCED)
+    launches = {}
+
+    def sub_time(label, t0):
+        print(f"[18] {label} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    # ---- 18a. the blocks alone at published widths ----
+    b, s = P18_LAYER_BATCH, P18_LAYER_SEQ
+    for layer, init, apply_fn, oracle in (
+            ("mlstm_apply", S.mlstm_init, S.mlstm_apply, mlstm_f64),
+            ("slstm_apply", S.slstm_init, S.slstm_apply, slstm_f64)):
+        t0 = time.perf_counter()
+        for dtype in (torch.float32, bf16):
+            dname = str(dtype).split(".")[1]
+            # the same draws in both dtypes; the loss weights are bf16
+            # values, so the upstream gradient is the same in the oracle
+            gen = torch.Generator(device=dev).manual_seed(180)
+            p = init(gen, cfg, dtype, dev)
+            x = torch.randn(b, s, cfg.d_model, device=dev,
+                            generator=gen).to(dtype)
+            wgt = torch.randn(b, s, cfg.d_model, device=dev,
+                              generator=gen).to(bf16).float()
+            leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+            xs = x.detach().requires_grad_()
+            y = apply_fn(leaves, cfg, xs)[0]
+            (y.float() * wgt).sum().backward()
+            grads = {"x": xs.grad, **{k: v.grad for k, v in leaves.items()}}
+            def errors(rnd):
+                """Row errors of the output and the gradients against the
+                f64 oracle with the roundings ``rnd``."""
+                p64 = {k: v.detach().to(f64).requires_grad_()
+                       for k, v in p.items()}
+                x64 = x.to(f64).requires_grad_()
+                y64 = oracle(p64, cfg, x64, rnd)
+                (y64 * wgt.double()).sum().backward()
+                want = {"x": x64.grad,
+                        **{k: v.grad for k, v in p64.items()}}
+                errs = {"out": rel_err(y, y64, rows=True)[1]}
+                # the gate weights (inner, heads) are held head by head:
+                # a row of 4 gate gradients has no scale of its own
+                errs.update({f"d{k}": rel_err(*((g.T, want[k].T)
+                                                if k in P18_GATES
+                                                else (g, want[k])),
+                                              rows=True)[1]
+                             for k, g in grads.items()})
+                return errs
+            if dtype == bf16:
+                # the oracle as an f64 computation, unrounded: printed
+                free = errors(None)
+                print(f"[18a layer] {layer} bf16 vs the unrounded f64 "
+                      f"oracle (printed), row rel err " + ", ".join(
+                          f"{k} {v:.2e}" for k, v in free.items()))
+            # held: the oracle rounding to the run's dtype where the model
+            # rounds, in both directions (a bf16 cast rounds its gradient)
+            errs = errors(None if dtype == torch.float32 else
+                          (lambda t: t.to(dtype).to(f64)))
+            tol = P18_ORACLE_TOL if dtype == bf16 else TOL["float32"]
+            print(f"[18a layer] {layer} B {b} x S {s}, d {cfg.d_model}, "
+                  f"{cfg.n_heads} heads of {cfg.ssm_head_dim}, {dname}, vs "
+                  f"an f64 oracle" + (" rounding where the model rounds"
+                                      if dtype == bf16 else "")
+                  + ", row rel err " + ", ".join(
+                      f"{k} {v:.2e}" for k, v in errs.items())
+                  + f" (limit {tol:.2e})", flush=True)
+            if max(errs.values()) > tol:
+                fail(f"phase 18a: {layer} in {dname} disagrees with its "
+                     f"f64 oracle {errs}")
+            del leaves, xs, y, grads
+            torch.cuda.empty_cache()
+
+            def train_call():
+                ps = {k: v.detach().requires_grad_() for k, v in p.items()}
+                (apply_fn(ps, cfg, x)[0].float() * wgt).sum().backward()
+            with torch.no_grad():
+                fwd_ms = once_ms(lambda: apply_fn(p, cfg, x))
+            train_ms = once_ms(train_call)
+            print(f"[18a layer] {layer} {dname} one call (host clock, "
+                  f"synchronized, after the checked call): forward "
+                  f"{fwd_ms:.1f} ms, forward + backward {train_ms:.1f} ms")
+            del p, x, wgt
+        torch.cuda.empty_cache()
+        sub_time(f"18a {layer}", t0)
+
+    # the normalized chunked recurrence at the mLSTM's head shape against
+    # the stepwise recurrence in f64, from a carried-in state
+    t0 = time.perf_counter()
+    rs = P18_RECURRENCE
+    gen = torch.Generator(device=dev).manual_seed(181)
+
+    def draw(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+    q = draw(rs["b"], rs["s"], rs["h"], rs["dk"]) / rs["dk"] ** 0.5
+    k = draw(rs["b"], rs["s"], rs["h"], rs["dk"]) / rs["dk"] ** 0.5
+    v = draw(rs["b"], rs["s"], rs["h"], rs["dv"])
+    log_a = -draw(rs["b"], rs["s"], rs["h"]).abs()
+    h0 = draw(rs["b"], rs["h"], rs["dk"], rs["dv"] + 1)
+    with torch.no_grad():
+        o, hf = S.chunked_linear_recurrence(q, k, v, log_a, h0=h0)
+        o64, hf64 = recurrence_f64(q.double(), k.double(), v.double(),
+                                   log_a.double(), h0.double(), True)
+        ms = time_ms(lambda: S.chunked_linear_recurrence(q, k, v, log_a,
+                                                         h0=h0), iters=5)
+    err_o, err_h = rel_err(o, o64)[1], rel_err(hf, hf64)[1]
+    print(f"[18a recurrence] B {rs['b']} x S {rs['s']}, {rs['h']} heads, dk "
+          f"{rs['dk']}, dv {rs['dv']}, normalize=True, chunk 128, f32 vs "
+          f"the stepwise recurrence in f64: rel err output {err_o:.3e}, "
+          f"h_final {err_h:.3e} (limit {MAIN_TOL}); {ms:.3f} ms a call "
+          f"(CUDA events, 5 calls after 3)")
+    if max(err_o, err_h) > MAIN_TOL:
+        fail(f"phase 18a: the normalized chunked recurrence disagrees with "
+             f"the stepwise one ({err_o:.3e}, {err_h:.3e})")
+    del q, k, v, log_a, h0, o, hf, o64, hf64
+    torch.cuda.empty_cache()
+    sub_time("18a recurrence", t0)
+
+    # ---- 18b. serving at full width and depth ----
+    t0 = time.perf_counter()
+    lm, prompts = serve.build(cfg, batch=P18_BATCH, prompt_len=P18_PROMPT,
+                              seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in lm.parameters())
+    inner = cfg.n_heads * cfg.ssm_head_dim
+    print(f"[18b] {cfg.name}: {n_params / 1e9:.3f} B parameters, "
+          f"{cfg.n_layers} layers ({len(lm.groups)} groups of 7 mLSTM + 1 "
+          f"sLSTM), d {cfg.d_model}, {cfg.n_heads} heads of "
+          f"{cfg.ssm_head_dim} (mLSTM state {cfg.ssm_head_dim} x "
+          f"{cfg.ssm_head_dim + 1} f32 a head), sLSTM width {inner}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}; built on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tokens, timing = serve.generate(lm, prompts, P18_DECODE + 1)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    launches[f"{cfg.name} serve"] = counts
+    dec_ms = [t * 1e3 for t in timing.decode_s]
+    p50 = float(np.median(dec_ms))
+    print(f"[18b] prefill {P18_BATCH} x {P18_PROMPT} tokens in "
+          f"{timing.prefill_s * 1e3:.2f} ms ("
+          f"{P18_BATCH * P18_PROMPT / timing.prefill_s:.0f} tokens/s, after "
+          f"empty_cache); {len(dec_ms)} decode steps p50 {p50:.3f} ms max "
+          f"{max(dec_ms):.3f} ms ({P18_BATCH / (p50 / 1e3):.1f} tokens/s at "
+          f"p50); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; host clock "
+          f"around each step + synchronize; launches in the serve run "
+          f"{counts}; sample {tokens[0, :8].tolist()}", flush=True)
+    if tuple(tokens.shape) != (P18_BATCH, P18_DECODE + 1) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        fail(f"phase 18b: tokens {tuple(tokens.shape)} out of range")
+    if any(counts.values()):
+        fail(f"phase 18b: the attention-free stack launched {counts}")
+    serve_step = steps.make_serve_step(lm)
+    total = P18_PROMPT + P18_DECODE + 1
+    cache = lm.init_cache(P18_BATCH, total)
+    warm = once_ms(lambda: serve_step(prompts, cache, 0))
+    print(f"[18b] prefill with the allocator warm: {warm:.2f} ms "
+          f"({P18_BATCH * P18_PROMPT / (warm / 1e3):.0f} tokens/s)")
+    cache = lm.init_cache(P18_BATCH, total)
+    logits, cache = lm.decode_step(prompts, cache, 0)
+    picks = [logits[:, -1].argmax(-1)]
+    for i in range(P18_REPLAY):
+        logits, cache = lm.decode_step(tokens[:, i:i + 1], cache,
+                                       P18_PROMPT + i)
+        picks.append(logits[:, 0].argmax(-1))
+    picks = torch.stack(picks, dim=1).to(tokens.dtype)
+    if not torch.equal(picks, tokens[:, :P18_REPLAY + 1]):
+        fail(f"phase 18b: replayed greedy picks {picks.tolist()} are not "
+             f"the served tokens {tokens[:, :P18_REPLAY + 1].tolist()}")
+    print(f"[18b] {P18_REPLAY} replayed decode steps: greedy picks = served "
+          f"tokens")
+    del cache, logits
+    # the sLSTM's host cost, from short windows: a 4 x 256 prefill of the
+    # whole stack, one sLSTM layer alone over the same tokens, and a
+    # decode step
+    pb, ps = P18_PROFILE_SHAPE
+    short = prompts[:pb, :ps]
+    cache = lm.init_cache(pb, ps + 1)
+    busy, wall, calls, by_kernel = trace(
+        "18b", f"{cfg.name} prefill {pb} x {ps}",
+        lambda: serve_step(short, cache, 0), top=10)
+    n_prefill = sum(calls.get(kn, 0) for kn in by_kernel)
+    grp = lm.groups[0]
+    h_in = torch.randn(pb, ps, cfg.d_model, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           182)).to(lm.dtype)
+    with torch.inference_mode():
+        s_busy, s_wall, s_calls, s_kernels = trace(
+            "18b", f"one sLSTM layer over {pb} x {ps}",
+            lambda: S.slstm_apply(grp.slstm, cfg, h_in), top=8)
+    n_slstm = sum(s_calls.get(kn, 0) for kn in s_kernels)
+    n_groups = len(lm.groups)
+    cache = lm.init_cache(P18_BATCH, total)
+    serve_step(prompts[:, :1], cache, 0)
+    d_busy, d_wall, d_calls, d_kernels = trace(
+        "18b", f"{cfg.name} decode step",
+        lambda: serve_step(prompts[:, :1], cache, 1), top=8)
+    n_decode = sum(d_calls.get(kn, 0) for kn in d_kernels)
+    print(f"[18b host cost] prefill {pb} x {ps}: {n_prefill} device kernels "
+          f"({n_prefill / ps:.1f} a token position), device busy "
+          f"{busy / wall:.3f} of {wall / 1e3:.1f} ms; one sLSTM layer over "
+          f"it: {n_slstm} kernels ({n_slstm / ps:.2f} a time step), "
+          f"{s_wall / 1e3:.1f} ms wall ({s_wall / ps:.1f} us a time step), "
+          f"device busy {s_busy / s_wall:.3f}; the {n_groups} sLSTM layers "
+          f"are {n_groups * n_slstm / max(n_prefill, 1):.3f} of the "
+          f"prefill's kernels and {n_groups * s_wall / wall:.3f} of its "
+          f"wall; so a {P18_BATCH} x {P18_PROMPT} forward launches "
+          f"~{n_groups * n_slstm / ps * P18_PROMPT:.0f} sLSTM kernels; a "
+          f"decode step: {n_decode} kernels, device busy "
+          f"{d_busy / d_wall:.3f} of {d_wall / 1e3:.2f} ms", flush=True)
+    del lm, prompts, tokens, serve_step, cache, short, h_in, grp
+    torch.cuda.empty_cache()
+    sub_time("18b", t0)
+
+    # the f32 cut: one group of 8 layers at full width
+    t0 = time.perf_counter()
+    cut_cfg = dataclasses.replace(cfg, n_layers=P18_CUT_LAYERS,
+                                  dtype="float32")
+    cut = T.Transformer(cut_cfg, device=dev, seed=0)
+    nb, ns = P18_CUT_SHAPE
+    toks = torch.randint(0, cut_cfg.vocab_size, (nb, ns + P18_CUT_DECODE),
+                         device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             183))
+    with torch.inference_mode():
+        full = cut(toks)
+        cache = cut.init_cache(nb, ns + P18_CUT_DECODE)
+        pre, cache = cut.decode_step(toks[:, :ns], cache, 0)
+        dec = []
+        for i in range(P18_CUT_DECODE):
+            lg, cache = cut.decode_step(toks[:, ns + i:ns + i + 1], cache,
+                                        ns + i)
+            dec.append(lg[:, 0])
+    errs = {"prefill vs forward": rel_err(pre, full[:, :ns])[1],
+            "decode vs forward": rel_err(torch.stack(dec, 1),
+                                         full[:, ns:])[1]}
+    print(f"[18b f32 cut] {P18_CUT_LAYERS} layers at full width, {nb} x "
+          f"{ns} tokens + {P18_CUT_DECODE} decoded: rel err " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tolerance {P18_CUT_TOL})")
+    if max(errs.values()) > P18_CUT_TOL:
+        fail(f"phase 18b: the f32 cut disagrees {errs}")
+    del cut, toks, full, cache, pre, dec, lg
+    torch.cuda.empty_cache()
+    sub_time("18b f32 cut", t0)
+
+    # ---- 18c. training at full width and depth ----
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    lm = T.Transformer(cfg, device=dev, seed=0)
+    nb, ns = P18_TRAIN_SHAPE
+    gen_tok = torch.Generator(device=dev).manual_seed(184)
+    batch = {kk: torch.randint(0, cfg.vocab_size, (nb, ns), device=dev,
+                               generator=gen_tok)
+             for kk in ("tokens", "labels")}
+    losses, lat, per_step, peak = train_steps(
+        "18c train", lm, batch, P18_TRAIN_OPT, P18_TRAIN_STEPS)
+    launches[f"{cfg.name} train step"] = per_step
+    p50 = float(np.median(lat[1:]))
+    print(f"[18c train] {cfg.name} {P18_TRAIN_STEPS} steps of {nb} x {ns} "
+          f"tokens, remat {cfg.remat!r} (the mLSTM blocks): step p50 "
+          f"{p50:.1f} ms, max {max(lat[1:]):.1f} ms over steps 2-"
+          f"{P18_TRAIN_STEPS} (host clock around the step; reading the loss "
+          f"waits for the device; step 1 {lat[0]:.1f} ms), "
+          f"{nb * ns / (p50 / 1e3):.0f} tokens/s; peak device memory "
+          f"{peak / 2**30:.2f} GiB, of it {held / 2**30:.2f} GiB held "
+          f"before: the run's own {(peak - held) / 1e9:.2f} GB (reckoned "
+          f"~{P18_RECKONED_GB} GB); kernel launches a step {per_step}; no "
+          f"step is traced (~5 x 10^5 launches)")
+    del lm, batch
+    torch.cuda.empty_cache()
+    sub_time("18c", t0)
+    print(f"[18] phase 18 took {time.perf_counter() - t18:.1f} s; launches "
+          f"by path {launches}", flush=True)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 19 --
+@contextlib.contextmanager
+def cross_norms(layers):
+    """While active, each ``layers.cross_attention`` call appends the norm
+    of its output to the yielded list: a cross-attention that adds nothing
+    (an encoder on zeros) shows as 0."""
+    norms = []
+    xattn = layers.cross_attention
+
+    def recorded(*args, **kwargs):
+        out = xattn(*args, **kwargs)
+        norms.append(float(out.float().norm()))
+        return out
+    layers.cross_attention = recorded
+    try:
+        yield norms
+    finally:
+        layers.cross_attention = xattn
+
+
+def phase_19(dev) -> dict:
+    """The encoder-decoder and the vision stub: the flash kernel at their
+    shapes (19a), whisper-medium served at full width and depth with its
+    f32 cut (19b) and trained (19c), qwen2-vl-72b served at full width,
+    24 of 80 layers, with its f32 cut (19d), and a 2-layer cut of it
+    trained on embeddings (19e).  Returns ``{"launches": by path,
+    "flash": the 19a records}``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticStream
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import last_path
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    t19 = time.perf_counter()
+    bf16 = torch.bfloat16
+    launches, flash = {}, {}
+
+    def sub_time(label, t0):
+        print(f"[19] {label} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    def randn(*shape, seed):
+        return torch.randn(*shape, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               seed))
+
+    # ---- 19a. the flash kernel at the paths' shapes ----
+    t0 = time.perf_counter()
+    for n, (label, b, h, hkv, sq, sk, d, causal) in enumerate(
+            P19_FLASH_CASES):
+        q = randn(b, h, sq, d, seed=190 + n).to(bf16)
+        k = randn(b, hkv, sk, d, seed=290 + n).to(bf16)
+        v = randn(b, hkv, sk, d, seed=390 + n).to(bf16)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ran = last_path()
+        want = ref.attention(q, k, v, causal=causal)
+        abs_err, rel = rel_err(got, want, rows=True)
+        if ran != FLASH_WGMMA or rel > LM_BF16_TOL:
+            fail(f"phase 19a: {label} ran {ran}, row rel err {rel:.3e} "
+                 f"(expected {FLASH_WGMMA} within {LM_BF16_TOL:.2e})")
+        pairs = int(ref.attention_mask(sq, sk, causal=causal, window=0,
+                                       device=dev).sum()) * b * h
+        moved = float(sum(t.numel() * t.element_size() for t in (q, k, v))
+                      + q.numel() * q.element_size())
+        bound_bytes = moved / HBM_BYTES_PER_S * 1e3
+        bound_ops = 4.0 * d * pairs / PEAK_OPS["bfloat16"] * 1e3
+        ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=causal))
+        plain_ms = time_ms(lambda: ref.attention(q, k, v, causal=causal))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=hkv != h))
+        rec = dict(ms=ms, plain_ms=plain_ms,
+                   bound_ms=max(bound_bytes, bound_ops),
+                   bound_by="bytes" if bound_bytes >= bound_ops
+                   else "operations", library_ms=lib_ms,
+                   max_abs_err=abs_err, path=ran)
+        flash[f"flash_attention ({label})"] = rec
+        print(f"[19a flash] {label}: q ({b}, {h}, {sq}, {d}), k/v ({b}, "
+              f"{hkv}, {sk}, {d}), causal={causal}, bf16, ran {ran}: "
+              f"max_abs={abs_err:.3e} row_rel={rel:.3e} (limit "
+              f"{LM_BF16_TOL:.2e}) kernel={ms:.4f} ms plain={plain_ms:.4f} "
+              f"ms bound={rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+              f"{moved / 1e6:.1f} MB, {4.0 * d * pairs / 1e9:.3f} Gop) "
+              f"share={rec['bound_ms'] / ms:.3f} sdpa={lib_ms:.4f} ms",
+              flush=True)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    sub_time("19a", t0)
+
+    def f32_cut(tag, cfg, n_enc, inputs):
+        """``n_enc`` + ``P19_CUT_LAYERS`` layers at full width in f32: the
+        forward with the flash kernel against the plain attention on
+        ``inputs`` (a batch dict of the cut's shape), and
+        ``P19_CUT_DECODE`` tokens decoded after a prefill against the
+        forward over the same tokens (and frames)."""
+        t0 = time.perf_counter()
+        cut_cfg = dataclasses.replace(cfg, n_layers=P19_CUT_LAYERS,
+                                      encoder_layers=n_enc, dtype="float32")
+        cut = T.Transformer(cut_cfg, device=dev, seed=0)
+        nb, ns = P19_CUT_SHAPE
+        toks = torch.randint(0, cut_cfg.vocab_size,
+                             (nb, ns + P19_CUT_DECODE), device=dev,
+                             generator=torch.Generator(
+                                 device=dev).manual_seed(192))
+        frames = {k: v for k, v in inputs.items() if k == "enc_embeds"}
+        with torch.inference_mode():
+            flash_out = cut(inputs)
+            ran = last_path()
+            plain = cut(inputs, impl="torch")
+            full = cut({"tokens": toks, **frames})
+            cache = cut.init_cache(nb, ns + P19_CUT_DECODE)
+            pre, cache = cut.decode_step({"tokens": toks[:, :ns], **frames},
+                                         cache, 0)
+            dec = []
+            for i in range(P19_CUT_DECODE):
+                lg, cache = cut.decode_step(
+                    {"tokens": toks[:, ns + i:ns + i + 1], **frames}, cache,
+                    ns + i)
+                dec.append(lg[:, 0])
+        errs = {"flash vs plain": rel_err(flash_out, plain)[1],
+                "prefill vs forward": rel_err(pre, full[:, :ns])[1],
+                "decode vs forward": rel_err(torch.stack(dec, 1),
+                                             full[:, ns:])[1]}
+        print(f"[{tag} f32 cut] {n_enc} encoder + {P19_CUT_LAYERS} decoder "
+              f"layers at full width, inputs "
+              f"{ {k: tuple(v.shape) for k, v in inputs.items()} }, {nb} x "
+              f"{ns} tokens + {P19_CUT_DECODE} decoded ({ran}): rel err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tolerance {P19_CUT_TOL})", flush=True)
+        if max(errs.values()) > P19_CUT_TOL:
+            fail(f"phase {tag}: the f32 cut disagrees {errs}")
+        del cut, toks, flash_out, plain, full, cache, pre, dec, lg
+        torch.cuda.empty_cache()
+        sub_time(f"{tag} f32 cut", t0)
+
+    def replay(tag, lm, first, tokens, prompt_len, extra):
+        """The served run's first greedy picks, again on a fresh cache."""
+        cache = lm.init_cache(P19_BATCH, prompt_len + P19_REPLAY + 1)
+        logits, cache = lm.decode_step(first, cache, 0)
+        picks = [logits[:, -1].argmax(-1)]
+        for i in range(P19_REPLAY):
+            logits, cache = lm.decode_step(
+                {"tokens": tokens[:, i:i + 1], **extra}, cache,
+                prompt_len + i)
+            picks.append(logits[:, 0].argmax(-1))
+        picks = torch.stack(picks, dim=1).to(tokens.dtype)
+        if not torch.equal(picks, tokens[:, :P19_REPLAY + 1]):
+            fail(f"phase {tag}: replayed greedy picks {picks.tolist()} are "
+                 f"not the served tokens "
+                 f"{tokens[:, :P19_REPLAY + 1].tolist()}")
+        print(f"[{tag}] {P19_REPLAY} replayed decode steps: greedy picks = "
+              f"served tokens")
+
+    # ---- 19b. whisper-medium served at full width and depth ----
+    t0 = time.perf_counter()
+    cfg = get_config(P19_WHISPER, reduced=P19_REDUCED)
+    lm, prompts = serve.build(cfg, batch=P19_BATCH, prompt_len=P19_PROMPT,
+                              seed=0, device=dev)
+    frames = randn(P19_BATCH, cfg.encoder_seq, cfg.d_model, seed=193)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in lm.parameters())
+    print(f"[19b] {cfg.name}: {n_params / 1e9:.3f} B parameters, "
+          f"{cfg.encoder_layers} encoder + {cfg.n_layers} decoder layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}; seeded "
+          f"unit-normal frames {tuple(frames.shape)}; built on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    first = {"tokens": prompts, "enc_embeds": frames}
+    total = P19_PROMPT + P19_DECODE + 1
+    with held_attention(L) as attn, cross_norms(L) as norms:
+        got, _ = lm.decode_step(first, lm.init_cache(P19_BATCH, total), 0)
+    ran = last_path()
+    want, _ = lm.decode_step(first, lm.init_cache(P19_BATCH, total), 0,
+                             impl="torch")
+    n_flash = cfg.encoder_layers + 2 * cfg.n_layers
+    worst = max(err for _, _, err in attn)
+    print(f"[19b] prefill logits {tuple(got.shape)} vs impl=torch: rel "
+          f"{rel_err(got, want)[1]:.3e} (printed); the flash kernel ({ran}) "
+          f"on each of its {len(attn)} calls' own q, k, v "
+          f"{sorted({shape for shape, _, _ in attn})} against its plain "
+          f"version: worst row rel err {worst:.2e} (limit "
+          f"{LM_BF16_TOL:.2e}); cross-attention output norms by layer "
+          f"{', '.join(f'{x:.1f}' for x in norms)}", flush=True)
+    if len(attn) != n_flash or worst > LM_BF16_TOL:
+        fail(f"phase 19b: the flash kernel on the prefill's own inputs "
+             f"({len(attn)} calls for {n_flash}) disagrees with its plain "
+             f"version ({worst:.3e})")
+    if len(norms) != cfg.n_layers or min(norms) <= 0.0:
+        fail(f"phase 19b: cross-attention output norms {norms}")
+    del got, want, attn
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    tokens, timing = serve.generate(lm, prompts, P19_DECODE + 1,
+                                    enc_embeds=frames)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    launches[f"{cfg.name} serve"] = counts
+    dec_ms = [t * 1e3 for t in timing.decode_s]
+    p50 = float(np.median(dec_ms))
+    want_flash = n_flash + P19_DECODE * (cfg.encoder_layers + cfg.n_layers)
+    print(f"[19b] prefill {P19_BATCH} x {P19_PROMPT} tokens over "
+          f"{cfg.encoder_seq} frames in {timing.prefill_s * 1e3:.2f} ms; "
+          f"{len(dec_ms)} decode steps (each runs the encoder again) p50 "
+          f"{p50:.3f} ms max {max(dec_ms):.3f} ms "
+          f"({P19_BATCH / (p50 / 1e3):.1f} tokens/s at p50); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; host clock "
+          f"around each step + synchronize; launches in the serve run "
+          f"{counts} (expected {want_flash} flash: {n_flash} a prefill, "
+          f"{cfg.encoder_layers + cfg.n_layers} a decode step); sample "
+          f"{tokens[0, :8].tolist()}", flush=True)
+    if tuple(tokens.shape) != (P19_BATCH, P19_DECODE + 1) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        fail(f"phase 19b: tokens {tuple(tokens.shape)} out of range")
+    if counts["flash_attention"] != want_flash or \
+            sum(counts.values()) != want_flash:
+        fail(f"phase 19b: launches {counts}, expected {want_flash} flash "
+             f"launches and nothing else")
+    # a decode step split: the encoder alone (its 24 layers over the
+    # frames) and the rest of the step
+    with torch.inference_mode():
+        enc_ms = time_ms(lambda: lm._encoder(frames, "cuda", False),
+                         iters=5)
+    print(f"[19b] decode step p50 {p50:.3f} ms = the encoder {enc_ms:.3f} "
+          f"ms (CUDA events, 5 calls after 3; "
+          f"{enc_ms / p50:.3f} of the step) + the decoder and the rest "
+          f"{p50 - enc_ms:.3f} ms", flush=True)
+    replay("19b", lm, first, tokens, P19_PROMPT, {"enc_embeds": frames})
+    serve_step = steps.make_serve_step(lm)
+    cache = lm.init_cache(P19_BATCH, total)
+    serve_step(first, cache, 0)
+    step_in = {"tokens": tokens[:, :1], "enc_embeds": frames}
+    busy, wall, calls, by_kernel = trace(
+        "19b", f"{cfg.name} decode step",
+        lambda: serve_step(step_in, cache, P19_PROMPT), top=10)
+    flash_us = sum(us for kn, us in by_kernel.items()
+                   if "flash_attention" in kn)
+    print(f"[19b trace] {cfg.name} decode step: "
+          f"{sum(calls.get(kn, 0) for kn in by_kernel)} device kernels; the "
+          f"flash kernel {flash_us / 1e3:.3f} ms "
+          f"({flash_us / max(busy, 1e-9):.3f}) of {busy / 1e3:.3f} ms busy")
+    del lm, prompts, tokens, serve_step, cache, first, step_in
+    torch.cuda.empty_cache()
+    sub_time("19b", t0)
+    nb, ns = P19_CUT_SHAPE
+    f32_cut("19b", cfg, P19_CUT_LAYERS, {
+        "tokens": torch.randint(0, cfg.vocab_size, (nb, ns), device=dev),
+        "enc_embeds": randn(nb, cfg.encoder_seq, cfg.d_model, seed=194)})
+
+    # ---- 19c. whisper-medium trained at full width and depth ----
+    t0 = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    lm = T.Transformer(cfg, device=dev, seed=0)
+    gen_tok = torch.Generator(device=dev).manual_seed(195)
+    batch = {kk: torch.randint(0, cfg.vocab_size,
+                               (P19_BATCH, P19_TRAIN_SEQ), device=dev,
+                               generator=gen_tok)
+             for kk in ("tokens", "labels")}
+    batch["enc_embeds"] = frames
+    losses, lat, per_step, peak = train_steps(
+        "19c train", lm, batch, P19_TRAIN_OPT, P19_TRAIN_STEPS)
+    launches[f"{cfg.name} train step"] = per_step
+    p50 = float(np.median(lat[1:]))
+    print(f"[19c train] {cfg.name} {P19_TRAIN_STEPS} steps of {P19_BATCH} "
+          f"x {P19_TRAIN_SEQ} tokens over {cfg.encoder_seq} seeded frames, "
+          f"remat {cfg.remat!r}: step p50 {p50:.1f} ms, max "
+          f"{max(lat[1:]):.1f} ms over steps 2-{P19_TRAIN_STEPS} (step 1 "
+          f"{lat[0]:.1f} ms); peak device memory {peak / 2**30:.2f} GiB, of "
+          f"it {held / 2**30:.2f} GiB held before (reckoned "
+          f"~{P19_RECKONED_GB[P19_WHISPER]} GB); kernel launches a step "
+          f"{per_step}")
+    del lm, batch, frames
+    torch.cuda.empty_cache()
+    sub_time("19c", t0)
+
+    # ---- 19d. qwen2-vl-72b served at full width, a depth cut ----
+    t0 = time.perf_counter()
+    vcfg = get_config(P19_VL, reduced=P19_REDUCED)
+    if not P19_REDUCED:
+        vcfg = dataclasses.replace(vcfg, n_layers=P19_VL_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    lm = T.Transformer(vcfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in lm.parameters())
+    per_layer = sum(t.numel() for t in lm.blocks[0].parameters())
+    full_params = n_params + (80 - vcfg.n_layers) * per_layer
+    embeds = randn(P19_BATCH, P19_VL_PROMPT, vcfg.d_model, seed=196)
+    print(f"[19d] {P19_VL} at full width, {vcfg.n_layers} of 80 layers: "
+          f"{n_params / 1e9:.3f} B parameters ({per_layer / 1e9:.3f} B a "
+          f"layer; all 80 would be {full_params / 1e9:.1f} B, "
+          f"{full_params * 2 / 1e9:.0f} GB in bf16: more than the card's "
+          f"80 GB), d {vcfg.d_model}, {vcfg.n_heads} / {vcfg.n_kv_heads} "
+          f"heads of {vcfg.head_dim}, d_ff {vcfg.d_ff}, vocab "
+          f"{vcfg.vocab_size}; seeded embeddings {tuple(embeds.shape)}; "
+          f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    total = P19_VL_PROMPT + P19_DECODE + 1
+    first = {"embeds": embeds}
+    with held_attention(L) as attn:
+        got, _ = lm.decode_step(first, lm.init_cache(P19_BATCH, total), 0)
+    ran = last_path()
+    want, _ = lm.decode_step(first, lm.init_cache(P19_BATCH, total), 0,
+                             impl="torch")
+    worst = max(err for _, _, err in attn)
+    print(f"[19d] prefill logits {tuple(got.shape)} on embeddings vs "
+          f"impl=torch: rel {rel_err(got, want)[1]:.3e} (printed); the flash "
+          f"kernel ({ran}) on each of the {len(attn)} layers' own q, k, v: "
+          f"row rel err by layer {', '.join(f'{e:.1e}' for _, _, e in attn)}"
+          f" (limit {LM_BF16_TOL:.2e})", flush=True)
+    if len(attn) != vcfg.n_layers or worst > LM_BF16_TOL:
+        fail(f"phase 19d: the flash kernel on the prefill's own inputs "
+             f"({len(attn)} calls for {vcfg.n_layers} layers) disagrees with "
+             f"its plain version ({worst:.3e})")
+    del got, want, attn
+    torch.cuda.empty_cache()
+    serve_step = steps.make_serve_step(lm)
+    ops.reset_launch_counts()
+    cache = lm.init_cache(P19_BATCH, total)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    nxt, cache = serve_step(first, cache, 0)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t1) * 1e3
+    out, dec_ms = [nxt], []
+    for i in range(P19_DECODE):
+        t1 = time.perf_counter()
+        nxt, cache = serve_step(nxt[:, None], cache, P19_VL_PROMPT + i)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t1) * 1e3)
+        out.append(nxt)
+    tokens = torch.stack(out, dim=1)
+    counts = ops.launch_counts()
+    launches[f"{P19_VL} serve, {vcfg.n_layers} layers"] = counts
+    peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(dec_ms))
+    print(f"[19d] prefill {P19_BATCH} x {P19_VL_PROMPT} embeddings in "
+          f"{prefill_ms:.2f} ms "
+          f"({P19_BATCH * P19_VL_PROMPT / (prefill_ms / 1e3):.0f} tokens/s); "
+          f"{P19_DECODE} decode steps on tokens p50 {p50:.3f} ms max "
+          f"{max(dec_ms):.3f} ms; peak device memory {peak / 2**30:.2f} GiB "
+          f"(limit {P19_PEAK_GIB}); launches {counts}; sample "
+          f"{tokens[0, :8].tolist()}", flush=True)
+    if counts["flash_attention"] != vcfg.n_layers or \
+            sum(counts.values()) != vcfg.n_layers:
+        fail(f"phase 19d: launches {counts}, expected {vcfg.n_layers} flash "
+             f"launches and nothing else")
+    if peak > P19_PEAK_GIB * 2**30:
+        fail(f"phase 19d: peak memory {peak / 2**30:.2f} GiB > "
+             f"{P19_PEAK_GIB}")
+    replay("19d", lm, first, tokens, P19_VL_PROMPT, {})
+    del lm, serve_step, cache, first, tokens, nxt, out
+    torch.cuda.empty_cache()
+    sub_time("19d", t0)
+    f32_cut("19d", vcfg, 0, {"embeds": embeds[:P19_CUT_SHAPE[0],
+                                              :P19_CUT_SHAPE[1]]})
+    del embeds
+
+    # ---- 19e. a 2-layer cut of qwen2-vl-72b trained on embeddings ----
+    t0 = time.perf_counter()
+    tcfg = dataclasses.replace(vcfg, n_layers=P19_VL_TRAIN_LAYERS)
+    held = torch.cuda.memory_allocated()
+    lm = T.Transformer(tcfg, device=dev, seed=0)
+    nb, ns = P19_VL_TRAIN_SHAPE
+    raw = SyntheticStream(DataConfig(
+        vocab_size=tcfg.vocab_size, seq_len=ns, global_batch=nb, seed=0,
+        kind="embeds", d_model=tcfg.d_model)).batch_at(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in raw.items()}
+    losses, lat, per_step, peak = train_steps(
+        "19e train", lm, batch, P19_TRAIN_OPT, P19_TRAIN_STEPS)
+    launches[f"{P19_VL} train step, {tcfg.n_layers} layers"] = per_step
+    p50 = float(np.median(lat[1:]))
+    print(f"[19e train] {P19_VL}, {tcfg.n_layers} layers at full width, "
+          f"{P19_TRAIN_STEPS} steps on the 'embeds' data kind, {nb} x {ns}, "
+          f"remat {tcfg.remat!r}: step p50 {p50:.1f} ms, max "
+          f"{max(lat[1:]):.1f} ms over steps 2-{P19_TRAIN_STEPS} (step 1 "
+          f"{lat[0]:.1f} ms); peak device memory {peak / 2**30:.2f} GiB, of "
+          f"it {held / 2**30:.2f} GiB held before (reckoned "
+          f"~{P19_RECKONED_GB[P19_VL]} GB); kernel launches a step "
+          f"{per_step}")
+    del lm, batch, raw
+    torch.cuda.empty_cache()
+    sub_time("19e", t0)
+    print(f"[19] phase 19 took {time.perf_counter() - t19:.1f} s; launches "
+          f"by path {launches}", flush=True)
+    return {"launches": launches, "flash": flash}
+
+
 def main(device: str = "cuda") -> None:
     import gc
 
@@ -4699,6 +5593,16 @@ def main(device: str = "cuda") -> None:
     print(f"[17] device memory still allocated after phase 16: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     p17_launches = phase_17(torch.device(device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[18] device memory still allocated after phase 17: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    p18_launches = phase_18(torch.device(device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[19] device memory still allocated after phase 18: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    p19 = phase_19(torch.device(device))
     records, band_records = run["records"], run["band_records"]
     path_launches, tensor_core_ops = (run["path_launches"],
                                       run["tensor_core_ops"])
@@ -4750,6 +5654,12 @@ def main(device: str = "cuda") -> None:
         # hymba-1.5b prefill, a training step of each)
         extra["mla_hybrid_launches"] = {path: c[name] for path, c in
                                         p17_launches.items()}
+        # phases 18 and 19: the xLSTM paths' launches (none of the six
+        # kernels) and the encoder-decoder's and vision stub's
+        extra["xlstm_launches"] = {path: c[name] for path, c in
+                                   p18_launches.items()}
+        extra["encdec_launches"] = {path: c[name] for path, c in
+                                    p19["launches"].items()}
         if name == "flash_attention":
             # phase 7 at the MoE prefills' and minicpm3-4b's shapes (bf16)
             fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4759,6 +5669,8 @@ def main(device: str = "cuda") -> None:
                                    for label in LM_MOE_FLASH}
             extra["mla_shape"] = {f: records[(LM_MLA_FLASH, "bfloat16")][f]
                                   for f in fields}
+            # phase 19a: the encoder-decoder's and qwen2-vl's shapes
+            extra["encdec_shapes"] = p19["flash"]
         band_keys = [k for k in band_records if k.startswith(name)]
         if band_keys:
             # phase 14a: the sparse-band mixer's shapes (f32)

@@ -46,13 +46,16 @@ def build(cfg, *, batch: int, prompt_len: int, seed: int, device):
 
 
 @torch.inference_mode()
-def generate(model, prompts: torch.Tensor, gen: int):
+def generate(model, prompts: torch.Tensor, gen: int, *, enc_embeds=None):
     """Greedy decoding: one batched prefill of ``prompts`` fills the cache
-    and yields the first token; ``gen - 1`` decode steps follow.  Returns
-    ``(tokens (B, gen) int32, Timing)``; on the card each step ends in a
+    and yields the first token; ``gen - 1`` decode steps follow.  An
+    encoder-decoder takes ``enc_embeds (B, Se, d)`` in every step (the
+    encoder runs again in each, as in the reference).  Returns ``(tokens
+    (B, gen) int32, Timing)``; on the card each step ends in a
     synchronize, so the times are the steps' own.  Runs under
     ``torch.inference_mode()``."""
     b, prompt_len = prompts.shape
+    extra = {} if enc_embeds is None else {"enc_embeds": enc_embeds}
     serve_step = steps.make_serve_step(model)
     on_card = model.device.type == "cuda"
 
@@ -63,13 +66,13 @@ def generate(model, prompts: torch.Tensor, gen: int):
 
     cache = model.init_cache(b, prompt_len + gen)
     t0 = clock()
-    next_tok, cache = serve_step(prompts, cache, 0)
+    next_tok, cache = serve_step({"tokens": prompts, **extra}, cache, 0)
     prefill_s = clock() - t0
     out, decode_s = [next_tok], []
     for i in range(gen - 1):
         t0 = clock()
-        next_tok, cache = serve_step(next_tok[:, None], cache,
-                                     prompt_len + i)
+        next_tok, cache = serve_step({"tokens": next_tok[:, None], **extra},
+                                     cache, prompt_len + i)
         decode_s.append(clock() - t0)
         out.append(next_tok)
     return torch.stack(out, dim=1), Timing(prefill_s, decode_s)
@@ -230,7 +233,13 @@ def main(argv=None, *, on_flush=None):
     cfg = get_config(args.arch, reduced=args.reduced)
     model, prompts = build(cfg, batch=args.batch, prompt_len=args.prompt_len,
                            seed=args.seed, device=args.device)
-    tokens, timing = generate(model, prompts, args.gen)
+    enc_embeds = None
+    if cfg.encoder_layers:
+        # the stubbed frontend's frames: zeros, as the reference's CLI
+        enc_embeds = torch.zeros((args.batch, cfg.encoder_seq, cfg.d_model),
+                                 device=model.device)
+    tokens, timing = generate(model, prompts, args.gen,
+                              enc_embeds=enc_embeds)
     b = args.batch
     gen_s = sum(timing.decode_s)
     p50 = float(np.median(timing.decode_s)) if timing.decode_s else 0.0

@@ -24,11 +24,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor):
 
 
 def make_loss_fn(model, *, impl: str = "cuda"):
-    """``loss_fn(batch) -> (loss, {"loss": loss})`` for ``batch =
-    {"tokens": (B, S), "labels": (B, S)}``, at the model's parameters,
-    through its training forward."""
+    """``loss_fn(batch) -> (loss, {"loss": loss})`` for the reference's
+    batch dict, ``{"tokens" (B, S) | "embeds" (B, S, d), ["enc_embeds"],
+    "labels" (B, S)}``, at the model's parameters, through its training
+    forward."""
     def loss_fn(batch):
-        logits = model(batch["tokens"], impl=impl, train=True)
+        logits = model(batch, impl=impl, train=True)
         loss = cross_entropy(logits, batch["labels"])
         return loss, {"loss": loss}
     return loss_fn
@@ -40,9 +41,12 @@ def make_train_step(model, opt_cfg: adamw.OptConfig, *, impl: str = "cuda"):
     It zeroes the gradients, runs the loss's backward and one
     ``adamw.update`` on the model's parameters in place, with the
     weight-decay set the model states (``model.decay_mask()``).
+    A parameter the batch does not reach (the token embedding of a step
+    on ``embeds``, ``frontend_proj`` of one on tokens) has no gradient,
+    which ``adamw.update`` takes as zeros, as ``jax.grad`` gives them.
     ``metrics`` holds ``loss`` and ``grad_norm`` (0-d tensors; reading them
-    waits for the device) and ``lr`` (a float).  Start from ``adamw.init(model
-    .parameters())``."""
+    waits for the device) and ``lr`` (a float).  Start from
+    ``adamw.init(model.parameters())``."""
     loss_fn = make_loss_fn(model, impl=impl)
     params = list(model.parameters())
     decay = model.decay_mask()
@@ -83,21 +87,23 @@ def make_gcn_train_step(model, *, lr: float = 0.3, backend: str = "auto",
 
 
 def make_prefill_step(model):
-    """``prefill_step(tokens (B, S)) -> logits (B, S, V)``, under
+    """``prefill_step(batch) -> logits (B, S, V)``, ``batch`` as the model's
+    ``forward`` takes it (tokens, or the reference's dict), under
     ``torch.inference_mode()``."""
     @torch.inference_mode()
-    def prefill_step(tokens):
-        return model(tokens)
+    def prefill_step(batch):
+        return model(batch)
     return prefill_step
 
 
 def make_serve_step(model):
-    """``serve_step(tokens, cache, cache_len) -> (next_tok (B,) int32,
-    cache)``: one decode step, or the batched prefill when ``tokens`` holds
-    more than one position; greedy (first maximum on ties, as
-    ``jnp.argmax``); under ``torch.inference_mode()``."""
+    """``serve_step(batch, cache, cache_len) -> (next_tok (B,) int32,
+    cache)``: one decode step, or the batched prefill when ``batch`` holds
+    more than one position (tokens, or the reference's dict); greedy
+    (first maximum on ties, as ``jnp.argmax``); under
+    ``torch.inference_mode()``."""
     @torch.inference_mode()
-    def serve_step(tokens, cache, cache_len: int):
-        logits, cache = model.decode_step(tokens, cache, cache_len)
+    def serve_step(batch, cache, cache_len: int):
+        logits, cache = model.decode_step(batch, cache, cache_len)
         return logits[:, -1].argmax(dim=-1).to(torch.int32), cache
     return serve_step

@@ -79,9 +79,13 @@ def main(argv=None) -> TrainRun:
     cfg = get_config(args.arch, reduced=args.reduced)
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps)
 
+    # a stubbed frontend without an encoder trains on embeddings
+    dkind = "lm" if (cfg.frontend == "none" or cfg.encoder_layers) \
+        else "embeds"
     data = SyntheticStream(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
-        global_batch=args.batch, seed=args.seed))
+        global_batch=args.batch, seed=args.seed, kind=dkind,
+        d_model=cfg.d_model))
 
     model = T.Transformer(cfg, device=args.device, seed=args.seed)
     opt_state = adamw.init(model.parameters())
@@ -107,6 +111,11 @@ def main(argv=None) -> TrainRun:
         raw = data.batch_at(step)
         batch = {k: torch.from_numpy(v).to(model.device)
                  for k, v in raw.items()}
+        if cfg.encoder_layers:
+            # the stubbed frontend's frames: zeros, as the reference's
+            batch["enc_embeds"] = torch.zeros(
+                (args.batch, cfg.encoder_seq, cfg.d_model),
+                device=model.device)
         opt_state, metrics = train_step(opt_state, batch)
         loss = float(metrics["loss"])
         dt = time.time() - t0

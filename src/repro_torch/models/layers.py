@@ -1,6 +1,6 @@
 """Shared LM layers: RMS norm, RoPE, GQA attention, multi-head latent
-attention (MLA), the gated FFN, the gated top-k MoE layer and the
-embeddings.
+attention (MLA), cross-attention, the gated FFN, the gated top-k MoE layer
+and the embeddings.
 
 Twins of ``repro.models.layers`` in its functional style: parameters are
 dicts of tensors (an ``nn.ParameterDict`` works as one) and every layer is
@@ -15,8 +15,8 @@ flash kernel has no backward.  Everything else is plain PyTorch (products
 outside any Pallas kernel were left to XLA by the reference): the MoE
 layer's expert products too, which the reference computes in XLA, not in
 its (ungated) MoE kernel.
-Not in this module yet: cross-attention, the MoE layer's mesh path and
-the sharding rules (ROADMAP Queue 1).
+Not in this module yet: the MoE layer's mesh path and the sharding rules
+(ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -302,6 +302,28 @@ def mla_attention(p, cfg, x, *, pos, cache=None, cache_len=None,
         out = chunked_attention(q, k, v, causal=True, impl=impl)
     out = out.transpose(1, 2).reshape(b, s, -1)
     return out @ p["wo"], cache
+
+
+# ------------------------------------------------------- cross-attention ----
+def cross_attention(p, cfg, x, enc_out, *, impl: str = "cuda",
+                    train: bool = False):
+    """Attention of ``x (B, S, d)`` over the encoder's output ``enc_out
+    (B, Se, d)``: q from ``x``, k and v from ``enc_out`` (a ``gqa_init``
+    dict; no bias, no RoPE, no mask).  Serving runs ``chunked_attention``
+    (the flash kernel on the card) at any S, a decode step's S = 1 too, as
+    the reference runs its ``chunked_attention``; ``train=True`` runs
+    ``scan_attention``.  Returns the output ``(B, S, d)``."""
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim
+    se = enc_out.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, h, dh).transpose(1, 2)
+    k = (enc_out @ p["wk"]).reshape(b, se, -1, dh).transpose(1, 2)
+    v = (enc_out @ p["wv"]).reshape(b, se, -1, dh).transpose(1, 2)
+    if train:
+        out = scan_attention(q, k, v, causal=False)
+    else:
+        out = chunked_attention(q, k, v, causal=False, impl=impl)
+    return out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
 
 
 # ------------------------------------------------------------------- FFN ----

@@ -1,17 +1,20 @@
 """Sub-quadratic sequence mixers: the chunked gated linear recurrence with
-the mamba heads, and the ``sparse-band`` token mixer.
+the mamba heads and xLSTM's mLSTM block, xLSTM's sLSTM block, and the
+``sparse-band`` token mixer.
 
-Twin of ``repro.models.ssm`` but for its mLSTM / sLSTM blocks (ROADMAP
-Queue 1).  One engine, ``chunked_linear_recurrence``, carries per head a
-state ``H ∈ R^{dk × dv}`` through
+Twin of ``repro.models.ssm``.  One engine, ``chunked_linear_recurrence``,
+carries per head a state ``H ∈ R^{dk × dv}`` through
 
     H_t = a_t·H_{t-1} + k_tᵀ v_t,   o_t = q_t·H_t,   a_t ∈ (0, 1]
 
 in chunks: within a chunk two products with the decay as a mask, across
 chunks the carried state (the tile-fusion structure on the time axis).
 It is plain PyTorch, as the reference computes it in XLA outside any
-Pallas kernel; ``mamba_apply`` (hymba's mamba heads) runs it, or its
-single step ``linear_recurrence_step`` in decode.
+Pallas kernel; ``mamba_apply`` (hymba's mamba heads) and ``mlstm_apply``
+(with the normalizer) run it, or its single step
+``linear_recurrence_step`` in decode.  The sLSTM is a scan over time of
+an elementwise exponential-gated LSTM with a dense recurrent product,
+one step at a time in f32, as the reference's ``lax.scan``.
 
 The band mix is ``A · (X · Wv)`` with the band ``A`` (``decay_band_csr``)
 as the sparse operand, one ``tile_fused_matmul`` call a batch row, so the
@@ -230,3 +233,98 @@ def mamba_apply(p, cfg, x, *, cache=None):
         o = o[:, None]
     o = o.reshape(b, s, -1) * F.silu(z)
     return o @ p["w_out_proj"], state
+
+
+def mlstm_init(gen, cfg, dtype, device=None) -> dict:
+    """xLSTM's mLSTM block: ``w_up (d, 2·inner)`` (the main and gate
+    branches), per-head ``wq``, ``wk``, ``wv (inner, inner)`` and ``w_down
+    (inner, d)`` in ``dtype``; the forget and input gates ``w_f``, ``w_i
+    (inner, h)`` at scale 0.02 in f32 whatever ``dtype``, as the reference
+    holds them."""
+    d = cfg.d_model
+    h, dh = cfg.n_heads, cfg.ssm_head_dim
+    inner = h * dh
+    return {
+        "w_up": init_weight(gen, (d, 2 * inner), dtype=dtype, device=device),
+        "wq": init_weight(gen, (inner, inner), dtype=dtype, device=device),
+        "wk": init_weight(gen, (inner, inner), dtype=dtype, device=device),
+        "wv": init_weight(gen, (inner, inner), dtype=dtype, device=device),
+        "w_f": init_weight(gen, (inner, h), scale=0.02, device=device),
+        "w_i": init_weight(gen, (inner, h), scale=0.02, device=device),
+        "w_down": init_weight(gen, (inner, d), dtype=dtype, device=device),
+    }
+
+
+def mlstm_apply(p, cfg, x, *, cache=None):
+    """x ``(B, S, d)`` → ``(y (B, S, d), state (B, H, dh, dh + 1) f32)``.
+
+    The matrix memory as a normalized linear recurrence: q, k (scaled by
+    ``1/sqrt(dh)``, then by the input gate) and v per head, the
+    log-sigmoid forget gate as the log-decay; both gate logits in f32.  S >
+    1 (training or a batched prefill) runs ``chunked_linear_recurrence``
+    (chunk ``min(128, S)``) from ``cache``, the carried state (None:
+    zeros); S == 1 runs ``linear_recurrence_step``.  The output is gated by
+    ``silu(gate)``."""
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.ssm_head_dim
+    main, gate = (x @ p["w_up"]).chunk(2, dim=-1)          # (B, S, inner)
+    q = (main @ p["wq"]).reshape(b, s, h, dh)
+    k = (main @ p["wk"]).reshape(b, s, h, dh) / dh ** 0.5
+    v = (main @ p["wv"]).reshape(b, s, h, dh)
+    main32 = main.float()
+    log_f = F.logsigmoid(main32 @ p["w_f"])                # (B, S, H)
+    i_gate = torch.exp(F.logsigmoid(main32 @ p["w_i"]))
+    k = k * i_gate[..., None].to(k.dtype)
+    if s > 1:
+        o, state = chunked_linear_recurrence(q, k, v, log_f,
+                                             chunk=min(128, s), h0=cache)
+    else:
+        h0 = cache if cache is not None else \
+            x.new_zeros((b, h, dh, dh + 1), dtype=torch.float32)
+        o, state = linear_recurrence_step(q[:, 0], k[:, 0], v[:, 0],
+                                          log_f[:, 0], h0)
+        o = o[:, None]
+    o = o.reshape(b, s, -1) * F.silu(gate)
+    return o @ p["w_down"], state
+
+
+def slstm_init(gen, cfg, dtype, device=None) -> dict:
+    """xLSTM's sLSTM block: ``w_up (d, 4·inner)`` (the z, i, f, o
+    pre-activations), ``w_rec (inner, 4·inner)`` at scale 0.02 and
+    ``w_down (inner, d)``, all in ``dtype``."""
+    d = cfg.d_model
+    inner = cfg.n_heads * cfg.ssm_head_dim
+    return {
+        "w_up": init_weight(gen, (d, 4 * inner), dtype=dtype, device=device),
+        "w_rec": init_weight(gen, (inner, 4 * inner), scale=0.02,
+                             dtype=dtype, device=device),
+        "w_down": init_weight(gen, (inner, d), dtype=dtype, device=device),
+    }
+
+
+def slstm_apply(p, cfg, x, *, cache=None):
+    """x ``(B, S, d)`` → ``(y (B, S, d), (c, hid) each (B, inner) f32)``.
+
+    The reference's scan, one step at a time in f32 from ``cache`` (None:
+    zeros): ``u = pre_t + hid·w_rec``, then ``c = σ(f)·c + σ(i)·tanh(z)``
+    and ``hid = σ(o)·tanh(c)``.  ``w_rec`` is cast to f32 once a call, not
+    once a step (the same values).  A step is a few small launches, so a
+    long sequence is bound by the host (ROADMAP Queue 2)."""
+    b, s, _ = x.shape
+    inner = cfg.n_heads * cfg.ssm_head_dim
+    pre = (x @ p["w_up"]).float()                          # (B, S, 4·inner)
+    w_rec = p["w_rec"].float()
+    if cache is None:
+        c = x.new_zeros((b, inner), dtype=torch.float32)
+        hid = torch.zeros_like(c)
+    else:
+        c, hid = cache
+    hs = []
+    for t in range(s):
+        u = torch.addmm(pre[:, t], hid, w_rec)
+        i, f, o = torch.sigmoid(u[:, inner:]).chunk(3, dim=-1)
+        c = torch.addcmul(f * c, i, torch.tanh(u[:, :inner]))
+        hid = o * torch.tanh(c)
+        hs.append(hid)
+    out = torch.stack(hs, dim=1).to(x.dtype) @ p["w_down"]
+    return out, (c, hid)

@@ -63,15 +63,21 @@ def schedule(cfg: OptConfig, step) -> float:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """``sqrt(Σ x²)`` over all tensors, in f32 (a 0-d tensor)."""
-    return torch.sqrt(sum(x.float().square().sum() for x in tensors))
+    """``sqrt(Σ x²)`` over all tensors (``None`` counts as zeros), in f32
+    (a 0-d tensor)."""
+    return torch.sqrt(sum(x.float().square().sum() for x in tensors
+                          if x is not None))
 
 
 @torch.no_grad()
 def update(cfg: OptConfig, grads, state: OptState, params, decay):
     """One AdamW step on ``params`` in place; returns ``(state, metrics)``
     with ``metrics = {"grad_norm": pre-clip norm (0-d tensor), "lr": float}``.
-    ``decay`` holds one bool a parameter: whether weight decay applies."""
+    ``decay`` holds one bool a parameter: whether weight decay applies.  A
+    gradient of ``None`` (a parameter the loss does not reach) is zeros, as
+    ``jax.grad`` gives it: the moments decay and weight decay applies.
+    At most two f32 temporaries of a parameter's size are alive at a time
+    (the embedding of a 150 k vocabulary at d 8192 is 5 GB in f32)."""
     params, grads = list(params), list(grads)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
@@ -80,10 +86,14 @@ def update(cfg: OptConfig, grads, state: OptState, params, decay):
     b1c = 1.0 - cfg.b1 ** step
     b2c = 1.0 - cfg.b2 ** step
     for p, g, m, v, dk in zip(params, grads, state.mu, state.nu, decay):
-        g = g.float() * scale
-        m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-        v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
-        step_ = (m / b1c) / ((v / b2c).sqrt_() + cfg.eps)
+        m.mul_(cfg.b1)
+        v.mul_(cfg.b2)
+        if g is not None:
+            g = g.to(torch.float32, copy=True).mul_(scale)
+            m.add_(g, alpha=1 - cfg.b1)
+            v.addcmul_(g, g, value=1 - cfg.b2)
+            del g
+        step_ = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
         p32 = p.float()
         if dk:
             step_.add_(p32, alpha=cfg.weight_decay)

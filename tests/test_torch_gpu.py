@@ -6,8 +6,10 @@ kernel arm against the plain arm; the dense train step through
 ``scan_attention`` against an f64 oracle, remat's gradients, the
 trainer's resume), the gated MoE layer (against the same call on the
 CPU, bit for bit twice, a MoE prefill launching flash and not the MoE
-kernel), and MLA, the mamba heads and the chunked recurrence (against
-the CPU; the MLA and hybrid prefills launching flash).
+kernel), MLA, the mamba heads and the chunked recurrence (against the
+CPU; the MLA and hybrid prefills launching flash), and the flash kernel at
+the cross-attention's shapes with the xLSTM stack, the encoder-decoder and
+the vision stub's ``REDUCED`` models against the same models on the CPU.
 
 Every test here carries the ``gpu`` marker and skips, with its reason,
 where there is no CUDA device of compute capability 9.0+ (the decision is
@@ -1671,4 +1673,75 @@ def test_mla_and_hybrid_prefills_on_the_card_launch_flash(card, arch):
             assert ops.launch_counts()["flash_attention"] == cfg.n_layers
         logits.append((pre, dec))
     for a, b in zip(*logits, strict=True):
+        assert _rel_err(a, b) <= 1e-3
+
+
+# ------------------------------- xLSTM, the encoder-decoder, the stub --
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,sq,sk,d", [
+    (4, 16, 1, 1500, 64),                 # whisper's decode step
+    (4, 16, 416, 1500, 64),               # whisper's prefill
+    (2, 8, 1, 700, 128)])
+def test_flash_attention_at_the_cross_attention_shapes(card, b, h, sq, sk, d,
+                                                       dtype):
+    """Non-causal attention of Sq queries over Sk = 1500 encoder frames
+    (ragged: no kv block divides it), one query row a decode step: bf16
+    runs the wgmma kernel; row by row against the plain version."""
+    g = torch.Generator().manual_seed(sq + sk + d)
+    q = torch.randn(b, h, sq, d, generator=g).to(card, dtype)
+    k, v = (torch.randn(b, h, sk, d, generator=g).to(card, dtype)
+            for _ in range(2))
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        assert flash_attention.last_path() == "flash_attention_wgmma_kernel"
+    want = ref.attention(q, k, v, causal=False)
+    assert _row_rel_err(got, want) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "whisper-medium",
+                                  "qwen2-vl-72b"])
+def test_reduced_models_on_the_card_match_the_cpu(card, arch):
+    """The ``REDUCED`` model in f32 on the card and on the CPU with the
+    same weights, on seeded inputs (whisper's frames and qwen2-vl's
+    embeddings unit-normal, never zeros): the forward, a prefill and two
+    decode steps within 1e-3; the prefill launches the flash kernel once
+    for each attention (whisper: encoder, self and cross; xLSTM: none)."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    model = T.Transformer(cfg, seed=3)
+    cpu = T.Transformer(cfg, device="cpu")
+    cpu.params_from_jax(model.param_tree())
+    gen = torch.Generator(device=card).manual_seed(44)
+    first = {"tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                     device=card, generator=gen)}
+    if arch == "qwen2-vl-72b":
+        first = {"embeds": torch.randn(2, 24, cfg.d_model, device=card,
+                                       generator=gen)}
+    frames = {}
+    if cfg.encoder_layers:
+        frames = {"enc_embeds": torch.randn(2, cfg.encoder_seq, cfg.d_model,
+                                            device=card, generator=gen)}
+    nxt = torch.randint(0, cfg.vocab_size, (2, 2), device=card,
+                        generator=gen)
+    n_flash = {"xlstm-1.3b": 0, "whisper-medium": cfg.encoder_layers
+               + 2 * cfg.n_layers, "qwen2-vl-72b": cfg.n_layers}[arch]
+    out = {}
+    for m, device in ((model, card), (cpu, torch.device("cpu"))):
+        def on(batch):
+            return {k: v.to(device) for k, v in {**batch, **frames}.items()}
+        cache = m.init_cache(2, 26)
+        ops.reset_launch_counts()
+        with torch.inference_mode():
+            res = [m(on(first))]
+            res.append(m.decode_step(on(first), cache, 0)[0])
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+                assert ops.launch_counts()["flash_attention"] == 2 * n_flash
+                assert sum(ops.launch_counts().values()) == 2 * n_flash
+            for i in range(2):
+                res.append(m.decode_step(on({"tokens": nxt[:, i:i + 1]}),
+                                         cache, 24 + i)[0])
+        out[device.type] = [r.cpu() for r in res]
+    for a, b in zip(out["cuda"], out["cpu"], strict=True):
         assert _rel_err(a, b) <= 1e-3

@@ -19,12 +19,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_NAMES as JAX_ARCH_NAMES
 from repro.configs import get_config as jax_get_config
 from repro.launch import serve as jax_serve
 from repro.launch import steps as jax_steps
 from repro.models import layers as JL
 from repro.models import transformer as JT
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.kernels import ops
 from repro_torch.launch import serve, steps
 from repro_torch.models import layers as L
@@ -226,15 +227,18 @@ def test_serve_main_runs_on_the_cpu(capsys):
     assert sum(ops.launch_counts().values()) == 0    # plain path on the CPU
 
 
-# ------------------------------------------------------ what raises ----
-def test_other_archs_raise_not_implemented():
-    for arch in ["whisper-medium", "xlstm-1.3b", "qwen2-vl-72b"]:
-        jax_get_config(arch)                          # the reference has it
-        with pytest.raises(NotImplementedError, match=arch):
-            get_config(arch)
-    xlstm = jax_get_config("xlstm-1.3b", reduced=True)
-    with pytest.raises(NotImplementedError, match="mlstm7\\+slstm"):
-        T.Transformer(xlstm, device="cpu")
+# ------------------------------------------------------ the registry ----
+def test_every_reference_arch_resolves_and_builds():
+    """Every name of the reference's registry resolves in the port, to the
+    reference's fields at full size and at ``REDUCED``, and ``Transformer``
+    builds on the CPU for each ``REDUCED`` config."""
+    assert sorted(ARCH_NAMES) == sorted(JAX_ARCH_NAMES)
+    for arch in JAX_ARCH_NAMES:
+        for reduced in (False, True):
+            assert dataclasses.asdict(get_config(arch, reduced)) == \
+                dataclasses.asdict(jax_get_config(arch, reduced)), arch
+        model = T.Transformer(get_config(arch, reduced=True), device="cpu")
+        assert model.cfg.name == arch
 
 
 def test_serve_subgraphs_raise_not_implemented(monkeypatch):
