@@ -19,7 +19,7 @@ from __future__ import annotations
 from . import (granite_moe_3b, hymba_1_5b, llama4_scout, minicpm3_4b,
                minitron_8b, qwen2_5_3b, qwen2_vl_72b, stablelm_1_6b,
                whisper_medium, xlstm_1_3b)
-from .base import ModelConfig
+from .base import SHAPES, ModelConfig, ShapeConfig
 
 _MODULES = {
     "whisper-medium": whisper_medium,
@@ -42,4 +42,21 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     return mod.REDUCED if reduced else mod.CONFIG
 
 
-__all__ = ["ARCH_NAMES", "get_config", "ModelConfig"]
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cells():
+    """All (arch, shape) cells, without the shapes a config skips."""
+    out = []
+    for arch in ARCH_NAMES:
+        cfg = get_config(arch)
+        for shape_name in SHAPES:
+            if shape_name in cfg.skip_shapes:
+                continue
+            out.append((arch, shape_name))
+    return out
+
+
+__all__ = ["ARCH_NAMES", "SHAPES", "get_config", "get_shape", "cells",
+           "ModelConfig", "ShapeConfig"]

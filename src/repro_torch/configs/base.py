@@ -1,9 +1,10 @@
 """Model/config schema shared by all architectures.
 
-A copy of ``repro.configs.base.ModelConfig``: the same fields, defaults
-and ``param_count``, so a configuration means the same model in both
-packages.  The dry-run shapes (``SHAPES``) are not copied: the port has
-no dry-run yet.
+Copies of ``repro.configs.base``: ``ModelConfig`` with the same fields,
+defaults and ``param_count``, so a configuration means the same model in
+both packages, and the input shapes of the (arch × shape) cells
+(``ShapeConfig``, ``SHAPES``) that ``launch.partitioning.plan`` lays out
+on a mesh.
 """
 from __future__ import annotations
 
@@ -96,3 +97,19 @@ class ModelConfig:
         if self.encoder_layers:
             total += self.encoder_layers * (attn + 3 * d * f)
         return int(total)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

@@ -638,15 +638,6 @@ def _grid(shard: ShardedSchedule, mesh) -> np.ndarray:
     return mesh.grid(shard.layout)
 
 
-def _on_device(device: torch.device):
-    """Make ``device`` current for a kernel launch (the launchers take
-    the current device's stream handle and launch there); a no-op off
-    CUDA."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
-
-
 _side_streams_by_device: dict = {}
 
 
@@ -786,7 +777,7 @@ def _execute(shard: ShardedSchedule, mesh, c: torch.Tensor,
     cells = list(np.ndindex(n_s, n_r, n_z))
     d1, rows0 = {}, {}
     for s, r, z in cells:
-        with _on_device(grid[s, r, z]):
+        with mesh_lib.on_device(grid[s, r, z]):
             d1[s, r, z], rows0[s, r, z] = launch_wf0(s, r, grid[s, r, z])
     halo = (_gather_halo(shard, grid, d1, dtype)
             if run_wf1 and shard.overlap else None)
@@ -806,7 +797,7 @@ def _execute(shard: ShardedSchedule, mesh, c: torch.Tensor,
             halo = _gather_halo(shard, grid, d1, dtype)
         for s, r, z in cells:
             w1 = _wf1_tensors(shard, s * n_z + z, grid[s, r, z], dtype)
-            with _on_device(grid[s, r, z]):
+            with mesh_lib.on_device(grid[s, r, z]):
                 kops.spmm_ell(w1.cols, w1.vals, halo[s, r, z],
                               tails=w1.tails, out=partial[s, r, z][:height],
                               out_rows=w1.rows)

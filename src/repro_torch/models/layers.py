@@ -15,8 +15,14 @@ flash kernel has no backward.  Everything else is plain PyTorch (products
 outside any Pallas kernel were left to XLA by the reference): the MoE
 layer's expert products too, which the reference computes in XLA, not in
 its (ungated) MoE kernel.
-Not in this module yet: the MoE layer's mesh path and the sharding rules
-(ROADMAP Queue 1).
+
+``moe_apply`` takes the reference's mesh path under ``rules`` (the twin of
+its ``shard_map``, ``moe_mesh``): each data shard's rows dispatch locally,
+the experts are sliced on ``f`` over the model axis, and one ``psum`` sums
+the expert and shared-expert partials.  The mesh executor of
+``models.transformer`` runs its MoE layers through the same ``moe_mesh``,
+and its other layers through the pieces below (``gqa_qkv``, ``attend``)
+on each member's slices.
 """
 from __future__ import annotations
 
@@ -33,10 +39,13 @@ def init_weight(gen: torch.Generator, shape, scale=None,
                 dtype=torch.float32, device=None) -> torch.Tensor:
     """Truncated normal on [-2, 2] times ``scale`` (default
     ``1/sqrt(shape[0])``), drawn in f32 and cast: the distribution of the
-    reference's ``_init``, not its numbers (the generators differ)."""
+    reference's ``_init``, not its numbers (the generators differ).
+    ``gen=None`` draws nothing: the shape on the meta device."""
     if scale is None:
         scale = 1.0 / shape[0] ** 0.5
     w = torch.empty(shape, dtype=torch.float32, device=device)
+    if gen is None:
+        return w.to(dtype)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * scale).to(dtype)
 
@@ -147,14 +156,17 @@ def gqa_init(gen, cfg, dtype, device=None) -> dict:
 
 
 def gqa_qkv(p, cfg, x, pos):
+    """q ``(B, H, S, dh)`` and k, v ``(B, Hkv, S, dh)``, RoPE applied; the
+    head counts are the weights' columns over ``dh``, so a mesh member's
+    column slices give its heads."""
     b, s, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dh = cfg.head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, h, dh).transpose(1, 2)
-    k = k.reshape(b, s, hkv, dh).transpose(1, 2)
-    v = v.reshape(b, s, hkv, dh).transpose(1, 2)
+    q = q.reshape(b, s, -1, dh).transpose(1, 2)
+    k = k.reshape(b, s, -1, dh).transpose(1, 2)
+    v = v.reshape(b, s, -1, dh).transpose(1, 2)
     if cfg.rope != "none":
         q = apply_rope(q, pos)
         k = apply_rope(k, pos)
@@ -202,39 +214,53 @@ def gqa_attention(p, cfg, x, *, pos, cache=None, cache_len=None,
     refuses grad on the card."""
     b, s, _ = x.shape
     q, k, v = gqa_qkv(p, cfg, x, pos)
+    out, new_cache = attend(cfg, q, k, v, cache=cache, cache_len=cache_len,
+                            window=window, impl=impl, train=train)
+    out = out.transpose(1, 2).reshape(b, s, -1)
+    return out @ p["wo"], new_cache
+
+
+def attend(cfg, q, k, v, *, cache=None, cache_len=None, window: int = 0,
+           impl: str = "cuda", train: bool = False, kv_sel=None):
+    """``gqa_attention``'s attention on projected heads: returns ``(out (B,
+    H, S, dh), cache)``, writing k and v into the cache slabs as it
+    describes.  ``kv_sel`` (a list of head indices of k, v and the slabs)
+    picks the kv heads q attends, in order, where a mesh member computes
+    more kv heads than its q heads read (a replicated cache); default
+    all."""
+    s = q.shape[2]
+
+    def sel(t):
+        return t if kv_sel is None else t[:, kv_sel]
     if train:
         if cache is not None:
             raise ValueError("a training forward takes no KV cache")
-        out = scan_attention(q, k, v, causal=not cfg.is_encoder,
-                             window=window)
-        new_cache = None
-    elif cache is not None:
-        k_cache, v_cache = cache
-        c = k_cache.shape[2]
-        if s > 1:
-            out = chunked_attention(q, k, v, causal=True, window=window,
-                                    impl=impl)
-            if s >= c:
-                # ring buffer: key at absolute position p lands at slot
-                # p % c, a roll of the last c keys
-                k_cache.copy_(torch.roll(k[:, :, -c:], s % c, dims=2))
-                v_cache.copy_(torch.roll(v[:, :, -c:], s % c, dims=2))
-            else:
-                _write_slots(k_cache, k, cache_len)
-                _write_slots(v_cache, v, cache_len)
-        else:
-            slot = cache_len % c if window > 0 else cache_len
-            _write_slots(k_cache, k, slot)
-            _write_slots(v_cache, v, slot)
-            out = decode_attention(q, k_cache, v_cache,
-                                   min(cache_len + 1, c))
-        new_cache = (k_cache, v_cache)
-    else:
-        out = chunked_attention(q, k, v, causal=not cfg.is_encoder,
+        return scan_attention(q, sel(k), sel(v), causal=not cfg.is_encoder,
+                              window=window), None
+    if cache is None:
+        return chunked_attention(q, sel(k), sel(v),
+                                 causal=not cfg.is_encoder, window=window,
+                                 impl=impl), None
+    k_cache, v_cache = cache
+    c = k_cache.shape[2]
+    if s > 1:
+        out = chunked_attention(q, sel(k), sel(v), causal=True,
                                 window=window, impl=impl)
-        new_cache = None
-    out = out.transpose(1, 2).reshape(b, s, -1)
-    return out @ p["wo"], new_cache
+        if s >= c:
+            # ring buffer: key at absolute position p lands at slot
+            # p % c, a roll of the last c keys
+            k_cache.copy_(torch.roll(k[:, :, -c:], s % c, dims=2))
+            v_cache.copy_(torch.roll(v[:, :, -c:], s % c, dims=2))
+        else:
+            _write_slots(k_cache, k, cache_len)
+            _write_slots(v_cache, v, cache_len)
+    else:
+        slot = cache_len % c if window > 0 else cache_len
+        _write_slots(k_cache, k, slot)
+        _write_slots(v_cache, v, slot)
+        out = decode_attention(q, sel(k_cache), sel(v_cache),
+                               min(cache_len + 1, c))
+    return out, (k_cache, v_cache)
 
 
 # ------------------------------------------------------------------- MLA ----
@@ -417,6 +443,14 @@ class _GatherRows(torch.autograd.Function):
         return _GatherRows.apply(grad.contiguous(), idx_t, idx), None, None
 
 
+def _route(cfg, x, router):
+    """Each token's top-k gates (renormalized by ``clip(sum, 1e-9)``) and
+    experts: f32 router logits, softmax, top-k."""
+    gates = torch.softmax(x.float() @ router, dim=-1)          # (B, s, e)
+    top_g, top_e = torch.topk(gates, cfg.moe_top_k, dim=-1)
+    return top_g / top_g.sum(-1, keepdim=True).clamp_min(1e-9), top_e
+
+
 def _row_dispatch(cfg, x, router, cap):
     """Capacity dispatch of every batch row at once: ``x (B, s, d)`` →
     ``(xe (e, B·cap, d), Dispatch)``.
@@ -431,9 +465,7 @@ def _row_dispatch(cfg, x, router, cap):
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.moe_top_k
     dev = x.device
-    gates = torch.softmax(x.float() @ router, dim=-1)          # (B, s, e)
-    top_g, top_e = torch.topk(gates, k, dim=-1)
-    top_g = top_g / top_g.sum(-1, keepdim=True).clamp_min(1e-9)
+    top_g, top_e = _route(cfg, x, router)
     # a token's picks in ascending expert order: the order of the
     # reference's sorted assignments, and of its combine's updates
     experts, perm = top_e.sort(dim=-1)
@@ -484,25 +516,96 @@ def _expert_ffn(cfg, xe, w1, w3, w2):
     return torch.bmm(h, w2)
 
 
-def moe_apply(p, cfg, x, capacity_factor: float = 1.25):
+def moe_local(cfg, x, router, w1, w3, w2, shared, cap: int):
+    """The MoE layer on one device's rows ``x (B, s, d)``: capacity dispatch
+    per batch row at ``cap`` slots, the gated experts, the combine, plus
+    the shared expert (an ``ffn`` dict, or None).  On a mesh member the
+    expert and shared weights are its ``f`` slices and the result is its
+    partial (the reference's ``local_moe``)."""
+    b, s, _ = x.shape
+    xe, route = _row_dispatch(cfg, x, router, cap)
+    ye = _expert_ffn(cfg, xe, w1, w3, w2)
+    y = _row_combine(ye, route, b, s, x.dtype)
+    if shared is not None:
+        y = y + ffn_apply(shared, cfg, x)
+    return y
+
+
+def moe_mesh(cfg, mem, xs: dict, pieces: dict, cap: int, run=None) -> dict:
+    """The reference's ``local_moe`` over the members of ``mem`` (a
+    ``sharding.Members``): member ``(j, m)`` runs ``moe_local`` on its data
+    shard's rows ``xs[(j, m)]`` with its ``f`` slices ``pieces[(j, m)]``
+    (``(router, w1, w3, w2, shared)``, as ``param_shardings`` places them),
+    and one ``psum`` over the model axis sums each data shard's expert and
+    shared-expert partials together.  Returns member -> the layer's output
+    on its rows.  ``run(who, fn, x)`` computes ``fn(x)`` for member ``who``
+    (default: on its device); the mesh executor passes its own, which
+    norms ``x`` first and recomputes under ``cfg.remat`` in training."""
+    from . import sharding
+    if run is None:
+        def run(who, fn, x):
+            with sharding.on_device(mem.devices[who[0]][who[1]]):
+                return fn(x)
+    parts = {}
+    for who, x in xs.items():
+        def fn(x, _w=pieces[who]):
+            return moe_local(cfg, x, *_w, cap)
+        parts[who] = run(who, fn, x)
+    out = {}
+    for j in range(mem.n_data):
+        res = sharding.psum([parts[(j, m)] for m in range(mem.n_model)],
+                            mem.devices[j])
+        out.update({(j, m): r for m, r in enumerate(res)})
+    return out
+
+
+def moe_apply(p, cfg, x, capacity_factor: float = 1.25, rules=None):
     """Top-k MoE over ``x (B, s, d)``: capacity dispatch per batch row,
     the gated experts, the combine, plus the shared expert where ``p``
-    has one.  The reference's single-device path (its mesh path, the
-    ``shard_map`` with f-sliced experts, is not ported yet).
+    has one.
+
+    With ``rules`` whose ``mesh`` is set, the reference's mesh path: each
+    member takes its block of ``p`` under ``param_shardings`` (the router
+    whole, ``w1`` / ``w3`` and the shared ``w_gate`` / ``w_up`` on their
+    ``f`` columns, ``w2`` and the shared ``w_down`` on their ``f`` rows),
+    the rows split over the batch axes, and ``moe_mesh`` dispatches each
+    data shard's rows locally (``cap`` from the whole ``s``) and ends in
+    one ``psum``; the result is the whole ``(B, s, d)`` on the mesh's
+    first device.  Where the batch does not divide by the batch axes the
+    layer takes the local path, as the reference does.
 
     Tile-fusion reading (the reference's): the dispatch one-hot is the
     sparse A, the tokens of one expert form a fused tile, gather → two
     expert products with the intermediate local → scatter.  The routing
     is discontinuous: a near tie in a token's gates can pick another
     expert when the logits round differently."""
+    from . import sharding
     b, s, _ = x.shape
     cap = moe_capacity(cfg, s, capacity_factor)
-    xe, route = _row_dispatch(cfg, x, p["router"], cap)
-    ye = _expert_ffn(cfg, xe, p["w1"], p["w3"], p["w2"])
-    y = _row_combine(ye, route, b, s, x.dtype)
-    if "shared" in p:
-        y = y + ffn_apply(p["shared"], cfg, x)
-    return y
+    mem = None if rules is None or rules.mesh is None else \
+        sharding.Members(rules)
+    if mem is None or b % mem.n_data:
+        return moe_local(cfg, x, p["router"], p["w1"], p["w3"], p["w2"],
+                         p.get("shared"), cap)
+    if cfg.d_ff % mem.n_model:
+        raise ValueError(f"the MoE layer slices d_ff {cfg.d_ff} over a "
+                         f"model axis of {mem.n_model}")
+    specs = sharding.param_shardings({"moe": p}, rules.mesh)["moe"]
+    rows = mem.rows(b)
+    xs, pieces = {}, {}
+    for j, m in mem.all():
+        dev = mem.devices[j][m]
+
+        def block(t, spec, _c=mem.coords[j][m], _dev=dev):
+            reg = sharding.spec_region(t.shape, spec, _c, mem.sizes)
+            return sharding._to(t[tuple(slice(a, z) for a, z in reg)], _dev)
+        w = sharding.tree_map(block, p, specs)
+        pieces[(j, m)] = (w["router"], w["w1"], w["w3"], w["w2"],
+                          w.get("shared"))
+        xs[(j, m)] = sharding._to(x[rows[j]], dev)
+    out = moe_mesh(cfg, mem, xs, pieces, cap)
+    return torch.cat(sharding.gather([out[(j, 0)] for j in
+                                      range(mem.n_data)], mem.first))
 
 
 # ------------------------------------------------------------- embedding ----

@@ -23,10 +23,21 @@ another to ``comm_bytes`` (by collective), whether or not the two members
 share a device: the traffic the partition implies between shards, which
 ``cost_model.shard_comm_model`` prices.
 
-The LM's partitioning rules (``ShardingRules``, ``param_spec``) come with
-the LM's distribution (ROADMAP Queue 1 item 8).
+The LM's partitioning rules are the twins of the reference's GSPMD half:
+``P`` (a ``PartitionSpec``), ``ShardingRules`` with its activation specs,
+``param_spec`` (the same path patterns, in the same order) and
+``param_shardings`` (with the divisibility guard).  The port has no
+compiler to propagate a layout from those anchors, so
+``models.transformer`` runs an explicit executor that computes what the
+specs imply, shard by shard (``MeshExecutor``, ``MeshCache``).  The
+reference's ``shard_map`` shim has no twin: it only bridges JAX releases
+whose ``shard_map`` moved and renamed its keyword.
 """
 from __future__ import annotations
+
+import contextlib
+import dataclasses
+import re
 
 import numpy as np
 import torch
@@ -109,6 +120,16 @@ def mesh_row_repl_axes(mesh, layout: str = "1d") -> tuple:
     return names, (), ()
 
 
+def on_device(device):
+    """Make ``device`` current for what runs inside (the kernel launchers
+    take the current device's stream and launch there); a no-op off
+    CUDA."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
@@ -119,17 +140,18 @@ def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return x.to(device, non_blocking=True)
 
 
-def all_gather(parts: list, group, *, out: list | None = None) -> list:
+def all_gather(parts: list, group, *, out: list | None = None,
+               dim: int = 0) -> list:
     """Every part of a fiber on each device of it: ``parts[k]`` lives on
-    ``group[k]``, and member ``k`` gets the parts concatenated in group
-    order on ``group[k]`` (a new tensor, or ``out[k]`` of ``len(group) *
-    rows`` rows, written in place).  Counts the ``n - 1`` parts each
-    member receives from the others."""
+    ``group[k]``, and member ``k`` gets the parts concatenated along
+    ``dim`` in group order on ``group[k]`` (a new tensor, or, along rows,
+    ``out[k]`` of ``len(group) * rows`` rows, written in place).  Counts
+    the ``n - 1`` parts each member receives from the others."""
     rows = parts[0].shape[0]
     res = []
     for k, dev in enumerate(group):
         if out is None:
-            res.append(torch.cat([_to(p, dev) for p in parts]))
+            res.append(torch.cat([_to(p, dev) for p in parts], dim=dim))
             continue
         for i, p in enumerate(parts):
             out[k][i * rows:(i + 1) * rows].copy_(p, non_blocking=True)
@@ -169,3 +191,197 @@ def gather(parts: list, device) -> list:
     device = torch.device(device)
     comm_bytes["gather"] += sum(map(_nbytes, parts[1:]))
     return [_to(p, device) for p in parts]
+
+
+# --------------------------------------------------------------------------
+# The LM's partitioning rules
+# --------------------------------------------------------------------------
+class P(tuple):
+    """The twin of ``jax.sharding.PartitionSpec``: one entry a dimension,
+    each ``None`` (replicated), an axis name, or a tuple of axis names
+    (the dimension split over their product, in that order); dimensions
+    past the last entry are replicated.  A tuple of one name is that name,
+    as ``PartitionSpec`` normalizes it."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, (
+            e[0] if isinstance(e, tuple) and len(e) == 1 else e
+            for e in entries))
+
+    def __getnewargs__(self):
+        return tuple(self)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    """Logical-axis assignment.  ``batch_axes`` composes ("pod", "data")."""
+    batch_axes: tuple = ("data",)
+    model_axis: str = "model"
+    #: whether the attention heads divide the model axis (else every
+    #: member computes all heads)
+    shard_heads: bool = True
+    #: the ``Mesh`` the executor runs on; None = one device
+    mesh: object = None
+
+    @property
+    def act_btd(self) -> P:   # (batch, seq, d_model)
+        return P(self.batch_axes, None, None)
+
+    @property
+    def act_btf(self) -> P:   # (batch, seq, d_ff): the FFN's hidden
+        return P(self.batch_axes, None, self.model_axis)
+
+    @property
+    def act_bhtd(self) -> P:  # (batch, heads, seq, head_dim)
+        if self.shard_heads:
+            return P(self.batch_axes, self.model_axis, None, None)
+        return P(self.batch_axes, None, None, None)
+
+    @property
+    def logits(self) -> P:    # (batch, seq, vocab)
+        return P(self.batch_axes, None, self.model_axis)
+
+
+#: path pattern -> spec of a matrix (the leading stack axes unsharded):
+#: matmul weights split their contraction-free big axis over "model",
+#: everything else replicates.  sLSTM's ``w_rec`` is left out on purpose:
+#: it contracts inside the per-time-step scan.
+_PARAM_RULES = [
+    (r"embed", lambda nd: P(*([None] * (nd - 2) + ["model", None]))),
+    (r"(lm_head|w_out_proj)",
+     lambda nd: P(*([None] * (nd - 2) + [None, "model"]))),
+    (r"(wq|wk|wv|w_up|w_gate|w_in|w1|w3)$",
+     lambda nd: P(*([None] * (nd - 2) + [None, "model"]))),
+    (r"(wo|w_down|w2)$", lambda nd: P(*([None] * (nd - 2) + ["model", None]))),
+    (r"(router|w_dkv|w_uk|w_uv|w_dq|w_uq)$", lambda nd: P()),
+]
+
+
+def param_spec(path: str, ndim: int) -> P:
+    """The spec of the parameter at ``path`` ("layers/attn/wq") of rank
+    ``ndim`` (its rank in the stacked tree): the first pattern that
+    matches; a vector or an unmatched path replicates."""
+    for pat, fn in _PARAM_RULES:
+        if re.search(pat, path):
+            if ndim >= 2:
+                return fn(ndim)
+            return P()
+    return P()
+
+
+def axis_sizes(mesh) -> dict:
+    return dict(zip(mesh.axis_names, mesh.devices.shape))
+
+
+def _guarded(spec: P, shape, mesh) -> P:
+    """``spec``, or ``P()`` where a dimension it splits does not divide by
+    its axes' size (the reference's divisibility guard)."""
+    sizes = axis_sizes(mesh)
+    for d, ax in enumerate(spec):
+        if ax is None or d >= len(shape):
+            continue
+        names = ax if isinstance(ax, tuple) else (ax,)
+        n = int(np.prod([sizes.get(a, 1) for a in names]))
+        if shape[d] % n:
+            return P()
+    return spec
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of a nested dict / tuple / list ``tree``
+    (tensors, shapes' stand-ins), with the matching entries of ``rest``
+    (trees of the same structure whose leaves may be ``P``s)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, P):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over a nested dict of leaves; ``path`` is the
+    tuple of keys down to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def param_shardings(params, mesh) -> dict:
+    """The spec of every parameter of ``params`` (a nested dict in the
+    reference's layout, each per-layer weight stacked on its leading
+    axes; tensors of any device, ``meta`` too), keyed as ``params``:
+    ``param_spec`` of its path on its stacked rank, replicated where the
+    guard finds a dimension that does not divide."""
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        return _guarded(param_spec("/".join(path), len(shape)), shape, mesh)
+    return tree_map_with_path(one, params)
+
+
+def spec_region(shape, spec: P, coords: dict, sizes: dict) -> tuple:
+    """The block of a leaf of ``shape`` that the member at mesh ``coords``
+    (axis name -> index; ``sizes`` axis name -> size) holds under
+    ``spec``: one ``(start, stop)`` a dimension."""
+    out = []
+    for d, n in enumerate(shape):
+        ax = spec[d] if d < len(spec) else None
+        if ax is None:
+            out.append((0, n))
+            continue
+        k, idx = 1, 0
+        for a in (ax if isinstance(ax, tuple) else (ax,)):
+            idx = idx * sizes[a] + coords[a]
+            k *= sizes[a]
+        c = n // k
+        out.append((idx * c, (idx + 1) * c))
+    return tuple(out)
+
+
+class Members:
+    """The members of a mesh under ``rules``: data shard ``j`` (the batch
+    axes raveled in order) and model index ``m`` of each, its device
+    ``devices[j][m]`` and its mesh coordinates ``coords[j][m]``.  Every
+    axis must be a batch axis or the model axis."""
+
+    def __init__(self, rules):
+        mesh = rules.mesh
+        self.sizes = axis_sizes(mesh)
+        extra = set(mesh.axis_names) - set(rules.batch_axes) - \
+            {rules.model_axis}
+        missing = [a for a in rules.batch_axes if a not in self.sizes]
+        if extra or missing:
+            raise ValueError(f"mesh axes {mesh.axis_names} for batch axes "
+                             f"{rules.batch_axes} and model axis "
+                             f"{rules.model_axis!r}")
+        self.n_data = int(np.prod([self.sizes[a] for a in rules.batch_axes]))
+        self.n_model = self.sizes.get(rules.model_axis, 1)
+        self.devices = [[None] * self.n_model for _ in range(self.n_data)]
+        self.coords = [[None] * self.n_model for _ in range(self.n_data)]
+        for idx in np.ndindex(mesh.devices.shape):
+            c = dict(zip(mesh.axis_names, idx))
+            j = 0
+            for a in rules.batch_axes:
+                j = j * self.sizes[a] + c[a]
+            m = c.get(rules.model_axis, 0)
+            self.devices[j][m] = mesh.devices[idx]
+            self.coords[j][m] = c
+        self.first = mesh.devices.flat[0]
+
+    def all(self):
+        """``(j, m)`` of every member, data shard major."""
+        return [(j, m) for j in range(self.n_data)
+                for m in range(self.n_model)]
+
+    def rows(self, b: int) -> list:
+        """Each data shard's rows of a batch of ``b``: equal slices where
+        the batch divides, else every row on each (replicated)."""
+        if b % self.n_data:
+            return [slice(0, b)] * self.n_data
+        c = b // self.n_data
+        return [slice(j * c, (j + 1) * c) for j in range(self.n_data)]

@@ -48,6 +48,15 @@ activation, ``"full"`` recomputes the whole block in the backward, and
 outputs (``aten.mm`` / ``aten.addmm``, the reference's
 ``dots_with_no_batch_dims_saveable``) and recomputes the rest, the
 attention's batched products included.
+
+On a mesh the LM runs through ``MeshExecutor``: the reference's GSPMD
+layout (``param_shardings``, ``cache_shardings`` and the activation specs
+of ``ShardingRules``) computed one mesh member at a time, with explicit
+collectives (``models.sharding``).  The executor places the parameters
+once, when it is made, so ``forward`` and ``decode_step`` take ``rules``
+only on a mesh of one entry; over a larger mesh the steps of
+``launch.steps`` (given ``rules``) or an executor run them, and
+``init_cache(..., rules=)`` lays out the cache.
 """
 from __future__ import annotations
 
@@ -62,6 +71,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import layers as L
+from . import sharding
 from . import ssm as S
 
 #: the block patterns the port runs
@@ -300,6 +310,41 @@ def _as_batch(batch) -> dict:
     return {"tokens": batch} if isinstance(batch, torch.Tensor) else batch
 
 
+def init_cache(cfg, batch_size: int, max_len: int, *, device=None):
+    """Zeros in the reference's layout of ``cfg``'s cache family (its
+    ``init_cache``): ``(k, v)``, each ``(L, B, Hkv, C, dh)`` (``C`` is
+    ``max_len``, or the window for a sliding-window model); for MLA the
+    latent ``(L, B, max_len, r)``; for ``attn+mamba`` ``(k, v, state)``
+    with the mamba state ``(L, B, H, n, dh)`` in f32; for xLSTM ``{"mlstm":
+    (g, 7, B, H, dh, dh + 1), "slstm": (c, hid)}``, the sLSTM's ``(g, B,
+    inner)``, all f32, whatever ``max_len``.  ``device="meta"`` allocates
+    nothing.  A ``sparse-band`` model has no cache (``NotImplementedError``,
+    as the reference raises)."""
+    if cfg.block_pattern == "sparse-band":
+        raise NotImplementedError(
+            "sparse-band blocks have no decode cache; serve via forward()")
+    dtype = getattr(torch, cfg.dtype)
+
+    def zeros(*shape, dtype=dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if cfg.block_pattern == "mlstm7+slstm":
+        g, h, dh = cfg.n_layers // 8, cfg.n_heads, cfg.ssm_head_dim
+        f32 = torch.float32
+        return {"mlstm": zeros(g, 7, batch_size, h, dh, dh + 1, dtype=f32),
+                "slstm": tuple(zeros(g, batch_size, h * dh, dtype=f32)
+                               for _ in range(2))}
+    if cfg.mla:
+        return zeros(cfg.n_layers, batch_size, max_len, cfg.mla_kv_rank)
+    c = min(max_len, cfg.window) if cfg.window > 0 else max_len
+    shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, c, cfg.head_dim)
+    kv = (zeros(*shape), zeros(*shape))
+    if cfg.block_pattern == "attn+mamba":
+        return kv + (zeros(cfg.n_layers, batch_size, cfg.n_heads,
+                           cfg.ssm_state, cfg.ssm_head_dim,
+                           dtype=torch.float32),)
+    return kv
+
+
 class Transformer(nn.Module):
     """The LM.  ``device=None`` means ``"cuda"``, and building the model
     raises when there is no card: it never drops to the CPU on its own
@@ -321,7 +366,10 @@ class Transformer(nn.Module):
                                "run on the CPU")
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        # a meta model (shapes only, ``launch.partitioning.abstract_params``)
+        # draws nothing: a generator cannot live on the meta device
+        gen = None if device.type == "meta" else \
+            torch.Generator(device=device).manual_seed(seed)
         self.tok = _params(L.embed_init(gen, cfg, self.dtype, device))
         self.ln_f = _gain(cfg, self.dtype, device)
         if cfg.frontend != "none":
@@ -493,12 +541,17 @@ class Transformer(nn.Module):
             return {}
         return {"enc_out": self._encoder(batch["enc_embeds"], impl, train)}
 
-    def forward(self, batch, *, impl: str = "cuda", train: bool = False):
+    def forward(self, batch, *, impl: str = "cuda", train: bool = False,
+                rules=None):
         """batch (a dict of the reference's keys, or tokens ``(B, S)``) →
         logits ``(B, S, V)``; records a graph when grad mode is on, none
         under ``inference_mode``.  ``train=True`` is a training forward:
         ``scan_attention`` in every attention and each block under
-        ``cfg.remat``."""
+        ``cfg.remat``.  ``rules`` on a mesh of more than one entry raises:
+        the parameters are placed on a mesh once, by
+        ``launch.steps.make_prefill_step(model, rules=rules)`` or a
+        ``MeshExecutor``, whose ``forward`` runs there."""
+        _refuse_mesh(rules, "make_prefill_step", "forward")
         cfg = self.cfg
         batch = _as_batch(batch)
         x = self._embed_inputs(batch)
@@ -532,45 +585,27 @@ class Transformer(nn.Module):
                 "sparse-band blocks have no decode cache; serve via "
                 "forward()")
 
-    def init_cache(self, batch_size: int, max_len: int):
-        """Zeros in the reference's layout of the model's cache family:
-        ``(k, v)``, each ``(L, B, Hkv, C, dh)`` (``C`` is ``max_len``, or
-        the window for a sliding-window model); for MLA the latent ``(L, B,
-        max_len, r)``; for ``attn+mamba`` ``(k, v, state)`` with the mamba
-        state ``(L, B, H, n, dh)`` in f32; for xLSTM ``{"mlstm": (g, 7, B,
-        H, dh, dh + 1), "slstm": (c, hid)}``, the sLSTM's ``(g, B,
-        inner)``, all f32, whatever ``max_len``."""
-        cfg = self.cfg
+    def init_cache(self, batch_size: int, max_len: int, *, rules=None):
+        """Zeros in the reference's layout of the model's cache family, on
+        the model's device (``init_cache``); with ``rules`` on a mesh, a
+        ``MeshCache`` laid out by ``cache_shardings``."""
         self._check_decode()
-
-        def zeros(*shape, dtype=self.dtype):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
-        if self.xlstm:
-            g, h, dh = cfg.n_layers // 8, cfg.n_heads, cfg.ssm_head_dim
-            f32 = torch.float32
-            return {"mlstm": zeros(g, 7, batch_size, h, dh, dh + 1,
-                                   dtype=f32),
-                    "slstm": tuple(zeros(g, batch_size, h * dh, dtype=f32)
-                                   for _ in range(2))}
-        if cfg.mla:
-            return zeros(cfg.n_layers, batch_size, max_len, cfg.mla_kv_rank)
-        c = min(max_len, cfg.window) if cfg.window > 0 else max_len
-        shape = (cfg.n_layers, batch_size, cfg.n_kv_heads, c, cfg.head_dim)
-        kv = (zeros(*shape), zeros(*shape))
-        if cfg.block_pattern == "attn+mamba":
-            return kv + (zeros(cfg.n_layers, batch_size, cfg.n_heads,
-                               cfg.ssm_state, cfg.ssm_head_dim,
-                               dtype=torch.float32),)
-        return kv
+        if on_mesh(rules):
+            return MeshCache(self.cfg, batch_size, max_len, rules)
+        return init_cache(self.cfg, batch_size, max_len, device=self.device)
 
     @torch.no_grad()
     def decode_step(self, batch, cache, cache_len: int, *,
-                    impl: str = "cuda"):
+                    impl: str = "cuda", rules=None):
         """One decode step (S == 1), or a batched prefill that fills an
         empty cache (S > 1, ``cache_len == 0``); ``batch`` as
         ``forward``'s.  Writes the cache in place; returns ``(logits (B, S,
-        V), cache)``."""
+        V), cache)``.  ``rules`` on a mesh of more than one entry raises, as
+        ``forward``'s: ``launch.steps.make_serve_step(model, rules=rules)``
+        or a ``MeshExecutor``'s ``decode_step`` runs a step there, on the
+        ``MeshCache`` of ``init_cache(..., rules=rules)``."""
         self._check_decode()
+        _refuse_mesh(rules, "make_serve_step", "decode_step")
         cfg = self.cfg
         batch = _as_batch(batch)
         x = self._embed_inputs(batch)
@@ -587,3 +622,631 @@ class Transformer(nn.Module):
                            impl=impl, **cross)
         x = L.rms_norm(self.ln_f, x, cfg.norm_eps)
         return x @ self.tok["lm_head"], cache
+
+
+# ==================================================================== mesh ==
+def on_mesh(rules) -> bool:
+    """Whether ``rules`` asks for the mesh executor: a mesh of more than one
+    entry (a 1 × 1 mesh runs the one-device path)."""
+    return rules is not None and rules.mesh is not None and \
+        rules.mesh.devices.size > 1
+
+
+def _refuse_mesh(rules, step: str, method: str) -> None:
+    if on_mesh(rules):
+        raise ValueError(
+            f"the model's {method} runs on one device; over a mesh, place "
+            f"the parameters once with launch.steps.{step}(model, "
+            f"rules=rules) or MeshExecutor(model, rules).{method}")
+
+
+def _flatten(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _flatten(v)]
+    if isinstance(tree, (tuple, list)) and not isinstance(tree, sharding.P):
+        return [x for v in tree for x in _flatten(v)]
+    return [tree]
+
+
+def _unflatten(tree, leaves):
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, (tuple, list)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+    return build(tree)
+
+
+def _overlap(a, b):
+    """The intersection of two regions (one ``(start, stop)`` a dimension),
+    or None."""
+    out = tuple((max(x0, y0), min(x1, y1)) for (x0, x1), (y0, y1) in
+                zip(a, b))
+    return None if any(x0 >= x1 for x0, x1 in out) else out
+
+
+def _within(region, outer, drop=0) -> tuple:
+    """Index of ``region`` inside a tensor holding ``outer``; the first
+    ``drop`` dimensions become ints (they are one wide)."""
+    idx = tuple(slice(r0 - o0, r1 - o0) for (r0, r1), (o0, _) in
+                zip(region, outer))
+    return tuple(s.start for s in idx[:drop]) + idx[drop:]
+
+
+class MeshCache:
+    """A decode cache on a mesh: each leaf of ``init_cache``'s tree laid out
+    by ``launch.partitioning.cache_shardings``, each member holding its
+    block (``parts[k][(j, m)]``, zeros on its device; nothing aliases).
+
+    ``MeshExecutor`` reads a layer's cache through ``take`` and writes it
+    back through ``put``: a member whose block holds what it needs works on
+    a view of it in place; one that needs more (a block run whole on heads
+    split over ``model``, or rows of a cache whose batch is not its
+    dimension 1) works on a copy assembled from the blocks that hold it,
+    and ``put`` writes the result into every block that holds a part of
+    it, so replicated blocks stay equal.  Copies between members count as
+    ``all_gather`` bytes."""
+
+    def __init__(self, cfg, batch_size: int, max_len: int, rules):
+        from ..launch.partitioning import cache_shardings
+        self.mem = sharding.Members(rules)
+        self.batch_size = batch_size
+        self.tree = init_cache(cfg, batch_size, max_len, device="meta")
+        specs = _flatten(cache_shardings(cfg, self.tree, rules.mesh))
+        self.leaves = _flatten(self.tree)
+        self.regions, self.parts = [], []
+        for leaf, spec in zip(self.leaves, specs):
+            regs, parts = {}, {}
+            for j, m in self.mem.all():
+                reg = sharding.spec_region(leaf.shape, spec,
+                                           self.mem.coords[j][m],
+                                           self.mem.sizes)
+                regs[(j, m)] = reg
+                parts[(j, m)] = torch.zeros(
+                    [b - a for a, b in reg], dtype=leaf.dtype,
+                    device=self.mem.devices[j][m])
+            self.regions.append(regs)
+            self.parts.append(parts)
+
+    def take(self, k: int, needs: dict) -> dict:
+        """Leaf ``k``'s tensors for ``needs`` (member -> region, the layer
+        dimension one wide and dropped): ``(tensor, in place)`` a member."""
+        out = {}
+        for who, need in needs.items():
+            held = self.regions[k][who]
+            if _overlap(need, held) == tuple(need):
+                out[who] = (self.parts[k][who][_within(need, held, 1)], True)
+                continue
+            dev = self.mem.devices[who[0]][who[1]]
+            t = torch.zeros([b - a for a, b in need[1:]],
+                            dtype=self.leaves[k].dtype, device=dev)
+            copied = []
+            for src in [who] + [y for y in self.regions[k] if y != who]:
+                ov = _overlap(need, self.regions[k][src])
+                if ov is None or any(_overlap(ov, c) == ov for c in copied):
+                    continue
+                part = self.parts[k][src][_within(ov, self.regions[k][src],
+                                                  1)]
+                t[_within(ov, need, 1)[1:]] = part.to(dev)
+                if src != who:
+                    sharding.comm_bytes["all_gather"] += \
+                        part.numel() * part.element_size()
+                copied.append(ov)
+            out[who] = (t, False)
+        return out
+
+    def put(self, k: int, needs: dict, taken: dict) -> None:
+        """After a layer: each distinct region of ``needs`` (members that
+        need one region computed the same values) is written into every
+        block that holds a part of it, except the blocks a member wrote in
+        place."""
+        by_region = {}
+        for who, need in needs.items():
+            by_region.setdefault(tuple(need), []).append(who)
+        for need, group in by_region.items():
+            src = next((w for w in group if taken[w][1]), group[0])
+            res = taken[src][0]
+            for dst, held in self.regions[k].items():
+                if dst in group and taken[dst][1]:
+                    continue
+                ov = _overlap(need, held)
+                if ov is None:
+                    continue
+                part = res[_within(ov, need, 1)[1:]]
+                self.parts[k][dst][_within(ov, held, 1)] = part.to(
+                    self.parts[k][dst].device)
+                if dst != src:
+                    sharding.comm_bytes["all_gather"] += \
+                        part.numel() * part.element_size()
+
+    def gather(self):
+        """The whole cache on the mesh's first device, in ``init_cache``'s
+        layout (each element from a block that holds it)."""
+        leaves = []
+        for k, leaf in enumerate(self.leaves):
+            t = torch.zeros(leaf.shape, dtype=leaf.dtype,
+                            device=self.mem.first)
+            for who, reg in self.regions[k].items():
+                t[tuple(slice(a, b) for a, b in reg)] = \
+                    self.parts[k][who].to(t.device)
+            leaves.append(t)
+        return _unflatten(self.tree, leaves)
+
+
+class MeshExecutor:
+    """The LM on ``rules.mesh``, one member at a time in one process: what
+    the reference's specs imply where it leaves the layout to GSPMD.
+
+    The parameters are placed once, when the executor is made: member
+    ``(j, m)`` (data shard ``j``, model index ``m``) holds each parameter's
+    block under ``param_shardings`` (the stacked spec without its leading
+    layer axes; whole where the guard replicated it) on its device: a
+    slice of the parameter (a view on its own device), through which
+    autograd reaches the model's parameters and sums each one's gradient
+    over the members, or with ``trainable=True`` a copy of its own, a
+    leaf, as ``launch.steps``' ZeRO-1 step trains them (and writes back
+    into the model's parameters, ``write_back``).  A call splits
+    the batch over the batch axes and keeps the residual stream whole on
+    every model member (``act_btd``):
+
+    - the ``attn`` blocks (GQA with the gated FFN or the MoE layer) are
+      tensor-parallel: member ``m`` computes the q heads its column slice
+      of ``wq`` holds (``act_bhtd``) and the kv heads they read (from its
+      slices of ``wk`` / ``wv``, or from the gathered weights where the kv
+      heads do not divide the model axis; with a cache that is then
+      replicated, it computes them all), runs the attention (the flash
+      kernel in a prefill) on them and multiplies by its row slice of
+      ``wo``; one ``psum`` over ``model`` ends the attention, one the
+      FFN (``w_gate`` / ``w_up`` column-sliced, ``w_down`` row-sliced,
+      ``act_btf``) or the MoE layer (``layers.moe_mesh`` on the ``f``
+      slices).  Without ``shard_heads`` every member computes all heads;
+    - the embedding is vocabulary-row-sliced (a masked lookup and a
+      ``psum``), the LM head vocabulary-column-sliced, and the logits are
+      gathered for the caller on the mesh's first device;
+    - the other blocks (MLA, ``attn+mamba``, ``sparse-band``, xLSTM, the
+      encoder and the cross blocks) gather their sliced weights onto each
+      member (``sharding.all_gather``) and run whole on its batch shard;
+    - decode caches are ``MeshCache``s (``cache_shardings``).
+
+    Every collective counts its bytes in ``sharding.comm_bytes``."""
+
+    def __init__(self, model, rules, *, trainable: bool = False):
+        self.model, self.cfg, self.rules = model, model.cfg, rules
+        self.mem = mem = sharding.Members(rules)
+        params = list(model.parameters())
+        self.names = [n for n, _ in model.named_parameters()]
+        self.index = {n: k for k, n in enumerate(self.names)}
+        self.layout = model._layout()
+        self.meta_tree = model.to_tree(
+            torch.empty(p.shape, dtype=p.dtype, device="meta")
+            for p in params)
+        tree = sharding.param_shardings(self.meta_tree, rules.mesh)
+        self.specs, self.mdim = [], []
+        for (path, idx), p in zip(self.layout, params):
+            spec = tuple(functools.reduce(operator.getitem, path, tree))
+            spec = sharding.P(*spec[len(idx):])
+            self.specs.append(spec)
+            self.mdim.append(spec.index(rules.model_axis)
+                             if rules.model_axis in spec else None)
+        self.regions, self.pieces = {}, {}
+        for who in mem.all():
+            dev = mem.devices[who[0]][who[1]]
+            regs, row = [], []
+            for p, spec in zip(params, self.specs):
+                reg = sharding.spec_region(p.shape, spec,
+                                           mem.coords[who[0]][who[1]],
+                                           mem.sizes)
+                t = p[tuple(slice(a, b) for a, b in reg)]
+                row.append(t.detach().to(dev, copy=True).requires_grad_()
+                           if trainable else sharding._to(t, dev))
+                regs.append(reg)
+            self.regions[who], self.pieces[who] = regs, row
+        self.tp = (model.cfg.block_pattern == "attn" and not model.cfg.mla
+                   and not model.cfg.encoder_layers)
+        if self.tp:
+            self._plan_heads()
+
+    # ------------------------------------------------------- parameters --
+    def on(self, who):
+        """Member ``who``'s device made current (its kernel launches)."""
+        return sharding.on_device(self.mem.devices[who[0]][who[1]])
+
+    def w(self, who, name: str) -> torch.Tensor:
+        """Member ``who``'s block of parameter ``name``."""
+        return self.pieces[who][self.index[name]]
+
+    def full(self, j: int, name: str) -> list:
+        """Parameter ``name`` whole on each model member of data shard
+        ``j``: an ``all_gather`` over ``model`` where it is sliced."""
+        k = self.index[name]
+        parts = [self.pieces[(j, m)][k] for m in range(self.mem.n_model)]
+        if self.mdim[k] is None or len(parts) == 1:
+            return parts
+        return sharding.all_gather(parts, self.mem.devices[j],
+                                   dim=self.mdim[k])
+
+    def _slice(self, who, name, lo, hi, dim, whole=None):
+        """``[lo, hi)`` along ``dim`` of parameter ``name``, from member
+        ``who``'s block, or from ``whole`` (the gathered parameter)."""
+        k = self.index[name]
+        if whole is not None:
+            return whole.narrow(dim, lo, hi - lo)
+        return self.pieces[who][k].narrow(
+            dim, lo - self.regions[who][k][dim][0], hi - lo)
+
+    @torch.no_grad()
+    def write_back(self) -> None:
+        """The members' blocks written into the model's parameters (a
+        trained executor's update): each block copied once, from a member
+        on the parameter's device where one holds it."""
+        for k, t in enumerate(self.model.parameters()):
+            done = set()
+            whos = sorted(self.mem.all(), key=lambda w: self.mem.devices[
+                w[0]][w[1]] != t.device)
+            for who in whos:
+                reg = self.regions[who][k]
+                if reg in done:
+                    continue
+                t[tuple(slice(a, b) for a, b in reg)] = \
+                    self.pieces[who][k].detach().to(t.device)
+                done.add(reg)
+
+    def _plan_heads(self) -> None:
+        """Each model member's q heads ``[q0, q1)`` and the kv heads they
+        read, for the tensor-parallel attention."""
+        cfg, n_model = self.cfg, self.mem.n_model
+        h, hkv = cfg.n_heads, cfg.n_kv_heads
+        rep = h // hkv
+        if self.rules.shard_heads and h % n_model:
+            raise ValueError(f"shard_heads with {h} heads on a model axis "
+                             f"of {n_model}")
+        self.kv_aligned = self.rules.shard_heads and hkv % n_model == 0
+        self.gather_q = not self.rules.shard_heads and \
+            self.mdim[self.index["blocks.0.attn.wq"]] is not None
+        self.gather_kv = not self.kv_aligned and \
+            self.mdim[self.index["blocks.0.attn.wk"]] is not None
+        self.heads = []
+        for m in range(n_model):
+            q0, q1 = ((m * h // n_model, (m + 1) * h // n_model)
+                      if self.rules.shard_heads else (0, h))
+            need = [qh // rep for qh in range(q0, q1)]
+            uniq = sorted(set(need))
+            g = len(need) // len(uniq)
+            grouped = need == [u for u in uniq for _ in range(g)]
+            self.heads.append((q0, q1, uniq if grouped else need))
+
+    def _kv_cols(self, m: int, cached: bool) -> tuple:
+        """``(c0, c1, kv_sel)``: the kv heads member ``m`` computes, and
+        which of them its q heads read (None: all, in order)."""
+        hkv = self.cfg.n_kv_heads
+        q0, q1, read = self.heads[m]
+        if self.kv_aligned:
+            n = hkv // self.mem.n_model
+            return m * n, (m + 1) * n, None
+        c0, c1 = (0, hkv) if cached else (min(read), max(read) + 1)
+        sel = [r - c0 for r in read]
+        return c0, c1, (None if sel == list(range(c1 - c0)) else sel)
+
+    # ------------------------------------------------------ collectives --
+    def _psum_model(self, parts: dict) -> dict:
+        out = {}
+        for j in range(self.mem.n_data):
+            res = sharding.psum([parts[(j, m)]
+                                 for m in range(self.mem.n_model)],
+                                self.mem.devices[j])
+            out.update({(j, m): r for m, r in enumerate(res)})
+        return out
+
+    def _module_full(self, prefix: str) -> dict:
+        """Member -> the weights of module ``prefix`` gathered whole, keyed
+        by their names inside the module."""
+        names = [n for n in self.names if n.startswith(prefix + ".")]
+        out = {who: {} for who in self.mem.all()}
+        for n in names:
+            for j in range(self.mem.n_data):
+                for m, t in enumerate(self.full(j, n)):
+                    out[(j, m)][n[len(prefix) + 1:]] = t
+        return out
+
+    # ----------------------------------------------------------- blocks --
+    def _stage(self, fn, x, train: bool):
+        return remat(self.cfg.remat, fn)(x) if train else fn(x)
+
+    def _gathered(self, prefix, blk, xs, call, train, wrap=True) -> dict:
+        """Block ``blk`` run whole on each member's batch shard with its
+        gathered weights: ``call(f, x, who)``, ``f`` the block's forward on
+        those weights."""
+        full = self._module_full(prefix)
+        out = {}
+        for who, x in xs.items():
+            def f(*args, _w=full[who], **kwargs):
+                return torch.func.functional_call(blk, _w, args, kwargs)
+
+            def fn(x, _f=f, _who=who):
+                return call(_f, x, _who)
+            with self.on(who):
+                out[who] = self._stage(fn, x, train and wrap)
+        return out
+
+    def _attn_partial(self, who, i, x, pos, cache, cache_len, impl, train,
+                      whole):
+        cfg, dh = self.cfg, self.cfg.head_dim
+        pre = f"blocks.{i}.attn."
+        q0, q1, _ = self.heads[who[1]]
+        c0, c1, kv_sel = self._kv_cols(who[1], cache is not None)
+        p = {"wq": self._slice(who, pre + "wq", q0 * dh, q1 * dh, 1,
+                               whole.get("wq")),
+             "wk": self._slice(who, pre + "wk", c0 * dh, c1 * dh, 1,
+                               whole.get("wk")),
+             "wv": self._slice(who, pre + "wv", c0 * dh, c1 * dh, 1,
+                               whole.get("wv"))}
+        if cfg.attn_bias:
+            p["bq"] = self._slice(who, pre + "bq", q0 * dh, q1 * dh, 0)
+            p["bk"] = self._slice(who, pre + "bk", c0 * dh, c1 * dh, 0)
+            p["bv"] = self._slice(who, pre + "bv", c0 * dh, c1 * dh, 0)
+        k_o = self.index[pre + "wo"]
+        r0, r1 = self.regions[who][k_o][0]
+        ln1, wo = self.w(who, f"blocks.{i}.ln1"), self.pieces[who][k_o]
+
+        def fn(x):
+            b, s, _ = x.shape
+            h = L.rms_norm(ln1, x, cfg.norm_eps)
+            q, k, v = L.gqa_qkv(p, cfg, h, pos)
+            out, _ = L.attend(cfg, q, k, v, cache=cache, cache_len=cache_len,
+                              window=cfg.window, impl=impl, train=train,
+                              kv_sel=kv_sel)
+            out = out.transpose(1, 2).reshape(b, s, -1)
+            return self._partial_mm(out[..., r0 - q0 * dh:r1 - q0 * dh], wo)
+        return self._stage(fn, x, train)
+
+    def _partial_mm(self, a, w):
+        """``a @ w``, a member's partial of a row-sliced product: in f32 for
+        a 16-bit model on a model axis of more than one, so the ``psum``
+        adds f32 partials and the sum rounds once, as one product's f32
+        accumulator does."""
+        if self.mem.n_model > 1 and a.dtype in (torch.bfloat16,
+                                                torch.float16):
+            return a.float() @ w.float()
+        return a @ w
+
+    def _ffn_partial(self, who, i, x, train):
+        """Member ``who``'s gated FFN output: its partial of the row-sliced
+        ``w_down`` (a ``psum`` needed), or the whole output where the guard
+        replicated the FFN; returns ``(y, partial)``."""
+        cfg, pre = self.cfg, f"blocks.{i}."
+        ln2 = self.w(who, pre + "ln2")
+        ffn = {n: self.w(who, pre + "ffn." + n)
+               for n in ("w_gate", "w_up", "w_down")}
+        sliced = self.mdim[self.index[pre + "ffn.w_down"]] is not None
+
+        def fn(x):
+            h = L.rms_norm(ln2, x, cfg.norm_eps)
+            if not sliced:
+                return L.ffn_apply(ffn, cfg, h)
+            h = L._act(cfg)(h @ ffn["w_gate"]) * (h @ ffn["w_up"])
+            return self._partial_mm(h, ffn["w_down"])
+        return self._stage(fn, x, train), sliced
+
+    def _moe(self, i, xs, train) -> dict:
+        """Block ``i``'s MoE layer over all members: ``layers.moe_mesh`` (the
+        layer's one mesh path) on each member's ``f`` slices.  Where the
+        batch does not divide, every data shard holds all rows
+        (``Members.rows``) and the result is the same: the dispatch is per
+        row."""
+        cfg, pre = self.cfg, f"blocks.{i}."
+        if self.mem.n_model > 1 and cfg.d_ff % self.mem.n_model:
+            raise ValueError(f"the MoE layer slices d_ff {cfg.d_ff} over a "
+                             f"model axis of {self.mem.n_model}")
+        pieces = {}
+        for who in xs:
+            shared = ({n: self.w(who, pre + "moe.shared." + n)
+                       for n in ("w_gate", "w_up", "w_down")}
+                      if cfg.moe_shared_expert else None)
+            pieces[who] = tuple(self.w(who, pre + "moe." + n) for n in
+                                ("router", "w1", "w3", "w2")) + (shared,)
+        cap = L.moe_capacity(cfg, next(iter(xs.values())).shape[1])
+
+        def run(who, fn, x):
+            ln2 = self.w(who, pre + "ln2")
+            with self.on(who):
+                return self._stage(
+                    lambda x: fn(L.rms_norm(ln2, x, cfg.norm_eps)), x, train)
+        return L.moe_mesh(cfg, self.mem, xs, pieces, cap, run)
+
+    def _tp_block(self, i, xs, pos, layer, cache_len, impl, train):
+        """One tensor-parallel ``attn`` block over all members."""
+        cfg, mem = self.cfg, self.mem
+        pre = f"blocks.{i}."
+        gathered = [n for n, on in (("wq", self.gather_q),
+                                    ("wk", self.gather_kv),
+                                    ("wv", self.gather_kv)) if on]
+        whole = {who: {} for who in xs}
+        for n in gathered:
+            for j in range(mem.n_data):
+                for m, t in enumerate(self.full(j, pre + "attn." + n)):
+                    whole[(j, m)][n] = t
+        parts = {}
+        for who, x in xs.items():
+            with self.on(who):
+                parts[who] = self._attn_partial(who, i, x, pos[who],
+                                                layer and layer[who],
+                                                cache_len, impl, train,
+                                                whole[who])
+        if self.mdim[self.index[pre + "attn.wo"]] is not None:
+            parts = self._psum_model(parts)
+        xs = {who: x + parts[who].to(x.dtype) for who, x in xs.items()}
+        if cfg.n_experts:
+            parts = self._moe(i, xs, train)
+        else:
+            out = {}
+            for who, x in xs.items():
+                with self.on(who):
+                    out[who] = self._ffn_partial(who, i, x, train)
+            parts = {who: y for who, (y, _) in out.items()}
+            if next(iter(out.values()))[1]:
+                parts = self._psum_model(parts)
+        return {who: x + parts[who].to(x.dtype) for who, x in xs.items()}
+
+    # ------------------------------------------------------------ caches --
+    def _needs(self, cache, k: int, i: int) -> dict:
+        """Member -> the region of cache leaf ``k`` layer ``i`` it needs:
+        its batch shard's rows (dimension 2 of xLSTM's mLSTM states, 1
+        elsewhere); in a tensor-parallel block, the kv heads it computes."""
+        leaf = cache.leaves[k]
+        bdim = 2 if self.model.xlstm and k == 0 else 1
+        rows = self.mem.rows(cache.batch_size)
+        out = {}
+        for j, m in self.mem.all():
+            need = [(0, n) for n in leaf.shape]
+            need[0] = (i, i + 1)
+            need[bdim] = (rows[j].start, rows[j].stop)
+            if self.tp:
+                c0, c1, _ = self._kv_cols(m, True)
+                need[2] = (c0, c1)
+            out[(j, m)] = tuple(need)
+        return out
+
+    def _layer_cache(self, parts: list):
+        if self.model.xlstm:
+            return parts[0], (parts[1], parts[2])
+        return parts[0] if self.cfg.mla else tuple(parts)
+
+    # ---------------------------------------------------------- forward --
+    def _split(self, batch: dict) -> tuple:
+        lead = batch["tokens"] if "tokens" in batch else batch["embeds"]
+        b = lead.shape[0]
+        rows = self.mem.rows(b)
+        inp = {}
+        for j, m in self.mem.all():
+            dev = self.mem.devices[j][m]
+            inp[(j, m)] = {k: sharding._to(v[rows[j]], dev)
+                           for k, v in batch.items()
+                           if isinstance(v, torch.Tensor)}
+        return inp, b
+
+    def _embed(self, inp: dict) -> dict:
+        k = self.index["tok.embed"]
+        parts, sliced = {}, False
+        for who, d in inp.items():
+            if "tokens" not in d:
+                parts[who] = d["embeds"].to(self.model.dtype) @ \
+                    self.w(who, "frontend_proj")
+                continue
+            w, tok = self.pieces[who][k], d["tokens"]
+            if self.mdim[k] is None:
+                parts[who] = w[tok]
+                continue
+            local = tok - self.regions[who][k][0][0]
+            hit = (local >= 0) & (local < w.shape[0])
+            parts[who] = w[local.clamp(0, w.shape[0] - 1)].masked_fill(
+                ~hit[..., None], 0)
+            sliced = True
+        return self._psum_model(parts) if sliced else parts
+
+    def _encoder(self, inp, impl, train) -> dict:
+        cfg = self.model.enc_cfg
+        xs, pos = {}, {}
+        for who, d in inp.items():
+            xs[who] = d["enc_embeds"].to(self.model.dtype) @ \
+                self.w(who, "frontend_proj")
+            pos[who] = torch.arange(xs[who].shape[1], device=xs[who].device)
+        for i, blk in enumerate(self.model.enc_blocks):
+            xs = self._gathered(
+                f"enc_blocks.{i}", blk, xs,
+                lambda f, x, who: f(cfg, x, pos[who], impl=impl,
+                                    train=train)[0], train)
+        return {who: L.rms_norm(self.w(who, "ln_enc"), x, cfg.norm_eps)
+                for who, x in xs.items()}
+
+    def _members(self, batch, impl, train, cache=None, cache_len=0):
+        """Each member's logits (its vocabulary slice, or all where the
+        head is replicated) and the batch size."""
+        model, cfg = self.model, self.cfg
+        inp, b = self._split(_as_batch(batch))
+        xs = self._embed(inp)
+        s = next(iter(xs.values())).shape[1]
+        pos = {who: cache_len + torch.arange(s, device=x.device)
+               for who, x in xs.items()}
+        enc = self._encoder(inp, impl, train) if cfg.encoder_layers else None
+        if model.sparse_band:
+            a_band = S.decay_band_csr(s, cfg.band_window, cfg.band_decay)
+        blocks = model.groups if model.xlstm else model.blocks
+        for i, blk in enumerate(blocks):
+            layer = taken = needs = None
+            if cache is not None:
+                needs = [self._needs(cache, k, i)
+                         for k in range(len(cache.leaves))]
+                taken = [cache.take(k, n) for k, n in enumerate(needs)]
+                layer = {who: self._layer_cache([t[who][0] for t in taken])
+                         for who in xs}
+            if self.tp:
+                xs = self._tp_block(i, xs, pos, layer, cache_len, impl,
+                                    train)
+            elif model.xlstm:
+                xs = self._gathered(
+                    f"groups.{i}", blk, xs,
+                    lambda f, x, who: f(cfg, x, cache=layer and layer[who],
+                                        train=train), train, wrap=False)
+            elif model.sparse_band:
+                xs = self._gathered(
+                    f"blocks.{i}", blk, xs,
+                    lambda f, x, who: f(cfg, x, a_band, impl=impl), train)
+            else:
+                xs = self._gathered(
+                    f"blocks.{i}", blk, xs,
+                    lambda f, x, who: f(
+                        cfg, x, pos[who], cache=layer and layer[who],
+                        cache_len=cache_len, impl=impl, train=train,
+                        **({} if enc is None else {"enc_out": enc[who]}))[0],
+                    train)
+            if cache is not None:
+                for k, n in enumerate(needs):
+                    cache.put(k, n, taken[k])
+        k = self.index["tok.lm_head"]
+        logits = {who: L.rms_norm(self.w(who, "ln_f"), x, cfg.norm_eps)
+                  @ self.pieces[who][k] for who, x in xs.items()}
+        return logits, b
+
+    def logits_by_shard(self, logits: dict) -> list:
+        """Each data shard's logits, gathered over ``model`` onto its first
+        member's device."""
+        out = []
+        for j in range(self.mem.n_data):
+            parts = [logits[(j, m)] for m in range(self.mem.n_model)]
+            if self.mdim[self.index["tok.lm_head"]] is None:
+                out.append(parts[0])
+            else:
+                out.append(torch.cat(sharding.gather(
+                    parts, self.mem.devices[j][0]), dim=-1))
+        return out
+
+    def _global(self, logits: dict, b: int) -> torch.Tensor:
+        per_j = self.logits_by_shard(logits)
+        if b % self.mem.n_data:
+            return sharding._to(per_j[0], self.mem.first)
+        return torch.cat(sharding.gather(per_j, self.mem.first))
+
+    def forward(self, batch, *, impl: str = "cuda", train: bool = False):
+        """``Transformer.forward`` over the mesh: the whole logits on the
+        mesh's first device."""
+        return self._global(*self._members(batch, impl, train))
+
+    def shard_logits(self, batch, *, impl: str = "cuda",
+                     train: bool = False) -> list:
+        """Each data shard's logits (``logits_by_shard``); a training step
+        takes its loss from them."""
+        return self.logits_by_shard(self._members(batch, impl, train)[0])
+
+    @torch.no_grad()
+    def decode_step(self, batch, cache: MeshCache, cache_len: int, *,
+                    impl: str = "cuda"):
+        """``Transformer.decode_step`` over the mesh, on a ``MeshCache``."""
+        self.model._check_decode()
+        if not isinstance(cache, MeshCache):
+            raise TypeError("a decode step on a mesh takes the MeshCache of "
+                            "init_cache(..., rules=rules)")
+        logits, b = self._members(batch, impl, False, cache, cache_len)
+        return self._global(logits, b), cache

@@ -62,11 +62,49 @@ def schedule(cfg: OptConfig, step) -> float:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, owned=None) -> torch.Tensor:
     """``sqrt(Σ x²)`` over all tensors (``None`` counts as zeros), in f32
-    (a 0-d tensor)."""
-    return torch.sqrt(sum(x.float().square().sum() for x in tensors
-                          if x is not None))
+    (a 0-d tensor on the first tensor's device).  ``owned`` (one bool a
+    tensor) counts only the owned ones: on a mesh each block of a
+    parameter is held by several members, and only one of them counts
+    it, so the norm is the unsharded step's."""
+    tensors = list(tensors)
+    owned = [True] * len(tensors) if owned is None else list(owned)
+    sums = [x.float().square().sum() for x, own in zip(tensors, owned)
+            if own and x is not None]
+    if not sums:
+        return torch.zeros(())
+    dev = sums[0].device
+    return torch.sqrt(sum(t.to(dev) for t in sums))
+
+
+def adam_chunk(cfg: OptConfig, p, g, m, v, decay: bool, *, scale, lr: float,
+               b1c: float, b2c: float, in_place: bool = True):
+    """The AdamW update of one tensor (a parameter, or a mesh member's
+    chunk of one): the moments ``m``, ``v`` in place; the new value
+    written into ``p`` (``in_place``) or returned in f32.  ``g=None`` is
+    zeros."""
+    m.mul_(cfg.b1)
+    v.mul_(cfg.b2)
+    if g is not None:
+        g = g.to(torch.float32, copy=True).mul_(scale)
+        m.add_(g, alpha=1 - cfg.b1)
+        v.addcmul_(g, g, value=1 - cfg.b2)
+        del g
+    step_ = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
+    p32 = p.float()
+    if decay:
+        step_.add_(p32, alpha=cfg.weight_decay)
+    if not in_place:
+        return torch.sub(p32, step_, alpha=lr)
+    p.copy_(p32.sub_(step_, alpha=lr))
+    return p
+
+
+def step_factors(cfg: OptConfig, step: int) -> tuple:
+    """``(lr, b1c, b2c)`` of update number ``step`` (from 1)."""
+    return (schedule(cfg, step), 1.0 - cfg.b1 ** step,
+            1.0 - cfg.b2 ** step)
 
 
 @torch.no_grad()
@@ -82,22 +120,10 @@ def update(cfg: OptConfig, grads, state: OptState, params, decay):
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
-    lr = schedule(cfg, step)
-    b1c = 1.0 - cfg.b1 ** step
-    b2c = 1.0 - cfg.b2 ** step
+    lr, b1c, b2c = step_factors(cfg, step)
     for p, g, m, v, dk in zip(params, grads, state.mu, state.nu, decay):
-        m.mul_(cfg.b1)
-        v.mul_(cfg.b2)
-        if g is not None:
-            g = g.to(torch.float32, copy=True).mul_(scale)
-            m.add_(g, alpha=1 - cfg.b1)
-            v.addcmul_(g, g, value=1 - cfg.b2)
-            del g
-        step_ = (m / b1c).div_((v / b2c).sqrt_().add_(cfg.eps))
-        p32 = p.float()
-        if dk:
-            step_.add_(p32, alpha=cfg.weight_decay)
-        p.copy_(p32.sub_(step_, alpha=lr))
+        adam_chunk(cfg, p, g, m, v, dk, scale=scale, lr=lr, b1c=b1c,
+                   b2c=b2c)
     return OptState(step, state.mu, state.nu), {"grad_norm": gnorm,
                                                 "lr": lr}
 

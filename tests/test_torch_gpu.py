@@ -9,7 +9,10 @@ CPU, bit for bit twice, a MoE prefill launching flash and not the MoE
 kernel), MLA, the mamba heads and the chunked recurrence (against the
 CPU; the MLA and hybrid prefills launching flash), and the flash kernel at
 the cross-attention's shapes with the xLSTM stack, the encoder-decoder and
-the vision stub's ``REDUCED`` models against the same models on the CPU.
+the vision stub's ``REDUCED`` models against the same models on the CPU,
+and the LM over meshes of the card (prefill + decode against one device,
+the flash kernel on each member's heads; the MoE layer's mesh path; a
+ZeRO-1 train step).
 
 Every test here carries the ``gpu`` marker and skips, with its reason,
 where there is no CUDA device of compute capability 9.0+ (the decision is
@@ -1745,3 +1748,91 @@ def test_reduced_models_on_the_card_match_the_cpu(card, arch):
         out[device.type] = [r.cpu() for r in res]
     for a, b in zip(out["cuda"], out["cpu"], strict=True):
         assert _rel_err(a, b) <= 1e-3
+
+
+# --------------------------------------------------------- the LM on a mesh --
+MESH_CASES = [("qwen2.5-3b", (1, 4)), ("granite-moe-3b-a800m", (2, 2)),
+              ("stablelm-1.6b", (2, 2)), ("hymba-1.5b", (2, 2))]
+
+
+def _lm_mesh(shape):
+    from repro_torch.models.sharding import Mesh
+    return Mesh(np.full(shape, "cuda:0", dtype=object), ("data", "model"))
+
+
+@pytest.mark.parametrize("arch,shape", MESH_CASES)
+def test_mesh_prefill_and_decode_on_the_card_match_one_device(card, arch,
+                                                              shape):
+    """``REDUCED`` f32 models over a mesh of the one card: a 64-token
+    prefill (the flash kernel on each member's heads in the tensor-parallel
+    blocks) and 4 decode steps against the same calls without the mesh."""
+    from repro_torch.launch.partitioning import make_rules
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="float32")
+    lm = T.Transformer(cfg, device=card, seed=0)
+    rules = make_rules(cfg, _lm_mesh(shape))
+    gen_ = torch.Generator(device=card).manual_seed(5)
+    tok = torch.randint(0, cfg.vocab_size, (4, 68), device=card,
+                        generator=gen_)
+    outs = {}
+    for name, r in (("mesh", rules), ("one", None)):
+        cache = lm.init_cache(4, 68, rules=r)
+        decode = lm.decode_step if r is None else \
+            T.MeshExecutor(lm, r).decode_step
+        ops.reset_launch_counts()
+        logits, cache = decode(tok[:, :64], cache, 0)
+        flash = ops.launch_counts()["flash_attention"]
+        steps_ = [logits]
+        for t in range(64, 68):
+            lg, cache = decode(tok[:, t:t + 1], cache, t)
+            steps_.append(lg)
+        outs[name] = (torch.cat(steps_, 1), flash)
+    members = shape[0] * shape[1]
+    assert outs["mesh"][1] == cfg.n_layers * members
+    assert _rel_err(outs["mesh"][0], outs["one"][0]) <= TOL[torch.float32]
+
+
+def test_moe_mesh_path_on_the_card_matches_the_local_path(card):
+    from repro_torch.launch.partitioning import make_rules
+    from repro_torch.models import layers as L
+    cfg = get_config("granite-moe-3b-a800m")
+    gen_ = torch.Generator(device=card).manual_seed(3)
+    p = L.moe_init(gen_, cfg, torch.float32, card)
+    x = torch.randn(4, 256, cfg.d_model, device=card, generator=gen_)
+    rules = make_rules(cfg, _lm_mesh((2, 2)))
+    got = L.moe_apply(p, cfg, x, rules=rules)
+    want = L.moe_apply(p, cfg, x)
+    assert _rel_err(got, want) <= TOL[torch.float32]
+
+
+def test_zero1_train_step_on_the_card_matches_one_device(card):
+    """One AdamW step of ``REDUCED`` stablelm under ZeRO-1 on a (2, 2)
+    mesh of the card against one device: the loss, the grad norm, and
+    each parameter's update (its change, written back into the model),
+    as a normwise relative gap (phase 20c's bar); an update left undone
+    reads 1."""
+    from repro_torch.launch import steps
+    from repro_torch.launch.partitioning import make_rules
+    from repro_torch.optim import OptConfig, adamw
+    cfg = dataclasses.replace(get_config("stablelm-1.6b", reduced=True),
+                              dtype="float32")
+    models = [T.Transformer(cfg, device=card, seed=0) for _ in range(2)]
+    gen_ = torch.Generator(device=card).manual_seed(7)
+    tok = torch.randint(0, cfg.vocab_size, (4, 33), device=card,
+                        generator=gen_)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    opt = OptConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    one = steps.make_train_step(models[0], opt)
+    mesh = steps.make_train_step(models[1], opt,
+                                 rules=make_rules(cfg, _lm_mesh((2, 2))))
+    before = [p.detach().clone() for p in models[0].parameters()]
+    _, m0 = one(adamw.init(models[0].parameters()), batch)
+    _, m1 = mesh(adamw.init(models[1].parameters()), batch)
+    assert abs(float(m1["loss"]) / float(m0["loss"]) - 1) <= 1e-5
+    assert abs(float(m1["grad_norm"]) / float(m0["grad_norm"]) - 1) <= 1e-4
+    for a, b, p0 in zip(models[1].parameters(), models[0].parameters(),
+                        before):
+        want = (b.detach() - p0).double()
+        gap = float(((a.detach() - p0).double() - want).norm() /
+                    want.norm().clamp_min(1e-30))
+        assert gap <= 1e-2
