@@ -409,6 +409,22 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                unsharded trainer (losses and grad norms 1e-4 relative,
                each parameter's change 1e-2 as a normwise relative gap),
                peak memory and collective bytes printed.
+ 21. the dry run against the card (``phase_21``).  qwen2.5-3b at full
+               width, 4 of 36 layers, bf16, on a 1 x 1 mesh of the card: a
+               4 x 2048 prefill and one AdamW training step, each counted
+               first on a ``meta`` copy (``launch.dryrun``): the counted
+               argument bytes must equal the step's inputs on the card,
+               the counted peak over them must lie within 0.8-1.25 x the
+               rise of ``max_memory_allocated`` over the step, and the
+               step's median of 5 timed runs (CUDA events) must not beat
+               its compute term (counted FLOPs / 989 TFLOP/s); the memory
+               term, the time over it and the step's share of the bf16
+               peak (the model's FLOPs) are printed beside the card's
+               name and power limit.  Then ``python -m
+               repro_torch.launch.dryrun --arch hymba-1.5b --shape
+               long_500k --multi-pod`` (the reference test's cell: 512
+               members; its seconds, memory and roofline line) and
+               ``python -m repro_torch.roofline.report`` of its JSON.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after: phases 4-5 (the GCN path, gradients included) must
@@ -428,7 +444,8 @@ the six kernels, and phase 19's whisper serve run launches flash 72
 times a prefill and 48 times a decode step, qwen2-vl's 24 times a
 prefill, and nothing else (their training launches none); phase 20's
 mesh prefills launch flash once a layer on each member (granite 128,
-qwen2.5-3b 144), its ZeRO-1 training none.  Launches made to
+qwen2.5-3b 144), its ZeRO-1 training none; phase 21's prefill launches
+flash once a layer, its training step none.  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON record (with each kernel's tensor-core instruction count
@@ -442,6 +459,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -771,6 +789,16 @@ P20_BF16_TOL, P20_WITNESS_RATIO = 2.5e-2, 1.5
 # lr whatever its gradient's size, so elements whose gradients nearly
 # cancel carry the summation order's differences into the update
 P20_UPDATE_TOL = 1e-2
+# phase 21: the dry run against the card.  qwen2.5-3b at full width, 4 of
+# its 36 layers, bf16, on a 1 x 1 mesh of the card: a 4 x 2048 prefill and
+# one training step, each counted on a meta copy first; then the
+# reference test's production cell through the CLI (512 members)
+P21_REDUCED = False
+P21_ARCH, P21_LAYERS = "qwen2.5-3b", 4
+P21_BATCH, P21_SEQ, P21_RUNS = 4, 2048, 5
+P21_PEAK_RATIO = (0.8, 1.25)     # dry-run peak rise over the card's
+P21_CLI = ["--arch", "hymba-1.5b", "--shape", "long_500k", "--multi-pod"]
+P21_CLI_TIMEOUT_S = 400
 GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
 # phase 2: the functions of each kernel in the library's SASS (a part of the
@@ -5988,6 +6016,175 @@ def phase_20(dev) -> dict:
     return launches
 
 
+def phase_21(dev) -> dict:
+    """The dry run against the card: qwen2.5-3b at full width and
+    ``P21_LAYERS`` layers, bf16, a prefill and a training step on a 1 x 1
+    mesh of the card, each first counted on a ``meta`` copy
+    (``launch.dryrun._count``): the counted argument bytes must equal the
+    step's inputs on the card, the counted peak's rise over them must lie
+    within ``P21_PEAK_RATIO`` of the rise of ``max_memory_allocated`` over
+    the step, and no measured step may beat its compute term.  Then the
+    reference test's production cell through the CLI (its 512
+    members) and the roofline report of its JSON.  Returns the launches
+    by path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, partitioning
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.roofline import model_flops
+    t21 = time.perf_counter()
+    entry = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+             else "cpu")
+    smi = nvidia_smi()
+    cut = {"n_layers": P21_LAYERS}
+    if P21_REDUCED:
+        cut = dataclasses.asdict(dataclasses.replace(
+            partitioning.get_config(P21_ARCH, reduced=True),
+            n_layers=P21_LAYERS))
+    launches = {}
+
+    def mesh(device):
+        return sharding.Mesh(np.full((1, 1), device, dtype=object),
+                             ("data", "model"))
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    for kind in ("prefill", "train"):
+        t0 = time.perf_counter()
+        shape = ShapeConfig(f"p21_{kind}", P21_SEQ, P21_BATCH, kind)
+        dry = dryrun._count(P21_ARCH, shape, mesh("meta"), cfg_replace=cut)
+        mem = dry["members"][(0, 0)]
+        flops, counted_bytes = dry["cost"]["flops"], \
+            dry["cost"]["bytes accessed"]
+        # the same step on the card
+        pl_ = partitioning.plan(P21_ARCH, shape, mesh(entry),
+                                cfg_replace=cut)
+        cfg = pl_["cfg"]
+        lm = T.Transformer(cfg, device=dev, seed=0)
+        batch = dryrun._inputs(pl_["batch"], cfg, dev, seed=21)
+        run, held = dryrun._step(pl_, lm, pl_["rules"], batch)
+        args = nbytes(held[(0, 0)]) + nbytes(batch.values())
+        print(f"[21] {cfg.name} {P21_LAYERS} layers bf16 {kind} "
+              f"{P21_BATCH} x {P21_SEQ}: dry run (counted on meta in "
+              f"{dry['compile_s']:.1f} s) {flops:.4e} FLOPs, "
+              f"{counted_bytes:.4e} bytes accessed, arguments "
+              f"{mem['argument_bytes']} B, peak {mem['peak_bytes']} B; the "
+              f"card's arguments {args} B", flush=True)
+        if args != mem["argument_bytes"]:
+            fail(f"phase 21 {kind}: dry-run arguments "
+                 f"{mem['argument_bytes']} B, the card's {args} B")
+        out = run()                                   # warm-up
+        del out
+        for p in lm.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ops.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        counts = launches[f"{cfg.name} {kind}"] = ops.launch_counts()
+        rise = torch.cuda.max_memory_allocated() - base
+        want = {k: 0 for k in counts}
+        if kind == "prefill":
+            want["flash_attention"] = P21_LAYERS
+        if counts != want:
+            fail(f"phase 21 {kind}: launches {counts}, expected {want}")
+        del out
+        dry_rise = mem["peak_bytes"] - mem["argument_bytes"]
+        ratio = dry_rise / max(rise, 1)
+        print(f"[21] {kind}: peak over the arguments, dry run {dry_rise} B,"
+              f" card {rise} B (max_memory_allocated over the step): ratio "
+              f"{ratio:.4f} (limits {P21_PEAK_RATIO}); peak with the "
+              f"arguments, dry run {mem['peak_bytes']} B, card "
+              f"{base + rise} B", flush=True)
+        if not P21_PEAK_RATIO[0] <= ratio <= P21_PEAK_RATIO[1]:
+            fail(f"phase 21 {kind}: dry-run peak rise {dry_rise} B against "
+                 f"the card's {rise} B (ratio {ratio:.4f})")
+        times = []
+        for _ in range(P21_RUNS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = run()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            del out
+        ms = float(np.median(times))
+        compute_ms = flops / PEAK_FLOPS_BF16 * 1e3
+        memory_ms = counted_bytes / HBM_BW * 1e3
+        share = model_flops(cfg, shape) / (ms * 1e-3) / PEAK_FLOPS_BF16
+        print(f"[21] {kind}: median step {ms:.4f} ms over {P21_RUNS} runs "
+              f"(CUDA events; {', '.join(f'{t:.3f}' for t in times)}); "
+              f"compute term {compute_ms:.4f} ms (counted FLOPs at 989 "
+              f"TFLOP/s), memory term {memory_ms:.4f} ms (counted bytes at "
+              f"3.35 TB/s), time over the memory term "
+              f"{ms / memory_ms:.3f}; model FLOPs {model_flops(cfg, shape):.4e}"
+              f" = {share:.4f} of the bf16 peak; card {smi}; launches "
+              f"{launches[f'{cfg.name} {kind}']}", flush=True)
+        if ms < compute_ms:
+            fail(f"phase 21 {kind}: step {ms:.4f} ms beats its compute term "
+                 f"{compute_ms:.4f} ms: the count is wrong")
+        del lm, batch, run, held
+        gc_collect()
+        print(f"[21] {kind} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    # the reference test's production cell through the CLI
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", *P21_CLI,
+           "--out", str(out_dir)]
+    res = subprocess.run(cli, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=P21_CLI_TIMEOUT_S)
+    print(res.stdout[-3000:], flush=True)
+    if res.returncode != 0:
+        fail(f"phase 21: the dry-run CLI exited {res.returncode}: "
+             f"{res.stderr[-3000:]}")
+    tag = "_".join(P21_CLI[1:4:2])
+    with open(out_dir / f"{tag}_512.json") as f:
+        cell = json.load(f)
+    if cell["n_devices"] != 512 or cell["memory_analysis"][
+            "peak_bytes"] is None:
+        fail(f"phase 21: the CLI cell reads n_devices {cell['n_devices']}, "
+             f"peak {cell['memory_analysis']['peak_bytes']}")
+    rep = subprocess.run([sys.executable, "-m", "repro_torch.roofline.report",
+                          str(out_dir)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    print(rep.stdout, flush=True)
+    if rep.returncode != 0:
+        fail(f"phase 21: the report exited {rep.returncode}: "
+             f"{rep.stderr[-2000:]}")
+    rl = cell["roofline"]
+    print(f"[21] the CLI cell {' '.join(P21_CLI)}: "
+          f"{time.perf_counter() - t0:.1f} s in all (dry-run counts, no "
+          f"card); the fullest of 512 members holds "
+          f"{cell['memory_analysis']['argument_bytes']} B of arguments, "
+          f"peak {cell['memory_analysis']['peak_bytes']} B; roofline per "
+          f"member: compute {rl['compute_s']:.3e} s, memory "
+          f"{rl['memory_s']:.3e} s, collective {rl['collective_s']:.3e} s, "
+          f"bottleneck {rl['bottleneck']}", flush=True)
+    print(f"[21] phase 21 took {time.perf_counter() - t21:.1f} s", flush=True)
+    return launches
+
+
+def gc_collect() -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def main(device: str = "cuda") -> None:
     import gc
 
@@ -6020,6 +6217,11 @@ def main(device: str = "cuda") -> None:
     print(f"[20] device memory still allocated after phase 19: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     p20_launches = phase_20(torch.device(device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[21] device memory still allocated after phase 20: "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
+    phase_21(torch.device(device))
     records, band_records = run["records"], run["band_records"]
     path_launches, tensor_core_ops = (run["path_launches"],
                                       run["tensor_core_ops"])

@@ -11,6 +11,7 @@ run for CPU tensors, or where a caller asks for ``backend="torch"``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -43,6 +44,24 @@ def plain_arm(x: torch.Tensor, impl: str) -> bool:
     if impl not in ("cuda", "torch"):
         raise ValueError(f"impl must be 'cuda' or 'torch', got {impl!r}")
     return x.device.type == "cpu" or impl == "torch"
+
+
+#: the dry run's step counter while it counts a step
+#: (``roofline.analysis.StepCounter``), else None.  The LM kernel wrappers
+#: charge their kernel's own work to it (``kernel_work``), and the mesh
+#: collectives of ``models.sharding`` tell it which member a tensor
+#: belongs to.
+counter = None
+
+
+def kernel_work(flops: int, nbytes: int):
+    """In a dry run, charge a kernel's own work (``flops``, and ``nbytes``,
+    its compulsory bytes) to the counter, and mute the operations of a
+    plain version that computes the kernel's result inside (their
+    allocations are still tracked); a no-op context otherwise."""
+    if counter is None:
+        return contextlib.nullcontext()
+    return counter.kernel(flops, nbytes)
 
 
 def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:

@@ -13,8 +13,15 @@ reads K/V head ``h // (H // Hkv)`` in place, so grouped-query attention
 needs no repeated copy of K and V.  The kernel masks the ragged
 ``Sq``/``Sk`` edges itself, so any length runs (Whisper's 1500 frames fit
 no block), and any head dim up to 256.
+
+On ``meta`` tensors (``launch.dryrun``) the wrapper launches nothing: it
+returns ``torch.empty_like(q)`` and charges the dry run's counter with the
+kernel's own work (``work``), as it does beside a launch and beside the
+plain version that stands for the kernel on the CPU.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -37,6 +44,33 @@ def last_path() -> str:
     return PATHS[config.kernel_library("cuda").flash_attention_last_path()]
 
 
+@functools.lru_cache(maxsize=64)
+def kept_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs of one (batch, head) that the masks keep:
+    query ``i`` sees key ``j`` where ``j <= i`` (``causal``) and ``i - j <
+    window`` (``window > 0``), as ``ref.attention_mask`` has it."""
+    if not causal and window <= 0:
+        return sq * sk
+    total = 0
+    for i in range(sq):
+        hi = min(sk - 1, i) if causal else sk - 1
+        lo = max(0, i - window + 1) if window > 0 else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def work(q, k, v, *, causal: bool, window: int) -> tuple:
+    """``(flops, bytes)`` of one call: ``4 · D`` FLOPs a kept pair (the
+    score and the output product, 2 · D each) over every (batch, head), and
+    the compulsory bytes, q, k and v read once and the output written
+    once.  Pairs, not the kernel's tiles, so a tile size does not change
+    the count."""
+    b, h, sq, d = q.shape
+    flops = 4 * d * b * h * kept_pairs(sq, k.shape[2], causal, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return flops, nbytes
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     sm_scale: float | None = None,
@@ -46,9 +80,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Query head ``h`` attends with K/V head ``h // (H // Hkv)``.
 
     CPU tensors, or ``impl="torch"``, take the plain PyTorch version; CUDA
-    tensors launch the kernel or raise.  The kernel has no backward: under
-    grad mode, for an input that requires grad, the kernel arm raises
-    ``NotImplementedError`` (``config.refuse_grad``)."""
+    tensors launch the kernel or raise; ``meta`` tensors give
+    ``torch.empty_like(q)`` and launch nothing.  The kernel has no
+    backward: under grad mode, for an input that requires grad, the kernel
+    arm raises ``NotImplementedError`` (``config.refuse_grad``).  In a dry
+    run the kernel arm (``impl="cuda"``) charges ``work`` to the counter;
+    ``impl="torch"`` is counted op by op."""
     plain = config.plain_arm(q, impl)
     if (q.dim() != 4 or k.dim() != 4 or k.shape != v.shape
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]
@@ -57,10 +94,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; expected "
                          f"(B, H, Sq, D) and (B, Hkv, Sk, D) with H % Hkv "
                          f"== 0")
+    if config.counter is not None and impl == "cuda":
+        with config.kernel_work(*work(q, k, v, causal=causal,
+                                      window=window)):
+            return _run(q, k, v, plain, causal, window, sm_scale)
+    return _run(q, k, v, plain, causal, window, sm_scale)
+
+
+def _run(q, k, v, plain, causal, window, sm_scale):
     if plain:
         return ref.attention(q, k, v, causal=causal, window=window,
                              sm_scale=sm_scale)
     config.refuse_grad("flash_attention", q, k, v)
+    if q.is_meta:
+        return torch.empty_like(q)
     lib = config.kernel_library(q.device)
     device = config.check_launch({}, dict(q=q, k=k, v=v))
     b, h, sq, d = q.shape

@@ -6,15 +6,21 @@ for every model input of an (arch × shape) cell, as the reference returns
 ``ShapeDtypeStruct``s; ``abstract_params`` and ``abstract_cache`` are meta
 trees too.  A sharding here is a ``models.sharding.P`` (the mesh is the
 caller's), and every function gives the reference's spec leaf for leaf.
-``plan`` on a mesh of ``"meta"`` entries is the part of the reference's
-dry run the port has: the layout of a cell, without a device.
+``plan`` on a mesh of ``"meta"`` entries lays a cell out without a
+device, as ``launch.dryrun`` does on the production meshes.  It takes the
+reference's ``cfg_replace`` (the dry run's depth points); the reference's
+``unroll`` has no twin, since the port's layers run in a Python loop and
+are counted one by one.  Where a shape name is taken, a ``ShapeConfig``
+may stand in its place.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
-from ..configs import get_config, get_shape
+from ..configs import ShapeConfig, get_config, get_shape
 from ..models import transformer as T
 from ..models.sharding import (P, ShardingRules, axis_sizes, param_shardings,
                                tree_map)
@@ -35,10 +41,15 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(arch: str, shape_name: str) -> dict:
-    """A meta tensor for every input of the cell's step function."""
-    cfg = get_config(arch)
-    shape = get_shape(shape_name)
+def _shape(shape) -> ShapeConfig:
+    return shape if isinstance(shape, ShapeConfig) else get_shape(shape)
+
+
+def input_specs(arch: str, shape_name, *, cfg=None) -> dict:
+    """A meta tensor for every input of the cell's step function (``cfg``:
+    the arch's config with its replacements, default the registry's)."""
+    cfg = get_config(arch) if cfg is None else cfg
+    shape = _shape(shape_name)
     b, s = shape.global_batch, shape.seq_len
     f32, i32 = torch.float32, torch.int32
     tokens_in = cfg.frontend == "none" or cfg.encoder_layers
@@ -118,13 +129,17 @@ def cache_shardings(cfg, cache, mesh):
     return tree_map(spec, cache)
 
 
-def plan(arch: str, shape_name: str, mesh) -> dict:
-    """Everything a step on ``mesh`` needs for one cell: the config, the
-    shape, the rules, the batch's and the parameters' meta trees and
-    specs, and for a decode cell the cache's."""
+def plan(arch: str, shape_name, mesh, *,
+         cfg_replace: dict | None = None) -> dict:
+    """Everything a step on ``mesh`` needs for one cell: the config (with
+    ``cfg_replace``'s fields replaced), the shape, the rules, the batch's
+    and the parameters' meta trees and specs, and for a decode cell the
+    cache's."""
     cfg = get_config(arch)
-    shape = get_shape(shape_name)
-    batch = input_specs(arch, shape_name)
+    if cfg_replace:
+        cfg = dataclasses.replace(cfg, **cfg_replace)
+    shape = _shape(shape_name)
+    batch = input_specs(arch, shape, cfg=cfg)
     p_abs = abstract_params(cfg)
     out = dict(cfg=cfg, shape=shape, rules=make_rules(cfg, mesh),
                batch=batch, batch_shardings=batch_shardings(batch, mesh),

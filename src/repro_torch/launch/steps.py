@@ -113,16 +113,22 @@ def make_gcn_train_step(model, *, lr: float = 0.3, backend: str = "auto",
     return step
 
 
-def make_prefill_step(model, *, rules=None):
+def make_prefill_step(model, *, rules=None, gather: bool = True):
     """``prefill_step(batch) -> logits (B, S, V)``, ``batch`` as the model's
     ``forward`` takes it (tokens, or the reference's dict), under
     ``torch.inference_mode()``; with ``rules`` on a mesh, over it (the
-    logits on its first device)."""
+    logits on its first device).  ``gather=False`` leaves the logits where
+    the mesh computed them, as the reference's step leaves them sharded
+    (``rules.logits``): member -> its block (the dry run's prefill)."""
     ex = T.MeshExecutor(model, rules) if T.on_mesh(rules) else None
 
     @torch.inference_mode()
     def prefill_step(batch):
-        return model(batch) if ex is None else ex.forward(batch)
+        if ex is None:
+            return model(batch)
+        if not gather:
+            return ex.member_logits(batch)
+        return ex.forward(batch)
     prefill_step.executor = ex
     return prefill_step
 
@@ -184,6 +190,18 @@ class Zero1:
                 held = all(a <= i < b for i, (a, b) in zip(idx, reg))
                 per[(j, m)] = reg[len(idx):] if held else None
             self.chunks.append(per)
+        # the members holding each block of a parameter, and the distinct
+        # chunks they hold with each one's first holder (member order)
+        self.groups = []
+        for k, per in enumerate(self.chunks):
+            by_block = {}
+            for who in ex.mem.all():
+                holders, firsts = by_block.setdefault(ex.regions[who][k],
+                                                      ([], {}))
+                holders.append(who)
+                if per[who] is not None:
+                    firsts.setdefault(per[who], who)
+            self.groups.append(list(by_block.values()))
 
     def _device(self, who):
         return self.ex.mem.devices[who[0]][who[1]]
@@ -227,9 +245,12 @@ class Zero1:
             if all(g is None for g in grads):
                 res = [None] * len(whos)
             else:
-                grads = [torch.zeros_like(ex.pieces[w][k]) if g is None
-                         else g for w, g in zip(whos, grads)]
-                res = sharding.psum(grads, [self._device(w) for w in whos])
+                for i, (w, g) in enumerate(zip(whos, grads)):
+                    if g is None:
+                        with sharding.turn(w):
+                            grads[i] = torch.zeros_like(ex.pieces[w][k])
+                res = sharding.psum(grads, [self._device(w) for w in whos],
+                                    whos)
             out.update({w: (r, i == 0) for i, (w, r) in
                         enumerate(zip(whos, res))})
         return out
@@ -255,25 +276,32 @@ class Zero1:
                     continue
                 rel = T._within(reg, ex.regions[who][k])
                 g = summed[k][who][0]
-                new[who] = adamw.adam_chunk(
-                    cfg, ex.pieces[who][k][rel], None if g is None else g[rel],
-                    state.mu[k][who], state.nu[k][who], decay[k],
-                    scale=sharding._to(scale, self._device(who)), lr=lr,
-                    b1c=b1c, b2c=b2c, in_place=False)
-            for who in ex.mem.all():
-                target, held = ex.pieces[who][k], ex.regions[who][k]
-                done = []
-                for src in [who] + [w for w in ex.mem.all() if w != who]:
-                    reg = per[src]
-                    if reg is None or ex.regions[src][k] != held or any(
-                            T._overlap(reg, d) == reg for d in done):
-                        continue
-                    target[T._within(reg, held)] = new[src].to(
-                        target.device, target.dtype)
-                    if src != who:
-                        sharding.comm_bytes["all_gather"] += \
-                            new[src].numel() * target.element_size()
-                    done.append(reg)
+                with sharding.turn(who):
+                    new[who] = adamw.adam_chunk(
+                        cfg, ex.pieces[who][k][rel],
+                        None if g is None else g[rel], state.mu[k][who],
+                        state.nu[k][who], decay[k],
+                        scale=sharding._to(scale, self._device(who)), lr=lr,
+                        b1c=b1c, b2c=b2c, in_place=False)
+            # each member's block rebuilt from its data group's chunks: its
+            # own first, then each other chunk from its first holder
+            for holders, firsts in self.groups[k]:
+                for who in holders:
+                    target, held = ex.pieces[who][k], ex.regions[who][k]
+                    own = per[who]
+                    done = []
+                    for reg in ([own] if own is not None else []) + \
+                            [r for r in firsts if r != own]:
+                        if any(T._overlap(reg, d) == reg for d in done):
+                            continue
+                        src = who if reg == own else firsts[reg]
+                        with sharding.turn(who):
+                            target[T._within(reg, held)] = new[src].to(
+                                target.device, target.dtype)
+                        if src != who:
+                            sharding.count("all_gather", new[src].numel()
+                                           * target.element_size())
+                        done.append(reg)
         return (MeshOptState(step, state.mu, state.nu),
                 {"grad_norm": gnorm, "lr": lr})
 
@@ -292,9 +320,13 @@ def _mesh_train_step(model, opt_cfg, impl, rules):
         logits = ex.shard_logits(batch, impl=impl, train=True)
         rows = ex.mem.rows(batch["labels"].shape[0])
         n = ex.mem.n_data
-        parts = [cross_entropy(lg, batch["labels"][rows[j]].to(lg.device))
-                 / n for j, lg in enumerate(logits)]
-        loss = sharding.psum(parts, [lg.device for lg in logits])[0]
+        parts = []
+        for j, lg in enumerate(logits):
+            with sharding.turn((j, 0)):
+                parts.append(cross_entropy(
+                    lg, batch["labels"][rows[j]].to(lg.device)) / n)
+        loss = sharding.psum(parts, [lg.device for lg in logits],
+                             [(j, 0) for j in range(n)])[0]
         loss.backward()
         opt_state, om = zero.update(opt_cfg, opt_state, decay)
         ex.write_back()

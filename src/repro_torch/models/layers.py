@@ -544,7 +544,7 @@ def moe_mesh(cfg, mem, xs: dict, pieces: dict, cap: int, run=None) -> dict:
     from . import sharding
     if run is None:
         def run(who, fn, x):
-            with sharding.on_device(mem.devices[who[0]][who[1]]):
+            with sharding.on_member(mem.devices[who[0]][who[1]], who):
                 return fn(x)
     parts = {}
     for who, x in xs.items():
@@ -553,8 +553,8 @@ def moe_mesh(cfg, mem, xs: dict, pieces: dict, cap: int, run=None) -> dict:
         parts[who] = run(who, fn, x)
     out = {}
     for j in range(mem.n_data):
-        res = sharding.psum([parts[(j, m)] for m in range(mem.n_model)],
-                            mem.devices[j])
+        who = [(j, m) for m in range(mem.n_model)]
+        res = sharding.psum([parts[w] for w in who], mem.devices[j], who)
         out.update({(j, m): r for m, r in enumerate(res)})
     return out
 

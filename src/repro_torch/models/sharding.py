@@ -21,7 +21,18 @@ result.
 Each collective adds the bytes it hands from one member of its group to
 another to ``comm_bytes`` (by collective), whether or not the two members
 share a device: the traffic the partition implies between shards, which
-``cost_model.shard_comm_model`` prices.
+``cost_model.shard_comm_model`` prices; ``comm_counts`` counts the
+members that took part, one a member a call (``roofline.analysis``'s
+``collective_bytes`` reads both).
+
+In a dry run (``launch.dryrun``, on a mesh of ``meta`` entries, which are
+all one device) a tensor's device cannot say which member it belongs to.
+The collectives take ``who``, the member ``(j, m)`` of each entry of their
+group, and charge what each member's turn makes to it (``turn``); where
+members on one device share one result (a ``psum``'s, or parts handed to a
+consumer without a copy), each of them is charged a copy (``hold``), as
+each would hold one on a mesh of distinct cards.  Both hooks do nothing
+outside a dry run.
 
 The LM's partitioning rules are the twins of the reference's GSPMD half:
 ``P`` (a ``PartitionSpec``), ``ShardingRules`` with its activation specs,
@@ -43,15 +54,46 @@ import numpy as np
 import torch
 
 from ..core.tilefusion.scheduler import resolve_mesh_layout
+from ..kernels import config as _config
 
 #: bytes each collective moved between shards since the counts were last
 #: set to 0
 comm_bytes = {"all_gather": 0, "psum": 0, "gather": 0}
+#: the members that took part in each collective since then (a call over
+#: a group of ``n`` counts ``n``; a copy from one member to another, 2)
+comm_counts = {"all_gather": 0, "psum": 0, "gather": 0}
 
 
 def reset_comm_bytes() -> None:
     for k in comm_bytes:
         comm_bytes[k] = 0
+        comm_counts[k] = 0
+
+
+def count(kind: str, nbytes: int, members: int = 2) -> None:
+    """Add ``nbytes`` handed between ``members`` members to collective
+    ``kind`` (a copy from one member's block to another's: 2)."""
+    comm_bytes[kind] += nbytes
+    comm_counts[kind] += members
+
+
+def turn(who):
+    """In a dry run, charge the tensors made inside to member ``who``
+    (``(j, m)``); a no-op context otherwise, or for ``who=None``."""
+    if _config.counter is None or who is None:
+        return contextlib.nullcontext()
+    return _config.counter.turn(who)
+
+
+def hold(t: torch.Tensor, who) -> None:
+    """In a dry run, member ``who`` holds a copy of ``t``, a result it
+    shares with another member on one device; a no-op otherwise."""
+    if _config.counter is not None and who is not None:
+        _config.counter.hold(t, who)
+
+
+def _at(who, k):
+    return None if who is None else who[k]
 
 
 class Mesh:
@@ -130,6 +172,16 @@ def on_device(device):
     return contextlib.nullcontext()
 
 
+def on_member(device, who):
+    """``on_device(device)``, and in a dry run member ``who``'s turn."""
+    if _config.counter is None:
+        return on_device(device)
+    stack = contextlib.ExitStack()
+    stack.enter_context(on_device(device))
+    stack.enter_context(turn(who))
+    return stack
+
+
 def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
@@ -137,60 +189,78 @@ def _nbytes(x: torch.Tensor) -> int:
 def _to(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     """``x`` on ``device``: the tensor itself where it already lives
     there, else a copy ordered on the current streams."""
+    if x.device == device:
+        return x
     return x.to(device, non_blocking=True)
 
 
 def all_gather(parts: list, group, *, out: list | None = None,
-               dim: int = 0) -> list:
+               dim: int = 0, who=None) -> list:
     """Every part of a fiber on each device of it: ``parts[k]`` lives on
-    ``group[k]``, and member ``k`` gets the parts concatenated along
-    ``dim`` in group order on ``group[k]`` (a new tensor, or, along rows,
-    ``out[k]`` of ``len(group) * rows`` rows, written in place).  Counts
-    the ``n - 1`` parts each member receives from the others."""
+    ``group[k]``, and member ``k`` (``who[k]`` in a dry run) gets the
+    parts concatenated along ``dim`` in group order on ``group[k]`` (a new
+    tensor, or, along rows, ``out[k]`` of ``len(group) * rows`` rows,
+    written in place).  Counts the ``n - 1`` parts each member receives
+    from the others."""
     rows = parts[0].shape[0]
     res = []
     for k, dev in enumerate(group):
         if out is None:
-            res.append(torch.cat([_to(p, dev) for p in parts], dim=dim))
+            with turn(_at(who, k)):
+                res.append(torch.cat([_to(p, dev) for p in parts], dim=dim))
             continue
         for i, p in enumerate(parts):
             out[k][i * rows:(i + 1) * rows].copy_(p, non_blocking=True)
         res.append(out[k])
-    comm_bytes["all_gather"] += (len(parts) - 1) * sum(map(_nbytes, parts))
+    count("all_gather", (len(parts) - 1) * sum(map(_nbytes, parts)),
+          len(parts))
     return res
 
 
-def psum(parts: list, group) -> list:
+def psum(parts: list, group, who=None) -> list:
     """The sum of a group's partials on each device of the group: reduced
     in member order onto the first member's device, then handed to the
-    others (members on one device share the one result).  Counts ``2 (n -
-    1)`` partials, the bytes a ring all-reduce moves.  The inputs are never
-    written; a group of one returns its partial."""
+    others (members on one device share the one result, each charged a
+    copy of it in a dry run).  Counts ``2 (n - 1)`` partials, the bytes a
+    ring all-reduce moves.  The inputs are never written; a group of one
+    returns its partial."""
     n = len(parts)
     if n == 1:
         return [parts[0]]
     root = torch.device(group[0])
-    total = _to(parts[0], root) + _to(parts[1], root)
-    for p in parts[2:]:
-        total += _to(p, root)
+    with turn(_at(who, 0)):
+        total = _to(parts[0], root) + _to(parts[1], root)
+        for p in parts[2:]:
+            total += _to(p, root)
     copies = {str(root): total}
     res = []
-    for dev in group:
+    for k, dev in enumerate(group):
         key = str(torch.device(dev))
         if key not in copies:
-            copies[key] = _to(total, torch.device(dev))
+            with turn(_at(who, k)):
+                copies[key] = _to(total, torch.device(dev))
+        elif k:
+            hold(copies[key], _at(who, k))
         res.append(copies[key])
-    comm_bytes["psum"] += 2 * (n - 1) * _nbytes(parts[0])
+    count("psum", 2 * (n - 1) * _nbytes(parts[0]), n)
     return res
 
 
-def gather(parts: list, device) -> list:
-    """The parts on one consumer's ``device`` (the output's), the first
-    part standing for the consumer's own shard: counts every other part,
-    each block crossing to the consumer once."""
+def gather(parts: list, device, who=None) -> list:
+    """The parts on one consumer's ``device`` (the output's; member
+    ``who`` in a dry run), the first part standing for the consumer's own
+    shard: counts every other part, each block crossing to the consumer
+    once."""
     device = torch.device(device)
-    comm_bytes["gather"] += sum(map(_nbytes, parts[1:]))
-    return [_to(p, device) for p in parts]
+    count("gather", sum(map(_nbytes, parts[1:])), len(parts))
+    out = []
+    with turn(who):
+        for k, p in enumerate(parts):
+            t = _to(p, device)
+            if k and t is p:
+                hold(t, who)
+            out.append(t)
+    return out
 
 
 # --------------------------------------------------------------------------

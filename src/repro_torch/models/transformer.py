@@ -721,20 +721,22 @@ class MeshCache:
                 out[who] = (self.parts[k][who][_within(need, held, 1)], True)
                 continue
             dev = self.mem.devices[who[0]][who[1]]
-            t = torch.zeros([b - a for a, b in need[1:]],
-                            dtype=self.leaves[k].dtype, device=dev)
-            copied = []
-            for src in [who] + [y for y in self.regions[k] if y != who]:
-                ov = _overlap(need, self.regions[k][src])
-                if ov is None or any(_overlap(ov, c) == ov for c in copied):
-                    continue
-                part = self.parts[k][src][_within(ov, self.regions[k][src],
-                                                  1)]
-                t[_within(ov, need, 1)[1:]] = part.to(dev)
-                if src != who:
-                    sharding.comm_bytes["all_gather"] += \
-                        part.numel() * part.element_size()
-                copied.append(ov)
+            with sharding.turn(who):
+                t = torch.zeros([b - a for a, b in need[1:]],
+                                dtype=self.leaves[k].dtype, device=dev)
+                copied = []
+                for src in [who] + [y for y in self.regions[k] if y != who]:
+                    ov = _overlap(need, self.regions[k][src])
+                    if ov is None or any(_overlap(ov, c) == ov
+                                         for c in copied):
+                        continue
+                    part = self.parts[k][src][
+                        _within(ov, self.regions[k][src], 1)]
+                    t[_within(ov, need, 1)[1:]] = part.to(dev)
+                    if src != who:
+                        sharding.count("all_gather",
+                                       part.numel() * part.element_size())
+                    copied.append(ov)
             out[who] = (t, False)
         return out
 
@@ -756,11 +758,12 @@ class MeshCache:
                 if ov is None:
                     continue
                 part = res[_within(ov, need, 1)[1:]]
-                self.parts[k][dst][_within(ov, held, 1)] = part.to(
-                    self.parts[k][dst].device)
+                with sharding.turn(dst):
+                    self.parts[k][dst][_within(ov, held, 1)] = part.to(
+                        self.parts[k][dst].device)
                 if dst != src:
-                    sharding.comm_bytes["all_gather"] += \
-                        part.numel() * part.element_size()
+                    sharding.count("all_gather",
+                                   part.numel() * part.element_size())
 
     def gather(self):
         """The whole cache on the mesh's first device, in ``init_cache``'s
@@ -851,8 +854,9 @@ class MeshExecutor:
 
     # ------------------------------------------------------- parameters --
     def on(self, who):
-        """Member ``who``'s device made current (its kernel launches)."""
-        return sharding.on_device(self.mem.devices[who[0]][who[1]])
+        """Member ``who``'s device made current (its kernel launches), and
+        in a dry run its turn (``sharding.turn``)."""
+        return sharding.on_member(self.mem.devices[who[0]][who[1]], who)
 
     def w(self, who, name: str) -> torch.Tensor:
         """Member ``who``'s block of parameter ``name``."""
@@ -865,8 +869,9 @@ class MeshExecutor:
         parts = [self.pieces[(j, m)][k] for m in range(self.mem.n_model)]
         if self.mdim[k] is None or len(parts) == 1:
             return parts
-        return sharding.all_gather(parts, self.mem.devices[j],
-                                   dim=self.mdim[k])
+        return sharding.all_gather(
+            parts, self.mem.devices[j], dim=self.mdim[k],
+            who=[(j, m) for m in range(self.mem.n_model)])
 
     def _slice(self, who, name, lo, hi, dim, whole=None):
         """``[lo, hi)`` along ``dim`` of parameter ``name``, from member
@@ -934,9 +939,9 @@ class MeshExecutor:
     def _psum_model(self, parts: dict) -> dict:
         out = {}
         for j in range(self.mem.n_data):
-            res = sharding.psum([parts[(j, m)]
-                                 for m in range(self.mem.n_model)],
-                                self.mem.devices[j])
+            who = [(j, m) for m in range(self.mem.n_model)]
+            res = sharding.psum([parts[w] for w in who],
+                                self.mem.devices[j], who)
             out.update({(j, m): r for m, r in enumerate(res)})
         return out
 
@@ -1077,7 +1082,7 @@ class MeshExecutor:
                                                 whole[who])
         if self.mdim[self.index[pre + "attn.wo"]] is not None:
             parts = self._psum_model(parts)
-        xs = {who: x + parts[who].to(x.dtype) for who, x in xs.items()}
+        xs = self._each(xs, lambda who, x: x + parts[who].to(x.dtype))
         if cfg.n_experts:
             parts = self._moe(i, xs, train)
         else:
@@ -1088,7 +1093,7 @@ class MeshExecutor:
             parts = {who: y for who, (y, _) in out.items()}
             if next(iter(out.values()))[1]:
                 parts = self._psum_model(parts)
-        return {who: x + parts[who].to(x.dtype) for who, x in xs.items()}
+        return self._each(xs, lambda who, x: x + parts[who].to(x.dtype))
 
     # ------------------------------------------------------------ caches --
     def _needs(self, cache, k: int, i: int) -> dict:
@@ -1121,45 +1126,57 @@ class MeshExecutor:
         rows = self.mem.rows(b)
         inp = {}
         for j, m in self.mem.all():
-            dev = self.mem.devices[j][m]
-            inp[(j, m)] = {k: sharding._to(v[rows[j]], dev)
-                           for k, v in batch.items()
-                           if isinstance(v, torch.Tensor)}
+            with self.on((j, m)):
+                inp[(j, m)] = {k: sharding._to(v[rows[j]],
+                                               self.mem.devices[j][m])
+                               for k, v in batch.items()
+                               if isinstance(v, torch.Tensor)}
         return inp, b
 
     def _embed(self, inp: dict) -> dict:
         k = self.index["tok.embed"]
         parts, sliced = {}, False
         for who, d in inp.items():
-            if "tokens" not in d:
-                parts[who] = d["embeds"].to(self.model.dtype) @ \
-                    self.w(who, "frontend_proj")
-                continue
-            w, tok = self.pieces[who][k], d["tokens"]
-            if self.mdim[k] is None:
-                parts[who] = w[tok]
-                continue
-            local = tok - self.regions[who][k][0][0]
-            hit = (local >= 0) & (local < w.shape[0])
-            parts[who] = w[local.clamp(0, w.shape[0] - 1)].masked_fill(
-                ~hit[..., None], 0)
-            sliced = True
+            with self.on(who):
+                if "tokens" not in d:
+                    parts[who] = d["embeds"].to(self.model.dtype) @ \
+                        self.w(who, "frontend_proj")
+                    continue
+                w, tok = self.pieces[who][k], d["tokens"]
+                if self.mdim[k] is None:
+                    parts[who] = w[tok]
+                    continue
+                local = tok - self.regions[who][k][0][0]
+                hit = (local >= 0) & (local < w.shape[0])
+                parts[who] = w[local.clamp(0, w.shape[0] - 1)].masked_fill(
+                    ~hit[..., None], 0)
+                sliced = True
         return self._psum_model(parts) if sliced else parts
 
     def _encoder(self, inp, impl, train) -> dict:
         cfg = self.model.enc_cfg
         xs, pos = {}, {}
         for who, d in inp.items():
-            xs[who] = d["enc_embeds"].to(self.model.dtype) @ \
-                self.w(who, "frontend_proj")
-            pos[who] = torch.arange(xs[who].shape[1], device=xs[who].device)
+            with self.on(who):
+                xs[who] = d["enc_embeds"].to(self.model.dtype) @ \
+                    self.w(who, "frontend_proj")
+                pos[who] = torch.arange(xs[who].shape[1],
+                                        device=xs[who].device)
         for i, blk in enumerate(self.model.enc_blocks):
             xs = self._gathered(
                 f"enc_blocks.{i}", blk, xs,
                 lambda f, x, who: f(cfg, x, pos[who], impl=impl,
                                     train=train)[0], train)
-        return {who: L.rms_norm(self.w(who, "ln_enc"), x, cfg.norm_eps)
-                for who, x in xs.items()}
+        return self._each(xs, lambda who, x: L.rms_norm(
+            self.w(who, "ln_enc"), x, cfg.norm_eps))
+
+    def _each(self, xs: dict, fn) -> dict:
+        """``fn(who, x)`` for each member, in its turn."""
+        out = {}
+        for who, x in xs.items():
+            with self.on(who):
+                out[who] = fn(who, x)
+        return out
 
     def _members(self, batch, impl, train, cache=None, cache_len=0):
         """Each member's logits (its vocabulary slice, or all where the
@@ -1168,8 +1185,8 @@ class MeshExecutor:
         inp, b = self._split(_as_batch(batch))
         xs = self._embed(inp)
         s = next(iter(xs.values())).shape[1]
-        pos = {who: cache_len + torch.arange(s, device=x.device)
-               for who, x in xs.items()}
+        pos = self._each(xs, lambda who, x: cache_len + torch.arange(
+            s, device=x.device))
         enc = self._encoder(inp, impl, train) if cfg.encoder_layers else None
         if model.sparse_band:
             a_band = S.decay_band_csr(s, cfg.band_window, cfg.band_decay)
@@ -1206,8 +1223,8 @@ class MeshExecutor:
                 for k, n in enumerate(needs):
                     cache.put(k, n, taken[k])
         k = self.index["tok.lm_head"]
-        logits = {who: L.rms_norm(self.w(who, "ln_f"), x, cfg.norm_eps)
-                  @ self.pieces[who][k] for who, x in xs.items()}
+        logits = self._each(xs, lambda who, x: L.rms_norm(
+            self.w(who, "ln_f"), x, cfg.norm_eps) @ self.pieces[who][k])
         return logits, b
 
     def logits_by_shard(self, logits: dict) -> list:
@@ -1219,20 +1236,29 @@ class MeshExecutor:
             if self.mdim[self.index["tok.lm_head"]] is None:
                 out.append(parts[0])
             else:
-                out.append(torch.cat(sharding.gather(
-                    parts, self.mem.devices[j][0]), dim=-1))
+                with self.on((j, 0)):
+                    out.append(torch.cat(sharding.gather(
+                        parts, self.mem.devices[j][0], (j, 0)), dim=-1))
         return out
 
     def _global(self, logits: dict, b: int) -> torch.Tensor:
         per_j = self.logits_by_shard(logits)
-        if b % self.mem.n_data:
-            return sharding._to(per_j[0], self.mem.first)
-        return torch.cat(sharding.gather(per_j, self.mem.first))
+        with self.on((0, 0)):
+            if b % self.mem.n_data:
+                return sharding._to(per_j[0], self.mem.first)
+            return torch.cat(sharding.gather(per_j, self.mem.first,
+                                             (0, 0)))
 
     def forward(self, batch, *, impl: str = "cuda", train: bool = False):
         """``Transformer.forward`` over the mesh: the whole logits on the
         mesh's first device."""
         return self._global(*self._members(batch, impl, train))
+
+    def member_logits(self, batch, *, impl: str = "cuda") -> dict:
+        """Member -> its block of the logits (its vocabulary slice of its
+        batch shard, or all of the vocabulary where the head is
+        replicated), nothing gathered."""
+        return self._members(batch, impl, False)[0]
 
     def shard_logits(self, batch, *, impl: str = "cuda",
                      train: bool = False) -> list:
