@@ -422,9 +422,26 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                peak (the model's FLOPs) are printed beside the card's
                name and power limit.  Then ``python -m
                repro_torch.launch.dryrun --arch hymba-1.5b --shape
-               long_500k --multi-pod`` (the reference test's cell: 512
-               members; its seconds, memory and roofline line) and
+               long_500k`` (the reference test's cell on the single-pod
+               mesh: 256 members; its seconds, memory and roofline line)
+               and
                ``python -m repro_torch.roofline.report`` of its JSON.
+ 22. the split block patterns on meshes of the card (``phase_22``), at
+               full width and a few layers, f32: minicpm3-4b (MLA, 4
+               layers) on (1, 4), hymba-1.5b (4 layers) on (1, 5) (its 25
+               heads split) and (1, 4) (they do not), xlstm-1.3b (one
+               group) on (1, 4), whisper-medium (4 + 4 layers) on (2, 2),
+               and the sparse-band stablelm-1.6b (2 layers) on (1, 4): a 4
+               x 256 prefill and 4 decode steps (the band model a forward)
+               against the unsharded model (1e-3); the flash kernel on each
+               member's own q, k, v and the GeMM-SpMM / ``spmm_ell`` on
+               each member's band columns against their plain versions
+               (1e-4; a bf16 prefill holds flash at 2^-6 row by row); each
+               member's launches equal to the unsharded run's (the band's
+               scaled by the member's rows); each prefill's collective
+               bytes equal to ``launch.dryrun._count``'s on a ``meta``
+               mesh; then 2 ZeRO-1 steps of the band model on (2, 2)
+               against the unsharded trainer, as 20c.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after: phases 4-5 (the GCN path, gradients included) must
@@ -445,7 +462,8 @@ times a prefill and 48 times a decode step, qwen2-vl's 24 times a
 prefill, and nothing else (their training launches none); phase 20's
 mesh prefills launch flash once a layer on each member (granite 128,
 qwen2.5-3b 144), its ZeRO-1 training none; phase 21's prefill launches
-flash once a layer, its training step none.  Launches made to
+flash once a layer, its training step none; phase 22's members each
+launch what the unsharded model launches.  Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON record (with each kernel's tensor-core instruction count
@@ -792,13 +810,32 @@ P20_UPDATE_TOL = 1e-2
 # phase 21: the dry run against the card.  qwen2.5-3b at full width, 4 of
 # its 36 layers, bf16, on a 1 x 1 mesh of the card: a 4 x 2048 prefill and
 # one training step, each counted on a meta copy first; then the
-# reference test's production cell through the CLI (512 members)
+# reference test's production cell through the CLI on the single-pod mesh
+# (256 members: its multi-pod twin's 512 took 93-114 s of the run's limit)
 P21_REDUCED = False
 P21_ARCH, P21_LAYERS = "qwen2.5-3b", 4
 P21_BATCH, P21_SEQ, P21_RUNS = 4, 2048, 5
 P21_PEAK_RATIO = (0.8, 1.25)     # dry-run peak rise over the card's
-P21_CLI = ["--arch", "hymba-1.5b", "--shape", "long_500k", "--multi-pod"]
+P21_CLI = ["--arch", "hymba-1.5b", "--shape", "long_500k"]
+P21_CLI_MEMBERS = 256
 P21_CLI_TIMEOUT_S = 400
+# phase 22: the block patterns other than the plain attn decoder split over
+# meshes whose entries all name the one card, at full width and a few
+# layers: (model, config replacements, mesh).  hymba's 25 heads split on
+# (1, 5) and do not on (1, 4); xlstm-1.3b's 4 heads split on (1, 4)
+P22_REDUCED = False
+P22_CELLS = (
+    ("minicpm3-4b", {"n_layers": 4}, (1, 4)),
+    ("hymba-1.5b", {"n_layers": 4}, (1, 5)),
+    ("hymba-1.5b", {"n_layers": 4}, (1, 4)),
+    ("xlstm-1.3b", {"n_layers": 8}, (1, 4)),
+    ("whisper-medium", {"n_layers": 4, "encoder_layers": 4}, (2, 2)),
+    ("stablelm-1.6b", {"n_layers": 2, "block_pattern": "sparse-band"},
+     (1, 4)),
+)
+# a prompt short enough that the per-call rule splits every prefill
+P22_BATCH, P22_PROMPT, P22_DECODE = 4, 256, 4
+P22_TRAIN_MESH, P22_TRAIN_SHAPE, P22_TRAIN_STEPS = (2, 2), (4, 256), 2
 GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
 # phase 2: the functions of each kernel in the library's SASS (a part of the
@@ -6024,7 +6061,7 @@ def phase_21(dev) -> dict:
     step's inputs on the card, the counted peak's rise over them must lie
     within ``P21_PEAK_RATIO`` of the rise of ``max_memory_allocated`` over
     the step, and no measured step may beat its compute term.  Then the
-    reference test's production cell through the CLI (its 512
+    reference test's production cell through the CLI (``P21_CLI_MEMBERS``
     members) and the roofline report of its JSON.  Returns the launches
     by path."""
     import numpy as np
@@ -6150,9 +6187,9 @@ def phase_21(dev) -> dict:
         fail(f"phase 21: the dry-run CLI exited {res.returncode}: "
              f"{res.stderr[-3000:]}")
     tag = "_".join(P21_CLI[1:4:2])
-    with open(out_dir / f"{tag}_512.json") as f:
+    with open(out_dir / f"{tag}_{P21_CLI_MEMBERS}.json") as f:
         cell = json.load(f)
-    if cell["n_devices"] != 512 or cell["memory_analysis"][
+    if cell["n_devices"] != P21_CLI_MEMBERS or cell["memory_analysis"][
             "peak_bytes"] is None:
         fail(f"phase 21: the CLI cell reads n_devices {cell['n_devices']}, "
              f"peak {cell['memory_analysis']['peak_bytes']}")
@@ -6166,13 +6203,334 @@ def phase_21(dev) -> dict:
     rl = cell["roofline"]
     print(f"[21] the CLI cell {' '.join(P21_CLI)}: "
           f"{time.perf_counter() - t0:.1f} s in all (dry-run counts, no "
-          f"card); the fullest of 512 members holds "
+          f"card); the fullest of {P21_CLI_MEMBERS} members holds "
           f"{cell['memory_analysis']['argument_bytes']} B of arguments, "
           f"peak {cell['memory_analysis']['peak_bytes']} B; roofline per "
           f"member: compute {rl['compute_s']:.3e} s, memory "
           f"{rl['memory_s']:.3e} s, collective {rl['collective_s']:.3e} s, "
           f"bottleneck {rl['bottleneck']}", flush=True)
     print(f"[21] phase 21 took {time.perf_counter() - t21:.1f} s", flush=True)
+    return launches
+
+
+@contextlib.contextmanager
+def held_band(api):
+    """While active, each ``api.tile_fused_matmul`` call (the band mixer's
+    GeMM-SpMM and ``spmm_ell`` on the card) also runs the plain fused
+    executor (``backend="torch"``) on the same operands, and appends ``(the
+    dense weight's shape, the relative error of the call's output against
+    the plain one)`` to the yielded list: the kernels held on each member's
+    own column slice."""
+    calls = []
+    fused = api.tile_fused_matmul
+
+    def held(a, b, c, *, backend="auto", spec=None):
+        out = fused(a, b, c, backend=backend, spec=spec)
+        want = fused(a, b, c, backend="torch", spec=spec)
+        calls.append((tuple(c.shape), rel_err(out, want)[1]))
+        return out
+    api.tile_fused_matmul = held
+    try:
+        yield calls
+    finally:
+        api.tile_fused_matmul = fused
+
+
+@contextlib.contextmanager
+def band_on_meta(api):
+    """While active, ``api.tile_fused_matmul`` on ``meta`` tensors runs the
+    plain fused executor (``backend="torch"``): the GeMM-SpMM's wrapper
+    raises on ``meta``, and a dry run of the band mixer's collectives
+    needs its shapes only."""
+    fused = api.tile_fused_matmul
+
+    def meta_plain(a, b, c, *, backend="auto", spec=None):
+        if c.device.type == "meta":
+            backend = "torch"
+        return fused(a, b, c, backend=backend, spec=spec)
+    api.tile_fused_matmul = meta_plain
+    try:
+        yield
+    finally:
+        api.tile_fused_matmul = fused
+
+
+@contextlib.contextmanager
+def launches_by_member(transformer, ops):
+    """While active, the kernel launches made in each mesh member's turn
+    (``MeshExecutor.on``), member -> {kernel: launches}."""
+    per = {}
+    on = transformer.MeshExecutor.on
+
+    @contextlib.contextmanager
+    def counted(self, who):
+        with on(self, who):
+            before = ops.launch_counts()
+            try:
+                yield
+            finally:
+                now = ops.launch_counts()
+                mine = per.setdefault(who, dict.fromkeys(now, 0))
+                for k in now:
+                    mine[k] += now[k] - before[k]
+    transformer.MeshExecutor.on = counted
+    try:
+        yield per
+    finally:
+        transformer.MeshExecutor.on = on
+
+
+def phase_22(dev) -> dict:
+    """The split blocks on meshes of the one card (``P22_CELLS``): MLA,
+    the attention + mamba hybrid with its heads split and not, the xLSTM
+    group, the encoder-decoder and the sparse-band block, at full width.
+    For each: an f32 prefill and ``P22_DECODE`` greedy decode steps (the
+    sparse-band block a forward) on the mesh against the unsharded model
+    (``P20_TOL``); the flash kernel on each member's own q, k, v and the
+    GeMM-SpMM on each member's column slice against their plain versions
+    (f32 ``TOL``; a bf16 prefill holds flash at ``LM_BF16_TOL``); each
+    member's launches against the unsharded run's; the collective bytes of
+    an f32 prefill against the dry run's count of the same step on a
+    ``meta`` mesh.  Then 2 ZeRO-1 steps of the sparse-band model on (2, 2)
+    against the unsharded trainer, as phase 20c.  Returns the launches by
+    path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.tilefusion import api
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.partitioning import make_rules
+    from repro_torch.models import layers as L
+    from repro_torch.models import sharding
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import OptConfig, adamw
+    t22 = time.perf_counter()
+    smi = nvidia_smi()
+    entry = (f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda"
+             else "cpu")
+    launches = {}
+
+    def mesh(shape, device=entry):
+        return sharding.Mesh(np.full(shape, device, dtype=object),
+                             ("data", "model"))
+
+    def serve(lm, batch, rules, feed=None):
+        """The prefill and ``P22_DECODE`` greedy steps (fed ``feed``'s
+        tokens where given) on the mesh of ``rules`` (None: unsharded):
+        the logits of the last prompt position and of each step, the fed
+        tokens, the host times (ms, each ending in a synchronize)."""
+        b, p = batch["tokens"].shape
+        cache = lm.init_cache(b, p + P22_DECODE, rules=rules)
+        run = lm.decode_step if rules is None else \
+            T.MeshExecutor(lm, rules).decode_step
+        outs, fed, times = [], [], []
+        extra = {k: v for k, v in batch.items() if k != "tokens"}
+        with torch.inference_mode():
+            tok, at = batch["tokens"], 0
+            for i in range(P22_DECODE + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                logits, cache = run({"tokens": tok, **extra}, cache, at)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                outs.append(logits[:, -1:])
+                at += tok.shape[1]
+                if i < P22_DECODE:
+                    tok = (logits[:, -1].argmax(-1, keepdim=True)
+                           if feed is None else feed[:, i:i + 1])
+                    fed.append(tok)
+        return outs, torch.cat(fed, 1) if fed else None, times
+
+    def forward(lm, batch, rules):
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = lm(batch) if rules is None else \
+                T.MeshExecutor(lm, rules).forward(batch)
+            torch.cuda.synchronize()
+        return [out], None, [(time.perf_counter() - t0) * 1e3]
+
+    for arch, cut, shape in P22_CELLS:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch, reduced=P22_REDUCED),
+                                  **cut, dtype="float32")
+        tag = f"{cfg.name}{' (band)' if 'block_pattern' in cut else ''} " \
+            f"{shape}"
+        lm = T.Transformer(cfg, device=dev, seed=0)
+        rules = make_rules(cfg, mesh(shape))
+        ex = T.MeshExecutor(lm, rules)
+        rows = P22_BATCH // shape[0]
+        prefix = "groups.0" if lm.xlstm else "blocks.0"
+        forms = {"prefill": ex.split_form(prefix, rows, P22_PROMPT),
+                 "decode step": ex.split_form(prefix, rows, 1)}
+        if cfg.encoder_layers:
+            forms["encoder"] = ex.split_form("enc_blocks.0", rows,
+                                             cfg.encoder_seq)
+        del ex
+        gen = torch.Generator(device=dev).manual_seed(22)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (
+            P22_BATCH, P22_PROMPT), device=dev, generator=gen)}
+        if cfg.encoder_layers:
+            batch["enc_embeds"] = torch.randn(
+                P22_BATCH, cfg.encoder_seq, cfg.d_model, device=dev,
+                generator=gen)
+        print(f"[22] {tag}: {cfg.n_layers} layers f32, rules shard_heads "
+              f"{rules.shard_heads}; split form (True) or gathered by the "
+              f"rule for {P22_BATCH} x {P22_PROMPT}: {forms}", flush=True)
+        if not (forms["prefill"] and forms["decode step"]):
+            fail(f"phase 22 {tag}: the rule keeps the gathered form {forms}")
+        run = forward if lm.sparse_band else serve
+        ops.reset_launch_counts()
+        want, fed, one_ms = run(lm, batch, None)
+        one = ops.launch_counts()
+        ops.reset_launch_counts()
+        sharding.reset_comm_bytes()
+        with held_attention(L) as attn, held_band(api) as band, \
+                launches_by_member(T, ops) as per:
+            got, _, mesh_ms = (run(lm, batch, rules) if lm.sparse_band
+                               else serve(lm, batch, rules, feed=fed))
+        counts = ops.launch_counts()
+        launches[f"{tag} f32"] = counts
+        errs = [rel_err(g, w)[1] for g, w in zip(got, want)]
+        held = [e for _, _, e in attn] + [e for _, e in band]
+        worst = max(held, default=0.0)
+        # each member launches what the unsharded run launches: one flash
+        # call per attention call whatever its rows, the band's kernels
+        # once per batch row it holds
+        expect = {k: (n * rows // P22_BATCH if k in GCN_KERNELS else n)
+                  for k, n in one.items()}
+        bad = {who: c for who, c in per.items() if c != expect}
+        print(f"[22] {tag}: logits (last prompt position"
+              f"{', then each decode step' if fed is not None else ''}) "
+              f"against the unsharded model, rel err "
+              f"{', '.join(f'{e:.1e}' for e in errs)} (limit "
+              f"{P20_TOL:.0e}); flash on each member's q, k, v "
+              f"{sorted({s for s, _, _ in attn})} in {len(attn)} calls and "
+              f"the GeMM-SpMM on each member's column slice "
+              f"{sorted({s for s, _ in band})} in {len(band)} calls against "
+              f"their plain versions: rel err up to {worst:.2e} (limit "
+              f"{TOL['float32']:.0e}); launches by member {per} (the "
+              f"unsharded run's {one}); collective bytes "
+              f"{dict(sharding.comm_bytes)}; mesh "
+              f"{', '.join(f'{t:.1f}' for t in mesh_ms)} ms, unsharded "
+              f"{', '.join(f'{t:.1f}' for t in one_ms)} ms (host clock + "
+              f"synchronize, prefill then each step; the mesh run with its "
+              f"held calls); card {smi}", flush=True)
+        if max(errs) > P20_TOL or worst > TOL["float32"] or bad or \
+                len(per) != len(sharding.Members(rules).all()) or \
+                not any(expect.values()) and not lm.xlstm:
+            fail(f"phase 22 {tag}: logits {max(errs):.3e}, held kernels "
+                 f"{worst:.3e}, launches by member {per} for {expect}")
+        # the collective bytes of one f32 prefill: the card's against the
+        # dry run's count of the same step on a meta mesh
+        step = steps.make_prefill_step(lm, rules=rules, gather=False)
+        sharding.reset_comm_bytes()
+        step(batch)
+        torch.cuda.synchronize()
+        card = dict(sharding.comm_bytes)
+        del step
+        with band_on_meta(api):
+            dryrun._count(arch, ShapeConfig("p22", P22_PROMPT, P22_BATCH,
+                                            "prefill"), mesh(shape, "meta"),
+                          cfg_replace=dataclasses.asdict(cfg))
+        meta = dict(sharding.comm_bytes)
+        print(f"[22] {tag}: collective bytes of an f32 prefill, card {card},"
+              f" dry run on a meta mesh {meta}", flush=True)
+        if card != meta:
+            fail(f"phase 22 {tag}: collective bytes {card} on the card, "
+                 f"{meta} counted")
+        del lm, got, want, attn, band
+        gc_collect()
+        if one["flash_attention"]:
+            # bf16: a prefill on the mesh, flash held row by row
+            cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+            lm = T.Transformer(cfg16, device=dev, seed=0)
+            rules = make_rules(cfg16, mesh(shape))
+            b16 = {"tokens": batch["tokens"][:, :P22_PROMPT],
+                   **{k: v for k, v in batch.items() if k != "tokens"}}
+            ops.reset_launch_counts()
+            with held_attention(L) as attn, torch.inference_mode():
+                cache = lm.init_cache(P22_BATCH, P22_PROMPT, rules=rules)
+                T.MeshExecutor(lm, rules).decode_step(b16, cache, 0)
+                torch.cuda.synchronize()
+            counts = launches[f"{tag} bf16 prefill"] = ops.launch_counts()
+            worst = max(e for _, _, e in attn)
+            print(f"[22] {tag}: bf16 prefill on the mesh, flash on each "
+                  f"member's q, k, v in {len(attn)} calls: row rel err up "
+                  f"to {worst:.2e} (limit {LM_BF16_TOL:.2e}); launches "
+                  f"{counts}", flush=True)
+            if worst > LM_BF16_TOL or counts["flash_attention"] != len(attn):
+                fail(f"phase 22 {tag} bf16: flash {worst:.3e}, {counts}")
+            del lm, cache, attn
+            gc_collect()
+        print(f"[22] {tag} took {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    # the sparse-band model trained under ZeRO-1, as phase 20c
+    t0 = time.perf_counter()
+    arch, cut, _ = P22_CELLS[-1]
+    cfg = dataclasses.replace(get_config(arch, reduced=P22_REDUCED), **cut,
+                              dtype="float32")
+    b, s = P22_TRAIN_SHAPE
+    tok = torch.randint(0, cfg.vocab_size, (b, s + 1), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(23))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    opt = OptConfig(**P20_TRAIN_OPT)
+    runs, before = {}, None
+    for name in ("unsharded", f"{P22_TRAIN_MESH} mesh"):
+        lm = T.Transformer(cfg, device=dev, seed=0)
+        if before is None:
+            before = [p.detach().clone() for p in lm.parameters()]
+            names = [n for n, _ in lm.named_parameters()]
+        rules = None if name == "unsharded" else \
+            make_rules(cfg, mesh(P22_TRAIN_MESH))
+        ops.reset_launch_counts()
+        step = steps.make_train_step(lm, opt, rules=rules)
+        state = adamw.init(lm.parameters())
+        losses, norms, ms = [], [], []
+        for _ in range(P22_TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        counts = launches[f"{cfg.name} (band) train, {name}"] = \
+            ops.launch_counts()
+        runs[name] = dict(losses=losses, norms=norms,
+                          params=[p.detach() for p in lm.parameters()])
+        print(f"[22] {cfg.name} (band) f32 {cfg.n_layers} layers, {b} x "
+              f"{s}, {name}: losses {losses}, grad norms {norms}, step ms "
+              f"{', '.join(f'{t:.1f}' for t in ms)} (host clock + "
+              f"synchronize), launches {counts}; card {smi}", flush=True)
+        del step, state, lm
+    one, two = runs.values()
+    loss_err = max(abs(x / y - 1) for x, y in zip(
+        one["losses"] + one["norms"], two["losses"] + two["norms"]))
+    gaps = sorted(((float(((a - p0).double() - (w - p0).double()).norm() /
+                          (w - p0).double().norm().clamp_min(1e-30)), n)
+                   for n, a, w, p0 in zip(names, two["params"],
+                                          one["params"], before)),
+                  reverse=True)
+    print(f"[22] ZeRO-1 of the split band blocks on {P22_TRAIN_MESH} against "
+          f"the unsharded trainer: losses and grad norms within "
+          f"{loss_err:.2e} relative (limit {P20_LOSS_TOL:.0e}); each "
+          f"parameter's change within a normwise gap of {gaps[0][0]:.2e} "
+          f"(limit {P20_UPDATE_TOL:.0e}; the largest: "
+          f"{', '.join(f'{n} {g:.2e}' for g, n in gaps[:3])})", flush=True)
+    mesh_counts = launches[f"{cfg.name} (band) train, {P22_TRAIN_MESH} mesh"]
+    if loss_err > P20_LOSS_TOL or gaps[0][0] > P20_UPDATE_TOL or \
+            not mesh_counts["tile_fused_gemm_spmm_wf0"]:
+        fail(f"phase 22 train: loss err {loss_err:.3e}, gap {gaps[0]}, "
+             f"launches {mesh_counts}")
+    del runs, one, two, batch, tok, before
+    gc_collect()
+    print(f"[22] training took {time.perf_counter() - t0:.1f} s; phase 22 "
+          f"took {time.perf_counter() - t22:.1f} s; launches by path "
+          f"{launches}", flush=True)
     return launches
 
 
@@ -6222,6 +6580,9 @@ def main(device: str = "cuda") -> None:
     print(f"[21] device memory still allocated after phase 20: "
           f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB", flush=True)
     phase_21(torch.device(device))
+    gc.collect()
+    torch.cuda.empty_cache()
+    p22_launches = phase_22(torch.device(device))
     records, band_records = run["records"], run["band_records"]
     path_launches, tensor_core_ops = (run["path_launches"],
                                       run["tensor_core_ops"])
@@ -6282,6 +6643,9 @@ def main(device: str = "cuda") -> None:
         # phase 20: the paths over meshes of the card
         extra["mesh_launches"] = {path: c[name] for path, c in
                                   p20_launches.items()}
+        # phase 22: the split blocks over meshes of the card
+        extra["split_block_launches"] = {path: c[name] for path, c in
+                                         p22_launches.items()}
         if name == "flash_attention":
             # phase 7 at the MoE prefills' and minicpm3-4b's shapes (bf16)
             fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -280,11 +280,12 @@ def mla_init(gen, cfg, dtype, device=None) -> dict:
 
 def _mla_expand(p, cfg, lat, pos):
     """The latent ``(B, S, r)`` expanded to K and V ``(B, h, S, dh)``, RoPE
-    applied to K at ``pos``."""
+    applied to K at ``pos``; ``h`` is the heads ``w_uk`` / ``w_uv`` hold
+    (their columns over ``dh``: a mesh member's slice gives its heads)."""
     b, s, _ = lat.shape
-    h, dh = cfg.n_heads, cfg.head_dim
-    k = (lat @ p["w_uk"]).reshape(b, s, h, dh).transpose(1, 2)
-    v = (lat @ p["w_uv"]).reshape(b, s, h, dh).transpose(1, 2)
+    dh = cfg.head_dim
+    k = (lat @ p["w_uk"]).reshape(b, s, -1, dh).transpose(1, 2)
+    v = (lat @ p["w_uv"]).reshape(b, s, -1, dh).transpose(1, 2)
     if cfg.rope != "none":
         k = apply_rope(k, pos)
     return k, v
@@ -305,10 +306,25 @@ def mla_attention(p, cfg, x, *, pos, cache=None, cache_len=None,
     masks all but the first ``min(cache_len + 1, max_len)`` slots in
     ``decode_attention``.  ``train=True`` (no cache) takes
     ``scan_attention``.  Returns ``(out, cache)``."""
-    b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.head_dim
-    q = (x @ p["wq"]).reshape(b, s, h, dh).transpose(1, 2)
+    out, cache = mla_attend(p, cfg, x, pos=pos, cache=cache,
+                            cache_len=cache_len, impl=impl, train=train)
+    return out @ p["wo"], cache
+
+
+def mla_attend(p, cfg, x, *, q=None, pos, cache=None, cache_len=None,
+               impl: str = "cuda", train: bool = False):
+    """``mla_attention`` before ``wo``, on the heads ``p`` holds: ``q (B,
+    S, h·dh)`` is ``x·W_q`` (``p["wq"]``'s columns of ``h`` heads, or
+    given), the latent ``x·W_dkv``, and K / V from ``w_uk`` / ``w_uv``'s
+    columns of the same heads.  Returns ``(out (B, S, h·dh), cache)``; the
+    latent cache is written as ``mla_attention`` describes.  A mesh member
+    runs it on its heads."""
+    if q is None:
+        q = x @ p["wq"]
     lat = x @ p["w_dkv"]                                   # (B, S, r)
+    b, s, _ = q.shape
+    dh = cfg.head_dim
+    q = q.reshape(b, s, -1, dh).transpose(1, 2)
     if cfg.rope != "none":
         q = apply_rope(q, pos)
     if train:
@@ -319,15 +335,14 @@ def mla_attention(p, cfg, x, *, pos, cache=None, cache_len=None,
     elif cache is not None and s == 1:
         _write_slots(cache, lat, cache_len, axis=1)
         sk = cache.shape[1]
-        k, v = _mla_expand(p, cfg, cache, torch.arange(sk, device=x.device))
+        k, v = _mla_expand(p, cfg, cache, torch.arange(sk, device=q.device))
         out = decode_attention(q, k, v, min(cache_len + 1, sk))
     else:
         if cache is not None:
             _write_slots(cache, lat, cache_len, axis=1)
         k, v = _mla_expand(p, cfg, lat, pos)
         out = chunked_attention(q, k, v, causal=True, impl=impl)
-    out = out.transpose(1, 2).reshape(b, s, -1)
-    return out @ p["wo"], cache
+    return out.transpose(1, 2).reshape(b, s, -1), cache
 
 
 # ------------------------------------------------------- cross-attention ----
@@ -339,17 +354,24 @@ def cross_attention(p, cfg, x, enc_out, *, impl: str = "cuda",
     (the flash kernel on the card) at any S, a decode step's S = 1 too, as
     the reference runs its ``chunked_attention``; ``train=True`` runs
     ``scan_attention``.  Returns the output ``(B, S, d)``."""
-    b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.head_dim
-    se = enc_out.shape[1]
-    q = (x @ p["wq"]).reshape(b, s, h, dh).transpose(1, 2)
-    k = (enc_out @ p["wk"]).reshape(b, se, -1, dh).transpose(1, 2)
-    v = (enc_out @ p["wv"]).reshape(b, se, -1, dh).transpose(1, 2)
+    return cross_attend(cfg, x @ p["wq"], enc_out @ p["wk"],
+                        enc_out @ p["wv"], impl=impl, train=train) @ p["wo"]
+
+
+def cross_attend(cfg, q, k, v, *, impl: str = "cuda", train: bool = False):
+    """``cross_attention`` between its input products and ``wo``: ``q (B,
+    S, h·dh)``, ``k``, ``v (B, Se, hkv·dh)``, each the columns of the heads
+    computed (a mesh member's).  Returns ``(B, S, h·dh)``."""
+    b, s, _ = q.shape
+    se, dh = k.shape[1], cfg.head_dim
+    q = q.reshape(b, s, -1, dh).transpose(1, 2)
+    k = k.reshape(b, se, -1, dh).transpose(1, 2)
+    v = v.reshape(b, se, -1, dh).transpose(1, 2)
     if train:
         out = scan_attention(q, k, v, causal=False)
     else:
         out = chunked_attention(q, k, v, causal=False, impl=impl)
-    return out.transpose(1, 2).reshape(b, s, -1) @ p["wo"]
+    return out.transpose(1, 2).reshape(b, s, -1)
 
 
 # ------------------------------------------------------------------- FFN ----

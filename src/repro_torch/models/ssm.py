@@ -172,6 +172,14 @@ def band_mix_apply(p, cfg, x, a: CSR, *, backend: str = "cuda",
     On CPU tensors it runs the kernel arm's glue with the kernels' plain
     versions; ``"torch"`` is the plain fused executor on any device, and
     ``"auto"`` / ``"unfused"`` take those arms of ``tile_fused_matmul``."""
+    return band_mix_gated(p, x, a, backend=backend, spec=spec) @ p["w_down"]
+
+
+def band_mix_gated(p, x, a: CSR, *, backend: str = "cuda",
+                   spec: FusionSpec | None = None) -> torch.Tensor:
+    """``band_mix_apply`` before ``W_down``: ``A · (x_i · Wv) ⊙ silu(x_i ·
+    Wz)``, ``(B, S, c)`` for the ``c`` columns ``p["wv"]`` / ``p["wz"]``
+    hold (a mesh member's slice: the fused product at ``c_col = c``)."""
     spec = _BAND_SPEC if spec is None else spec
     wv = p["wv"].float()
     mixed = torch.stack([
@@ -179,7 +187,7 @@ def band_mix_apply(p, cfg, x, a: CSR, *, backend: str = "cuda",
                               spec=spec)
         for i in range(x.shape[0])])
     z = x @ p["wz"]
-    return (mixed.to(x.dtype) * F.silu(z)) @ p["w_down"]
+    return mixed.to(x.dtype) * F.silu(z)
 
 
 def mamba_init(gen, cfg, dtype, device=None) -> dict:
@@ -212,27 +220,44 @@ def mamba_apply(p, cfg, x, *, cache=None):
     no normalizer) from ``cache``, the carried state (None: zeros); S ==
     1 runs ``linear_recurrence_step``.  The output is gated by
     ``silu(z)``."""
-    b, s, _ = x.shape
-    h, dh, n = cfg.n_heads, cfg.ssm_head_dim, cfg.ssm_state
     xin, z = (x @ p["w_in"]).chunk(2, dim=-1)              # (B, S, inner)
-    bc = (xin @ p["w_bc"]).reshape(b, s, h, 2 * n)
+    o, state = mamba_mix(p, cfg, xin, z, cache=cache)
+    return o @ p["w_out_proj"], state
+
+
+def mamba_mix(p, cfg, xin, z, *, heads=None, cache=None):
+    """``mamba_apply`` between ``W_in`` and ``W_out_proj``: ``xin (B, S,
+    inner)`` whole and the gate ``z``.  ``heads = (h0, h1)`` computes those
+    heads only (a mesh member's; default all): ``z`` and ``cache`` are
+    theirs, and their columns of ``w_bc`` / ``w_dt`` / ``a_log`` are sliced
+    here.  Returns ``(o (B, S, (h1 - h0)·dh) gated, state (B, h1 - h0, n,
+    dh) f32)``."""
+    b, s, _ = xin.shape
+    dh, n = cfg.ssm_head_dim, cfg.ssm_state
+    h0, h1 = (0, cfg.n_heads) if heads is None else heads
+    h = h1 - h0
+    w_bc, w_dt, a_log = p["w_bc"], p["w_dt"], p["a_log"]
+    if heads is not None:
+        w_bc = w_bc[:, h0 * 2 * n:h1 * 2 * n]
+        w_dt, a_log = w_dt[:, h0:h1], a_log[h0:h1]
+    bc = (xin @ w_bc).reshape(b, s, h, 2 * n)
     b_in, c_out = bc[..., :n], bc[..., n:]
-    dt = F.softplus(xin.float() @ p["w_dt"])               # (B, S, H)
-    log_decay = -dt * torch.exp(p["a_log"])
-    v = xin.reshape(b, s, h, dh) * dt[..., None].to(x.dtype)
+    dt = F.softplus(xin.float() @ w_dt)                    # (B, S, h)
+    log_decay = -dt * torch.exp(a_log)
+    v = xin[..., h0 * dh:h1 * dh].reshape(b, s, h, dh) * \
+        dt[..., None].to(xin.dtype)
     if s > 1:
         o, state = chunked_linear_recurrence(
             c_out, b_in, v, log_decay, chunk=min(128, s), h0=cache,
             normalize=False)
     else:
-        h0 = cache if cache is not None else \
-            x.new_zeros((b, h, n, dh), dtype=torch.float32)
+        h0_ = cache if cache is not None else \
+            xin.new_zeros((b, h, n, dh), dtype=torch.float32)
         o, state = linear_recurrence_step(
-            c_out[:, 0], b_in[:, 0], v[:, 0], log_decay[:, 0], h0,
+            c_out[:, 0], b_in[:, 0], v[:, 0], log_decay[:, 0], h0_,
             normalize=False)
         o = o[:, None]
-    o = o.reshape(b, s, -1) * F.silu(z)
-    return o @ p["w_out_proj"], state
+    return o.reshape(b, s, -1) * F.silu(z), state
 
 
 def mlstm_init(gen, cfg, dtype, device=None) -> dict:
@@ -265,27 +290,47 @@ def mlstm_apply(p, cfg, x, *, cache=None):
     (chunk ``min(128, S)``) from ``cache``, the carried state (None:
     zeros); S == 1 runs ``linear_recurrence_step``.  The output is gated by
     ``silu(gate)``."""
-    b, s, _ = x.shape
-    h, dh = cfg.n_heads, cfg.ssm_head_dim
     main, gate = (x @ p["w_up"]).chunk(2, dim=-1)          # (B, S, inner)
-    q = (main @ p["wq"]).reshape(b, s, h, dh)
-    k = (main @ p["wk"]).reshape(b, s, h, dh) / dh ** 0.5
-    v = (main @ p["wv"]).reshape(b, s, h, dh)
+    o, state = mlstm_mix(p, cfg, main, gate, cache=cache)
+    return o @ p["w_down"], state
+
+
+def mlstm_mix(p, cfg, main, gate, *, qkv=None, heads=None, cache=None):
+    """``mlstm_apply`` between ``W_up`` and ``W_down``: ``main (B, S,
+    inner)`` whole; q, k and v are ``main``'s products with ``p``'s ``wq``
+    / ``wk`` / ``wv``, or ``qkv`` where given.  ``heads = (h0, h1)``
+    computes those heads only (a mesh member's; default all): ``qkv``,
+    the ``gate`` columns and ``cache`` are theirs, and their columns of
+    ``w_f`` / ``w_i`` are sliced here.  Returns ``(o (B, S, (h1 - h0)·dh)
+    gated, state)``."""
+    b, s, _ = main.shape
+    dh = cfg.ssm_head_dim
+    w_f, w_i = p["w_f"], p["w_i"]
+    if heads is not None:
+        w_f, w_i = w_f[:, heads[0]:heads[1]], w_i[:, heads[0]:heads[1]]
+    if qkv is None:
+        q = (main @ p["wq"]).reshape(b, s, -1, dh)
+        k = (main @ p["wk"]).reshape(b, s, -1, dh) / dh ** 0.5
+        v = (main @ p["wv"]).reshape(b, s, -1, dh)
+    else:
+        q, k, v = qkv
+        q = q.reshape(b, s, -1, dh)
+        k = k.reshape(b, s, -1, dh) / dh ** 0.5
+        v = v.reshape(b, s, -1, dh)
     main32 = main.float()
-    log_f = F.logsigmoid(main32 @ p["w_f"])                # (B, S, H)
-    i_gate = torch.exp(F.logsigmoid(main32 @ p["w_i"]))
+    log_f = F.logsigmoid(main32 @ w_f)                     # (B, S, h)
+    i_gate = torch.exp(F.logsigmoid(main32 @ w_i))
     k = k * i_gate[..., None].to(k.dtype)
     if s > 1:
         o, state = chunked_linear_recurrence(q, k, v, log_f,
                                              chunk=min(128, s), h0=cache)
     else:
         h0 = cache if cache is not None else \
-            x.new_zeros((b, h, dh, dh + 1), dtype=torch.float32)
+            main.new_zeros((b, q.shape[2], dh, dh + 1), dtype=torch.float32)
         o, state = linear_recurrence_step(q[:, 0], k[:, 0], v[:, 0],
                                           log_f[:, 0], h0)
         o = o[:, None]
-    o = o.reshape(b, s, -1) * F.silu(gate)
-    return o @ p["w_down"], state
+    return o.reshape(b, s, -1) * F.silu(gate), state
 
 
 def slstm_init(gen, cfg, dtype, device=None) -> dict:
@@ -310,12 +355,21 @@ def slstm_apply(p, cfg, x, *, cache=None):
     and ``hid = σ(o)·tanh(c)``.  ``w_rec`` is cast to f32 once a call, not
     once a step (the same values).  A step is a few small launches, so a
     long sequence is bound by the host (ROADMAP Queue 2)."""
-    b, s, _ = x.shape
+    hs, carry = slstm_scan(p, cfg, (x @ p["w_up"]).float(), cache=cache)
+    return hs.to(x.dtype) @ p["w_down"], carry
+
+
+def slstm_scan(p, cfg, pre, *, cache=None):
+    """``slstm_apply``'s time loop on the f32 pre-activations ``pre (B, S,
+    4·inner)`` (``x·W_up``): returns ``(hid of every step (B, S, inner)
+    f32, (c, hid))``.  A mesh member runs it whole on its rows, ``w_rec``
+    replicated, and multiplies its columns of the result by its rows of
+    ``W_down``."""
+    b, s, _ = pre.shape
     inner = cfg.n_heads * cfg.ssm_head_dim
-    pre = (x @ p["w_up"]).float()                          # (B, S, 4·inner)
     w_rec = p["w_rec"].float()
     if cache is None:
-        c = x.new_zeros((b, inner), dtype=torch.float32)
+        c = torch.zeros((b, inner), dtype=torch.float32, device=pre.device)
         hid = torch.zeros_like(c)
     else:
         c, hid = cache
@@ -326,5 +380,4 @@ def slstm_apply(p, cfg, x, *, cache=None):
         c = torch.addcmul(f * c, i, torch.tanh(u[:, :inner]))
         hid = o * torch.tanh(c)
         hs.append(hid)
-    out = torch.stack(hs, dim=1).to(x.dtype) @ p["w_down"]
-    return out, (c, hid)
+    return torch.stack(hs, dim=1), (c, hid)

@@ -66,6 +66,7 @@ import operator
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -711,32 +712,81 @@ class MeshCache:
             self.regions.append(regs)
             self.parts.append(parts)
 
+    def _take_plan(self, k: int, needs: dict) -> dict:
+        """Member -> None where its block holds all it needs (in place),
+        else the ``(source, region)`` copies that assemble it, its own
+        block first, each region from the first block that holds it."""
+        plan = {}
+        for who, need in needs.items():
+            if _overlap(need, self.regions[k][who]) == tuple(need):
+                plan[who] = None
+                continue
+            copies = []
+            for src in [who] + [y for y in self.regions[k] if y != who]:
+                ov = _overlap(need, self.regions[k][src])
+                if ov is None or any(_overlap(ov, c) == ov
+                                     for _, c in copies):
+                    continue
+                copies.append((src, ov))
+            plan[who] = copies
+        return plan
+
+    def _put_plan(self, k: int, needs: dict, in_place: dict) -> list:
+        """``(source member, destination block, region)`` of every write
+        ``put`` makes: each distinct region of ``needs`` (members that need
+        one region computed the same values) from a member that wrote it in
+        place (else the first) into every block that holds a part of it,
+        except the blocks written in place."""
+        by_region = {}
+        for who, need in needs.items():
+            by_region.setdefault(tuple(need), []).append(who)
+        writes = []
+        for need, group in by_region.items():
+            src = next((w for w in group if in_place[w]), group[0])
+            for dst, held in self.regions[k].items():
+                if dst in group and in_place[dst]:
+                    continue
+                ov = _overlap(need, held)
+                if ov is not None:
+                    writes.append((src, dst, ov))
+        return writes
+
+    def moved(self, k: int, needs: dict) -> int:
+        """The bytes ``take`` and then ``put`` of leaf ``k`` for ``needs``
+        count as ``all_gather``, nothing moved: what a block's form costs
+        in cache traffic (``MeshExecutor.block_bytes``)."""
+        size = self.leaves[k].element_size()
+
+        def nbytes(reg):
+            return int(np.prod([b - a for a, b in reg])) * size
+        plan = self._take_plan(k, needs)
+        total = sum(nbytes(ov) for who, copies in plan.items() if copies
+                    for src, ov in copies if src != who)
+        writes = self._put_plan(k, needs, {w: c is None
+                                           for w, c in plan.items()})
+        return total + sum(nbytes(ov) for src, dst, ov in writes
+                           if dst != src)
+
     def take(self, k: int, needs: dict) -> dict:
         """Leaf ``k``'s tensors for ``needs`` (member -> region, the layer
         dimension one wide and dropped): ``(tensor, in place)`` a member."""
         out = {}
-        for who, need in needs.items():
-            held = self.regions[k][who]
-            if _overlap(need, held) == tuple(need):
+        for who, copies in self._take_plan(k, needs).items():
+            need, held = needs[who], self.regions[k][who]
+            if copies is None:
                 out[who] = (self.parts[k][who][_within(need, held, 1)], True)
                 continue
             dev = self.mem.devices[who[0]][who[1]]
             with sharding.turn(who):
                 t = torch.zeros([b - a for a, b in need[1:]],
                                 dtype=self.leaves[k].dtype, device=dev)
-                copied = []
-                for src in [who] + [y for y in self.regions[k] if y != who]:
-                    ov = _overlap(need, self.regions[k][src])
-                    if ov is None or any(_overlap(ov, c) == ov
-                                         for c in copied):
-                        continue
+                for src, ov in copies:
                     part = self.parts[k][src][
                         _within(ov, self.regions[k][src], 1)]
                     t[_within(ov, need, 1)[1:]] = part.to(dev)
                     if src != who:
                         sharding.count("all_gather",
                                        part.numel() * part.element_size())
-                    copied.append(ov)
             out[who] = (t, False)
         return out
 
@@ -745,25 +795,16 @@ class MeshCache:
         need one region computed the same values) is written into every
         block that holds a part of it, except the blocks a member wrote in
         place."""
-        by_region = {}
-        for who, need in needs.items():
-            by_region.setdefault(tuple(need), []).append(who)
-        for need, group in by_region.items():
-            src = next((w for w in group if taken[w][1]), group[0])
-            res = taken[src][0]
-            for dst, held in self.regions[k].items():
-                if dst in group and taken[dst][1]:
-                    continue
-                ov = _overlap(need, held)
-                if ov is None:
-                    continue
-                part = res[_within(ov, need, 1)[1:]]
-                with sharding.turn(dst):
-                    self.parts[k][dst][_within(ov, held, 1)] = part.to(
-                        self.parts[k][dst].device)
-                if dst != src:
-                    sharding.count("all_gather",
-                                   part.numel() * part.element_size())
+        for src, dst, ov in self._put_plan(
+                k, needs, {w: t[1] for w, t in taken.items()}):
+            need = needs[src]
+            part = taken[src][0][_within(ov, need, 1)[1:]]
+            with sharding.turn(dst):
+                self.parts[k][dst][_within(ov, self.regions[k][dst], 1)] = \
+                    part.to(self.parts[k][dst].device)
+            if dst != src:
+                sharding.count("all_gather",
+                               part.numel() * part.element_size())
 
     def gather(self):
         """The whole cache on the mesh's first device, in ``init_cache``'s
@@ -793,26 +834,74 @@ class MeshExecutor:
     leaf, as ``launch.steps``' ZeRO-1 step trains them (and writes back
     into the model's parameters, ``write_back``).  A call splits
     the batch over the batch axes and keeps the residual stream whole on
-    every model member (``act_btd``):
+    every model member (``act_btd``).
 
-    - the ``attn`` blocks (GQA with the gated FFN or the MoE layer) are
-      tensor-parallel: member ``m`` computes the q heads its column slice
-      of ``wq`` holds (``act_bhtd``) and the kv heads they read (from its
-      slices of ``wk`` / ``wv``, or from the gathered weights where the kv
-      heads do not divide the model axis; with a cache that is then
-      replicated, it computes them all), runs the attention (the flash
-      kernel in a prefill) on them and multiplies by its row slice of
-      ``wo``; one ``psum`` over ``model`` ends the attention, one the
-      FFN (``w_gate`` / ``w_up`` column-sliced, ``w_down`` row-sliced,
+    Every block is computed on the slices its member holds (the split
+    form), each product by how its weight is sliced: a column-sliced
+    weight gives the member its own output columns, kept where the next op
+    works on heads the member owns (its heads: ``shard_heads``), else made
+    whole (``_whole_mm``: the weight gathered or its columns gathered as an
+    activation, whichever moves fewer bytes); a row-sliced weight gives a
+    partial, in f32 for a 16-bit model (``_partial_mm``), summed by one
+    ``psum`` over ``model``; a replicated weight is sliced locally.
+
+    - ``attn`` blocks (GQA with the gated FFN or the MoE layer; MLA; the
+      encoder's blocks and the decoder's, with cross-attention): member
+      ``m`` computes the q heads its column slice of ``wq`` holds
+      (``act_bhtd``) and the kv heads they read (from its slices of ``wk``
+      / ``wv``, or from the gathered weights where the kv heads do not
+      divide the model axis; with a cache that is then replicated, it
+      computes them all), runs the attention (the flash kernel in a
+      prefill) on them and multiplies by its row slice of ``wo``; one
+      ``psum`` ends the attention, one the cross-attention (q, K and V by
+      the same heads, K / V from the whole ``enc_out``), one the FFN
+      (``w_gate`` / ``w_up`` column-sliced, ``w_down`` row-sliced,
       ``act_btf``) or the MoE layer (``layers.moe_mesh`` on the ``f``
-      slices).  Without ``shard_heads`` every member computes all heads;
+      slices).  MLA takes the latent ``x·W_dkv`` whole (replicated) and
+      expands its heads' K / V from its columns of the replicated ``w_uk``
+      / ``w_uv``.  Without ``shard_heads`` every member computes all heads
+      (``wq`` / ``wk`` / ``wv`` gathered; MLA's q through ``_whole_mm``)
+      and its rows of ``wo``;
+    - ``attn+mamba``: the attention as above; the mamba half makes
+      ``x·W_in`` whole (its columns split x | z unevenly over heads), runs
+      the recurrence on the member's heads (all where they do not divide;
+      ``w_bc`` / ``w_dt`` replicated), gathers the heads' output as an
+      activation where it split them, and multiplies by its columns of
+      ``w_out_proj``; those columns, zero elsewhere, join the attention's
+      partial in its one ``psum``;
+    - ``sparse-band``: each member runs ``tile_fused_matmul`` on its
+      columns of ``wv`` (``c_col = inner / n``: the GeMM-SpMM and
+      ``spmm_ell`` kernels on its slice), gates them with its columns of
+      the replicated ``wz`` and multiplies by its rows of ``w_down``: one
+      ``psum``;
+    - xLSTM: an mLSTM block makes ``x·W_up`` whole, computes its heads'
+      q / k / v from its columns (all heads from ``_whole_mm`` where they
+      do not divide; ``w_f`` / ``w_i`` replicated), the recurrence, and
+      its rows of ``w_down``: one ``psum``; the sLSTM makes ``x·W_up``
+      whole, runs the time loop on every member (``w_rec`` replicated: no
+      collective a step) and multiplies its columns of the result by its
+      rows of ``w_down``: one ``psum``;
     - the embedding is vocabulary-row-sliced (a masked lookup and a
       ``psum``), the LM head vocabulary-column-sliced, and the logits are
       gathered for the caller on the mesh's first device;
-    - the other blocks (MLA, ``attn+mamba``, ``sparse-band``, xLSTM, the
-      encoder and the cross blocks) gather their sliced weights onto each
-      member (``sharding.all_gather``) and run whole on its batch shard;
-    - decode caches are ``MeshCache``s (``cache_shardings``).
+    - decode caches are ``MeshCache``s (``cache_shardings``); a split
+      block reads and writes its region in place: its kv heads, its mamba
+      heads where the state is split by heads, and its mLSTM heads (the
+      replicated state's other copies are then written by ``put``).
+
+    The per-call choice (``split_form``, one rule, no knob): a block of
+    any pattern but the plain ``attn`` decoder (always split) runs in the
+    gathered form instead, its sliced weights gathered whole onto each
+    member and the block run whole on the member's batch shard
+    (``_gathered``), in a call where that form moves fewer bytes between
+    members.  ``block_bytes`` counts both forms from the call's shapes
+    before anything runs: the split form's ``psum``s and gathers (each at
+    ``_whole_mm``'s choice) and its cache traffic; the gathered form's
+    weights and the cache regions it rebuilds and writes back
+    (``MeshCache.moved``).  Only bytes are weighed, not the compute the
+    gathered form repeats on every member.  So a decode step splits (a
+    few rows against the weights), while a 32k prefill, or the encoder's
+    1,500 frames in each decode step, keeps the gathered form.
 
     Every collective counts its bytes in ``sharding.comm_bytes``."""
 
@@ -847,10 +936,10 @@ class MeshExecutor:
                            if trainable else sharding._to(t, dev))
                 regs.append(reg)
             self.regions[who], self.pieces[who] = regs, row
+        #: the plain ``attn`` decoder, split on every call
         self.tp = (model.cfg.block_pattern == "attn" and not model.cfg.mla
                    and not model.cfg.encoder_layers)
-        if self.tp:
-            self._plan_heads()
+        self._plan_heads()
 
     # ------------------------------------------------------- parameters --
     def on(self, who):
@@ -861,6 +950,11 @@ class MeshExecutor:
     def w(self, who, name: str) -> torch.Tensor:
         """Member ``who``'s block of parameter ``name``."""
         return self.pieces[who][self.index[name]]
+
+    def sliced(self, name: str) -> bool:
+        """Whether parameter ``name`` is split over ``model`` (on a model
+        axis of more than one)."""
+        return self.mem.n_model > 1 and self.mdim[self.index[name]] is not None
 
     def full(self, j: int, name: str) -> list:
         """Parameter ``name`` whole on each model member of data shard
@@ -882,6 +976,11 @@ class MeshExecutor:
         return self.pieces[who][k].narrow(
             dim, lo - self.regions[who][k][dim][0], hi - lo)
 
+    def _span(self, who, name: str, dim: int) -> tuple:
+        """``[lo, hi)`` of parameter ``name`` that member ``who`` holds
+        along ``dim``."""
+        return self.regions[who][self.index[name]][dim]
+
     @torch.no_grad()
     def write_back(self) -> None:
         """The members' blocks written into the model's parameters (a
@@ -900,18 +999,22 @@ class MeshExecutor:
                 done.add(reg)
 
     def _plan_heads(self) -> None:
-        """Each model member's q heads ``[q0, q1)`` and the kv heads they
-        read, for the tensor-parallel attention."""
+        """Each model member's q heads ``[q0, q1)`` (all where
+        ``shard_heads`` is off) and the kv heads they read, for the
+        attention; the mamba and mLSTM heads split as the q heads do."""
         cfg, n_model = self.cfg, self.mem.n_model
         h, hkv = cfg.n_heads, cfg.n_kv_heads
         rep = h // hkv
         if self.rules.shard_heads and h % n_model:
             raise ValueError(f"shard_heads with {h} heads on a model axis "
                              f"of {n_model}")
-        self.kv_aligned = self.rules.shard_heads and hkv % n_model == 0
-        self.gather_q = not self.rules.shard_heads and \
+        self.split_heads = self.rules.shard_heads and n_model > 1
+        gqa = "blocks.0.attn.wk" in self.index
+        self.kv_aligned = gqa and self.rules.shard_heads and \
+            hkv % n_model == 0
+        self.gather_q = gqa and not self.rules.shard_heads and \
             self.mdim[self.index["blocks.0.attn.wq"]] is not None
-        self.gather_kv = not self.kv_aligned and \
+        self.gather_kv = gqa and not self.kv_aligned and \
             self.mdim[self.index["blocks.0.attn.wk"]] is not None
         self.heads = []
         for m in range(n_model):
@@ -956,9 +1059,141 @@ class MeshExecutor:
                     out[(j, m)][n[len(prefix) + 1:]] = t
         return out
 
+    def _gather_weight(self, rows: int, s: int, name: str) -> bool:
+        """Whether ``_whole_mm`` gathers the column-sliced weight ``name``
+        (``(in, out)``) rather than its product's columns for ``rows`` ×
+        ``s`` positions: the weight moves no more bytes when ``in <= rows
+        · s``."""
+        return self.pieces[(0, 0)][self.index[name]].shape[0] <= rows * s
+
+    def _whole_mm(self, name: str, hs: dict) -> dict:
+        """Member -> ``h @ W`` whole for the column-sliced weight ``name``
+        and each member's ``h`` (equal over ``model``): the weight gathered
+        (``full``) or the members' column products gathered as an
+        activation, whichever moves fewer bytes."""
+        k = self.index[name]
+        if not self.sliced(name):
+            return self._each(hs, lambda who, h: h @ self.pieces[who][k])
+        h0 = next(iter(hs.values()))
+        if self._gather_weight(h0.shape[0], h0.shape[1], name):
+            out = {}
+            for j in range(self.mem.n_data):
+                for m, w in enumerate(self.full(j, name)):
+                    with self.on((j, m)):
+                        out[(j, m)] = hs[(j, m)] @ w
+            return out
+        cols = self._each(hs, lambda who, h: h @ self.pieces[who][k])
+        return self._gather_cols(cols)
+
+    def _gather_cols(self, parts: dict) -> dict:
+        """Member -> the members' column blocks of one activation
+        concatenated over ``model`` (an ``all_gather`` on the last
+        dimension)."""
+        out = {}
+        for j in range(self.mem.n_data):
+            who = [(j, m) for m in range(self.mem.n_model)]
+            res = sharding.all_gather([parts[w] for w in who],
+                                      self.mem.devices[j], dim=-1, who=who)
+            out.update(zip(who, res))
+        return out
+
+    # ------------------------------------------------------ the choice --
+    def _psum_bytes(self, rows: int, s: int) -> int:
+        """What one ``psum`` of a ``_partial_mm`` partial moves in one data
+        shard."""
+        n, dt = self.mem.n_model, self.model.dtype
+        size = 4 if n > 1 and dt in (torch.bfloat16, torch.float16) \
+            else dt.itemsize
+        return 2 * (n - 1) * rows * s * self.cfg.d_model * size
+
+    def _w_bytes(self, name: str) -> int:
+        """What gathering parameter ``name`` moves in one data shard."""
+        if not self.sliced(name):
+            return 0
+        t = self.pieces[(0, 0)][self.index[name]]
+        return (self.mem.n_model - 1) * t.numel() * self.mem.n_model * \
+            t.element_size()
+
+    def _mm_bytes(self, name: str, rows: int, s: int) -> int:
+        """What ``_whole_mm`` moves in one data shard for ``name``."""
+        if not self.sliced(name):
+            return 0
+        if self._gather_weight(rows, s, name):
+            return self._w_bytes(name)
+        t = self.pieces[(0, 0)][self.index[name]]
+        n = self.mem.n_model
+        return (n - 1) * rows * s * t.shape[1] * n * t.element_size()
+
+    def block_bytes(self, prefix: str, rows: int, s: int,
+                    cache=None) -> tuple:
+        """``(split, gathered)``: the bytes each form of the block
+        ``prefix`` (``"blocks.0"``, ``"enc_blocks.0"``, ``"groups.0"``)
+        moves between members in one call of ``rows`` rows a data shard
+        and ``s`` positions, with ``cache`` (a ``MeshCache``) its cache
+        traffic too, summed over the mesh."""
+        cfg, pre = self.cfg, prefix + "."
+        names = [n for n in self.names if n.startswith(pre)]
+        gathered = sum(self._w_bytes(n) for n in names)
+        psum = self._psum_bytes(rows, s)
+        split = 0
+        if self.model.xlstm:
+            for j7 in range(7):
+                mp = f"{pre}mlstm.{j7}."
+                split += self._mm_bytes(mp + "w_up", rows, s)
+                if not self.split_heads:
+                    split += sum(self._mm_bytes(mp + n, rows, s)
+                                 for n in ("wq", "wk", "wv"))
+                split += psum * self.sliced(mp + "w_down")
+            split += self._mm_bytes(pre + "slstm.w_up", rows, s)
+            split += psum * self.sliced(pre + "slstm.w_down")
+        elif self.model.sparse_band:
+            split += psum * (self.sliced(pre + "mix.wv") +
+                             self.sliced(pre + "ffn.w_down"))
+        else:
+            if cfg.mla:
+                split += 0 if self.split_heads else \
+                    self._mm_bytes(pre + "attn.wq", rows, s)
+            else:
+                split += self.gather_q * self._w_bytes(pre + "attn.wq")
+                split += self.gather_kv * (self._w_bytes(pre + "attn.wk") +
+                                           self._w_bytes(pre + "attn.wv"))
+            if pre + "mamba.w_in" in self.index:
+                split += self._mm_bytes(pre + "mamba.w_in", rows, s)
+                if self.split_heads:
+                    inner = cfg.n_heads * cfg.ssm_head_dim
+                    n = self.mem.n_model
+                    split += (n - 1) * rows * s * inner * \
+                        self.model.dtype.itemsize
+            split += psum * self.sliced(pre + "attn.wo")
+            if pre + "xattn.wq" in self.index:
+                split += self.gather_q * self._w_bytes(pre + "xattn.wq")
+                split += self.gather_kv * (self._w_bytes(pre + "xattn.wk") +
+                                           self._w_bytes(pre + "xattn.wv"))
+                split += psum * self.sliced(pre + "xattn.wo")
+            ffn = pre + ("moe.w2" if cfg.n_experts else "ffn.w_down")
+            split += psum * self.sliced(ffn)
+        split, gathered = split * self.mem.n_data, gathered * self.mem.n_data
+        if cache is not None:
+            i = int(prefix.split(".")[1])
+            for k in range(len(cache.leaves)):
+                split += cache.moved(k, self._needs(cache, k, i, True))
+                gathered += cache.moved(k, self._needs(cache, k, i, False))
+        return split, gathered
+
+    def split_form(self, prefix: str, rows: int, s: int,
+                   cache=None) -> bool:
+        """Whether the block ``prefix`` runs split in this call: the rule,
+        from ``block_bytes``: split where it moves fewer bytes than the
+        gathered form.  The plain ``attn`` decoder always splits."""
+        if self.tp:
+            return True
+        split, gathered = self.block_bytes(prefix, rows, s, cache)
+        return split < gathered
+
     # ----------------------------------------------------------- blocks --
-    def _stage(self, fn, x, train: bool):
-        return remat(self.cfg.remat, fn)(x) if train else fn(x)
+    def _stage(self, fn, x, train: bool, *rest):
+        return remat(self.cfg.remat, fn)(x, *rest) if train else \
+            fn(x, *rest)
 
     def _gathered(self, prefix, blk, xs, call, train, wrap=True) -> dict:
         """Block ``blk`` run whole on each member's batch shard with its
@@ -976,10 +1211,10 @@ class MeshExecutor:
                 out[who] = self._stage(fn, x, train and wrap)
         return out
 
-    def _attn_partial(self, who, i, x, pos, cache, cache_len, impl, train,
-                      whole):
-        cfg, dh = self.cfg, self.cfg.head_dim
-        pre = f"blocks.{i}.attn."
+    def _attn_partial(self, who, pre, cfg, x, pos, cache, cache_len, impl,
+                      train, whole):
+        dh = cfg.head_dim
+        pre = pre + "attn."
         q0, q1, _ = self.heads[who[1]]
         c0, c1, kv_sel = self._kv_cols(who[1], cache is not None)
         p = {"wq": self._slice(who, pre + "wq", q0 * dh, q1 * dh, 1,
@@ -994,7 +1229,7 @@ class MeshExecutor:
             p["bv"] = self._slice(who, pre + "bv", c0 * dh, c1 * dh, 0)
         k_o = self.index[pre + "wo"]
         r0, r1 = self.regions[who][k_o][0]
-        ln1, wo = self.w(who, f"blocks.{i}.ln1"), self.pieces[who][k_o]
+        ln1, wo = self.w(who, pre[:-5] + "ln1"), self.pieces[who][k_o]
 
         def fn(x):
             b, s, _ = x.shape
@@ -1007,6 +1242,68 @@ class MeshExecutor:
             return self._partial_mm(out[..., r0 - q0 * dh:r1 - q0 * dh], wo)
         return self._stage(fn, x, train)
 
+    def _mla_parts(self, pre, xs, pos, layer, cache_len, impl, train):
+        """Member -> its partial of an MLA block's attention: its q heads
+        (its columns of ``wq``; all heads through ``_whole_mm`` without
+        ``shard_heads``), the latent whole, its heads' K / V from its
+        columns of ``w_uk`` / ``w_uv``, and its rows of ``wo``."""
+        cfg, dh = self.cfg, self.cfg.head_dim
+        pre = pre + "attn."
+        hs = self._each(xs, lambda who, x: L.rms_norm(
+            self.w(who, pre[:-5] + "ln1"), x, cfg.norm_eps))
+        qs = None if self.split_heads else self._whole_mm(pre + "wq", hs)
+        out = {}
+        for who, h in hs.items():
+            q0, q1, _ = self.heads[who[1]]
+            p = {n: self._slice(who, pre + n, q0 * dh, q1 * dh, 1)
+                 for n in ("w_uk", "w_uv")}
+            p["w_dkv"] = self.w(who, pre + "w_dkv")
+            if self.split_heads:
+                p["wq"] = self._slice(who, pre + "wq", q0 * dh, q1 * dh, 1)
+            r0, r1 = self._span(who, pre + "wo", 0)
+            wo = self.w(who, pre + "wo")
+            cache = layer and layer[who]
+
+            def fn(h, q, _p=p, _wo=wo, _pos=pos[who], _cache=cache, _q0=q0,
+                   _r=(r0, r1)):
+                a, _ = L.mla_attend(_p, cfg, h, q=q, pos=_pos, cache=_cache,
+                                    cache_len=cache_len, impl=impl,
+                                    train=train)
+                return self._partial_mm(
+                    a[..., _r[0] - _q0 * dh:_r[1] - _q0 * dh], _wo)
+            with self.on(who):
+                out[who] = self._stage(fn, h, train,
+                                       None if qs is None else qs[who])
+        return out
+
+    def _cross_partial(self, who, pre, cfg, x, enc, impl, train, whole):
+        """Member ``who``'s partial of a decoder block's cross-attention:
+        q from its heads' columns of ``wq``, K / V from the whole
+        ``enc_out`` and its kv heads' columns, its rows of ``wo``."""
+        dh = cfg.head_dim
+        pre = pre + "xattn."
+        q0, q1, _ = self.heads[who[1]]
+        c0, c1, kv_sel = self._kv_cols(who[1], False)
+        wq = self._slice(who, pre + "wq", q0 * dh, q1 * dh, 1,
+                         whole.get("wq"))
+        wk = self._slice(who, pre + "wk", c0 * dh, c1 * dh, 1,
+                         whole.get("wk"))
+        wv = self._slice(who, pre + "wv", c0 * dh, c1 * dh, 1,
+                         whole.get("wv"))
+        r0, r1 = self._span(who, pre + "wo", 0)
+        ln_x, wo = self.w(who, pre[:-6] + "ln_x"), self.w(who, pre + "wo")
+
+        def fn(x, enc):
+            h = L.rms_norm(ln_x, x, cfg.norm_eps)
+            k, v = enc @ wk, enc @ wv
+            if kv_sel is not None:
+                b, se, _ = k.shape
+                k, v = (t.view(b, se, -1, dh)[:, :, kv_sel].reshape(b, se, -1)
+                        for t in (k, v))
+            out = L.cross_attend(cfg, h @ wq, k, v, impl=impl, train=train)
+            return self._partial_mm(out[..., r0 - q0 * dh:r1 - q0 * dh], wo)
+        return self._stage(fn, x, train, enc)
+
     def _partial_mm(self, a, w):
         """``a @ w``, a member's partial of a row-sliced product: in f32 for
         a 16-bit model on a model axis of more than one, so the ``psum``
@@ -1017,11 +1314,11 @@ class MeshExecutor:
             return a.float() @ w.float()
         return a @ w
 
-    def _ffn_partial(self, who, i, x, train):
+    def _ffn_partial(self, who, pre, x, train):
         """Member ``who``'s gated FFN output: its partial of the row-sliced
         ``w_down`` (a ``psum`` needed), or the whole output where the guard
         replicated the FFN; returns ``(y, partial)``."""
-        cfg, pre = self.cfg, f"blocks.{i}."
+        cfg = self.cfg
         ln2 = self.w(who, pre + "ln2")
         ffn = {n: self.w(who, pre + "ffn." + n)
                for n in ("w_gate", "w_up", "w_down")}
@@ -1061,56 +1358,231 @@ class MeshExecutor:
                     lambda x: fn(L.rms_norm(ln2, x, cfg.norm_eps)), x, train)
         return L.moe_mesh(cfg, self.mem, xs, pieces, cap, run)
 
-    def _tp_block(self, i, xs, pos, layer, cache_len, impl, train):
-        """One tensor-parallel ``attn`` block over all members."""
-        cfg, mem = self.cfg, self.mem
-        pre = f"blocks.{i}."
-        gathered = [n for n, on in (("wq", self.gather_q),
-                                    ("wk", self.gather_kv),
-                                    ("wv", self.gather_kv)) if on]
+    def _qkv_whole(self, pre: str, xs) -> dict:
+        """Member -> the q / k / v weights of attention module ``pre``
+        gathered whole where the heads do not divide (``gather_q``,
+        ``gather_kv``)."""
         whole = {who: {} for who in xs}
-        for n in gathered:
-            for j in range(mem.n_data):
-                for m, t in enumerate(self.full(j, pre + "attn." + n)):
+        for n, on in (("wq", self.gather_q), ("wk", self.gather_kv),
+                      ("wv", self.gather_kv)):
+            if not on:
+                continue
+            for j in range(self.mem.n_data):
+                for m, t in enumerate(self.full(j, pre + n)):
                     whole[(j, m)][n] = t
+        return whole
+
+    def _add(self, xs: dict, parts: dict, psum: bool, scale=None) -> dict:
+        """``x + parts`` on each member, the parts summed over ``model``
+        first where they are partials."""
+        if psum:
+            parts = self._psum_model(parts)
+        if scale is None:
+            return self._each(xs, lambda who, x: x + parts[who].to(x.dtype))
+        return self._each(xs, lambda who, x: x + (parts[who] * scale).to(
+            x.dtype))
+
+    def _ffn(self, pre, i, xs, train) -> dict:
+        """The block's FFN (or MoE layer) over all members, added."""
+        if self.cfg.n_experts:
+            return self._add(xs, self._moe(i, xs, train), False)
+        out = {}
+        for who, x in xs.items():
+            with self.on(who):
+                out[who] = self._ffn_partial(who, pre, x, train)
+        return self._add(xs, {who: y for who, (y, _) in out.items()},
+                         next(iter(out.values()))[1])
+
+    def _tp_block(self, i, xs, pos, layer, cache_len, impl, train, *,
+                  prefix="blocks", cfg=None, enc=None):
+        """One split ``attn`` block over all members (``prefix`` and
+        ``cfg``: an encoder block's), with cross-attention over ``enc``
+        (member -> its rows of the encoder's output) in a decoder."""
+        cfg = self.cfg if cfg is None else cfg
+        pre = f"{prefix}.{i}."
+        if cfg.mla:
+            parts = self._mla_parts(pre, xs, pos, layer, cache_len, impl,
+                                    train)
+        else:
+            whole = self._qkv_whole(pre + "attn.", xs)
+            parts = {}
+            for who, x in xs.items():
+                with self.on(who):
+                    parts[who] = self._attn_partial(
+                        who, pre, cfg, x, pos[who], layer and layer[who],
+                        cache_len, impl, train, whole[who])
+        xs = self._add(xs, parts, self.sliced(pre + "attn.wo"))
+        if enc is not None:
+            whole = self._qkv_whole(pre + "xattn.", xs)
+            parts = {}
+            for who, x in xs.items():
+                with self.on(who):
+                    parts[who] = self._cross_partial(
+                        who, pre, cfg, x, enc[who], impl, train, whole[who])
+            xs = self._add(xs, parts, self.sliced(pre + "xattn.wo"))
+        return self._ffn(pre, i, xs, train)
+
+    def _hybrid_block(self, i, xs, pos, layer, cache_len, impl, train):
+        """One split ``attn+mamba`` block: the attention's partial and the
+        mamba half's ``w_out_proj`` columns (zero elsewhere) in one
+        ``psum``, averaged into ``x``; then the FFN."""
+        cfg, pre = self.cfg, f"blocks.{i}."
+        mp, dh = pre + "mamba.", cfg.ssm_head_dim
+        split = self.sliced(pre + "attn.wo")
+        if split != self.sliced(mp + "w_out_proj"):
+            raise ValueError("attn+mamba on a mesh needs wo's rows and "
+                             "w_out_proj's columns split alike")
+        whole = self._qkv_whole(pre + "attn.", xs)
+        attn = {}
+        for who, x in xs.items():
+            with self.on(who):
+                attn[who] = self._attn_partial(
+                    who, pre, cfg, x, pos[who],
+                    layer and layer[who][:2], cache_len, impl, train,
+                    whole[who])
+        hs = self._each(xs, lambda who, x: L.rms_norm(
+            self.w(who, pre + "ln1"), x, cfg.norm_eps))
+        xz = self._whole_mm(mp + "w_in", hs)
+        inner = cfg.n_heads * dh
+        heads = {}
+        for who, t in xz.items():
+            q0, q1, _ = self.heads[who[1]]
+            p = {n: self.w(who, mp + n) for n in ("w_bc", "w_dt", "a_log")}
+            cache = layer and layer[who][2]
+            sel = (q0, q1) if self.split_heads else None
+
+            def fn(t, _p=p, _sel=sel, _cache=cache, _q=(q0, q1)):
+                z = t[..., inner + _q[0] * dh:inner + _q[1] * dh]
+                o, state = S.mamba_mix(_p, cfg, t[..., :inner], z,
+                                       heads=_sel, cache=_cache)
+                if _cache is not None:
+                    _cache.copy_(state)
+                return o
+            with self.on(who):
+                heads[who] = self._stage(fn, t, train)
+        o = self._gather_cols(heads) if self.split_heads else heads
         parts = {}
         for who, x in xs.items():
             with self.on(who):
-                parts[who] = self._attn_partial(who, i, x, pos[who],
-                                                layer and layer[who],
-                                                cache_len, impl, train,
-                                                whole[who])
-        if self.mdim[self.index[pre + "attn.wo"]] is not None:
-            parts = self._psum_model(parts)
-        xs = self._each(xs, lambda who, x: x + parts[who].to(x.dtype))
-        if cfg.n_experts:
-            parts = self._moe(i, xs, train)
-        else:
-            out = {}
-            for who, x in xs.items():
+                y = o[who] @ self.w(who, mp + "w_out_proj")
+                if split:
+                    c0, c1 = self._span(who, mp + "w_out_proj", 1)
+                    y = F.pad(y, (c0, cfg.d_model - c1))
+                parts[who] = attn[who] + y
+        xs = self._add(xs, parts, split, 0.5)
+        return self._ffn(pre, i, xs, train)
+
+    def _band_block(self, i, xs, a_band, impl, train):
+        """One split ``sparse-band`` block: each member's columns of the
+        band mixer (the fused GeMM-SpMM at ``c_col = inner / n``), gated
+        by its columns of ``wz``, times its rows of ``w_down``; one
+        ``psum``; then the FFN."""
+        cfg, pre = self.cfg, f"blocks.{i}."
+        mp = pre + "mix."
+        parts = {}
+        for who, x in xs.items():
+            c0, c1 = self._span(who, mp + "wv", 1)
+            p = {"wv": self.w(who, mp + "wv"),
+                 "wz": self._slice(who, mp + "wz", c0, c1, 1)}
+            ln1, w_down = self.w(who, pre + "ln1"), self.w(who, mp + "w_down")
+
+            def fn(x, _p=p, _ln1=ln1, _wd=w_down):
+                h = L.rms_norm(_ln1, x, cfg.norm_eps)
+                return self._partial_mm(
+                    S.band_mix_gated(_p, h, a_band, backend=impl), _wd)
+            with self.on(who):
+                parts[who] = self._stage(fn, x, train)
+        xs = self._add(xs, parts, self.sliced(mp + "wv"))
+        return self._ffn(pre, i, xs, train)
+
+    def _xlstm_group(self, i, xs, layer, train):
+        """One split xLSTM group: 7 mLSTM blocks on the members' heads (or
+        all heads) and its rows of ``w_down``, each ending in one ``psum``,
+        then the sLSTM's time loop on every member and its rows of
+        ``w_down``; the mLSTM blocks under ``cfg.remat`` in training, the
+        sLSTM outside it, as in the reference."""
+        cfg, pre = self.cfg, f"groups.{i}."
+        dh = cfg.ssm_head_dim
+        inner = cfg.n_heads * dh
+        for j7 in range(7):
+            mp = f"{pre}mlstm.{j7}."
+            hs = self._each(xs, lambda who, x, _ln=f"{pre}ln_m.{j7}":
+                            L.rms_norm(self.w(who, _ln), x, cfg.norm_eps))
+            mg = self._whole_mm(mp + "w_up", hs)
+            mains = self._each(mg, lambda who, t: t[..., :inner])
+            if self.split_heads:
+                qkv = {who: tuple(m @ self._slice(
+                    who, mp + n, self.heads[who[1]][0] * dh,
+                    self.heads[who[1]][1] * dh, 1) for n in ("wq", "wk", "wv"))
+                    for who, m in mains.items()}
+            else:
+                each = [self._whole_mm(mp + n, mains)
+                        for n in ("wq", "wk", "wv")]
+                qkv = {who: tuple(t[who] for t in each) for who in mains}
+            parts = {}
+            for who, t in mg.items():
+                q0, q1, _ = self.heads[who[1]]
+                p = {n: self.w(who, mp + n) for n in ("w_f", "w_i")}
+                r0, r1 = self._span(who, mp + "w_down", 0)
+                w_down = self.w(who, mp + "w_down")
+                cache = layer and layer[who][0][j7]
+                sel = (q0, q1) if self.split_heads else None
+
+                def fn(t, q, k, v, _p=p, _sel=sel, _cache=cache,
+                       _q=(q0, q1), _r=(r0, r1), _wd=w_down):
+                    gate = t[..., inner + _q[0] * dh:inner + _q[1] * dh]
+                    o, state = S.mlstm_mix(_p, cfg, t[..., :inner], gate,
+                                           qkv=(q, k, v), heads=_sel,
+                                           cache=_cache)
+                    if _cache is not None:
+                        _cache.copy_(state)
+                    return self._partial_mm(
+                        o[..., _r[0] - _q[0] * dh:_r[1] - _q[0] * dh], _wd)
                 with self.on(who):
-                    out[who] = self._ffn_partial(who, i, x, train)
-            parts = {who: y for who, (y, _) in out.items()}
-            if next(iter(out.values()))[1]:
-                parts = self._psum_model(parts)
-        return self._each(xs, lambda who, x: x + parts[who].to(x.dtype))
+                    parts[who] = self._stage(fn, t, train, *qkv[who])
+            xs = self._add(xs, parts, self.sliced(mp + "w_down"))
+        sp = pre + "slstm."
+        hs = self._each(xs, lambda who, x: L.rms_norm(
+            self.w(who, pre + "ln_s"), x, cfg.norm_eps))
+        pre_act = self._whole_mm(sp + "w_up", hs)
+        parts = {}
+        for who, t in pre_act.items():
+            with self.on(who):
+                cache = layer and layer[who][1]
+                hid, carry = S.slstm_scan({"w_rec": self.w(who, sp + "w_rec")},
+                                          cfg, t.float(), cache=cache)
+                if cache is not None:
+                    for slab, new in zip(cache, carry):
+                        slab.copy_(new)
+                r0, r1 = self._span(who, sp + "w_down", 0)
+                parts[who] = self._partial_mm(
+                    hid[..., r0:r1].to(self.model.dtype),
+                    self.w(who, sp + "w_down"))
+        return self._add(xs, parts, self.sliced(sp + "w_down"))
 
     # ------------------------------------------------------------ caches --
-    def _needs(self, cache, k: int, i: int) -> dict:
+    def _needs(self, cache, k: int, i: int, split: bool) -> dict:
         """Member -> the region of cache leaf ``k`` layer ``i`` it needs:
         its batch shard's rows (dimension 2 of xLSTM's mLSTM states, 1
-        elsewhere); in a tensor-parallel block, the kv heads it computes."""
+        elsewhere); in a split block, the heads it computes (its kv heads,
+        its mamba or mLSTM heads)."""
         leaf = cache.leaves[k]
-        bdim = 2 if self.model.xlstm and k == 0 else 1
+        xlstm = self.model.xlstm
+        bdim = 2 if xlstm and k == 0 else 1
         rows = self.mem.rows(cache.batch_size)
         out = {}
         for j, m in self.mem.all():
             need = [(0, n) for n in leaf.shape]
             need[0] = (i, i + 1)
             need[bdim] = (rows[j].start, rows[j].stop)
-            if self.tp:
-                c0, c1, _ = self._kv_cols(m, True)
-                need[2] = (c0, c1)
+            if split and not self.cfg.mla:
+                q0, q1, _ = self.heads[m]
+                if xlstm and k == 0:
+                    need[3] = (q0, q1)
+                elif not xlstm and k < 2:
+                    need[2] = self._kv_cols(m, True)[:2]
+                elif k == 2 and not xlstm:
+                    need[2] = (q0, q1)
             out[(j, m)] = tuple(need)
         return out
 
@@ -1162,7 +1634,13 @@ class MeshExecutor:
                     self.w(who, "frontend_proj")
                 pos[who] = torch.arange(xs[who].shape[1],
                                         device=xs[who].device)
+        rows, s = next(iter(xs.values())).shape[:2]
+        split = self.split_form("enc_blocks.0", rows, s)
         for i, blk in enumerate(self.model.enc_blocks):
+            if split:
+                xs = self._tp_block(i, xs, pos, None, None, impl, train,
+                                    prefix="enc_blocks", cfg=cfg)
+                continue
             xs = self._gathered(
                 f"enc_blocks.{i}", blk, xs,
                 lambda f, x, who: f(cfg, x, pos[who], impl=impl,
@@ -1184,24 +1662,27 @@ class MeshExecutor:
         model, cfg = self.model, self.cfg
         inp, b = self._split(_as_batch(batch))
         xs = self._embed(inp)
-        s = next(iter(xs.values())).shape[1]
+        rows, s = next(iter(xs.values())).shape[:2]
         pos = self._each(xs, lambda who, x: cache_len + torch.arange(
             s, device=x.device))
         enc = self._encoder(inp, impl, train) if cfg.encoder_layers else None
         if model.sparse_band:
             a_band = S.decay_band_csr(s, cfg.band_window, cfg.band_decay)
         blocks = model.groups if model.xlstm else model.blocks
+        prefix = "groups" if model.xlstm else "blocks"
+        split = self.split_form(f"{prefix}.0", rows, s, cache=cache)
         for i, blk in enumerate(blocks):
             layer = taken = needs = None
             if cache is not None:
-                needs = [self._needs(cache, k, i)
+                needs = [self._needs(cache, k, i, split)
                          for k in range(len(cache.leaves))]
                 taken = [cache.take(k, n) for k, n in enumerate(needs)]
                 layer = {who: self._layer_cache([t[who][0] for t in taken])
                          for who in xs}
-            if self.tp:
-                xs = self._tp_block(i, xs, pos, layer, cache_len, impl,
-                                    train)
+            if split:
+                xs = self._split_block(i, xs, pos, layer, cache_len, impl,
+                                       train, enc,
+                                       a_band if model.sparse_band else None)
             elif model.xlstm:
                 xs = self._gathered(
                     f"groups.{i}", blk, xs,
@@ -1226,6 +1707,19 @@ class MeshExecutor:
         logits = self._each(xs, lambda who, x: L.rms_norm(
             self.w(who, "ln_f"), x, cfg.norm_eps) @ self.pieces[who][k])
         return logits, b
+
+    def _split_block(self, i, xs, pos, layer, cache_len, impl, train, enc,
+                     a_band) -> dict:
+        """Block (or xLSTM group) ``i`` in the split form."""
+        if self.model.xlstm:
+            return self._xlstm_group(i, xs, layer, train)
+        if self.model.sparse_band:
+            return self._band_block(i, xs, a_band, impl, train)
+        if self.cfg.block_pattern == "attn+mamba":
+            return self._hybrid_block(i, xs, pos, layer, cache_len, impl,
+                                      train)
+        return self._tp_block(i, xs, pos, layer, cache_len, impl, train,
+                              enc=enc)
 
     def logits_by_shard(self, logits: dict) -> list:
         """Each data shard's logits, gathered over ``model`` onto its first

@@ -35,7 +35,8 @@
 
 The reference test's own CLI cell (``--arch hymba-1.5b --shape long_500k
 --multi-pod``) counts 512 members for about a minute on this CPU, past
-this file's budget: it runs in ``chip_smoke.py`` (phase 21) only.
+this file's budget: ``chip_smoke.py`` (phase 21) runs that cell on the
+single-pod mesh (256 members).
 """
 import dataclasses
 import json
