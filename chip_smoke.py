@@ -442,6 +442,17 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                bytes equal to ``launch.dryrun._count``'s on a ``meta``
                mesh; then 2 ZeRO-1 steps of the band model on (2, 2)
                against the unsharded trainer, as 20c.
+ 23. the paper's prior-work baselines (``phase_23``, Figure 6):
+               overlapped tiling (8 partitions, each with its dependencies'
+               D1 rows replicated) and atomic tiling (32 tiles in 4 waves,
+               a barrier after each) on phase 4's two graphs, f32, 128
+               columns, each partition or tile one ``spmm_ell`` call on a
+               hybrid ELL packed in the call; held to the same schedule
+               on the plain version (1e-4) and to ``tile_fused_matmul``
+               (2e-3); wall and CUDA-event times, the host packing time,
+               fig 6's ratios, the overlapped redundancy, Figure 1's
+               fused compute ratio and the block pattern's nonzeros
+               printed.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after: phases 4-5 (the GCN path, gradients included) must
@@ -463,7 +474,9 @@ prefill, and nothing else (their training launches none); phase 20's
 mesh prefills launch flash once a layer on each member (granite 128,
 qwen2.5-3b 144), its ZeRO-1 training none; phase 21's prefill launches
 flash once a layer, its training step none; phase 22's members each
-launch what the unsharded model launches.  Launches made to
+launch what the unsharded model launches; phase 23's baselines launch
+``spmm_ell`` once a partition or tile (8 and 32) and nothing else.
+Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON record (with each kernel's tensor-core instruction count
@@ -475,6 +488,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -836,6 +850,13 @@ P22_CELLS = (
 # a prompt short enough that the per-call rule splits every prefill
 P22_BATCH, P22_PROMPT, P22_DECODE = 4, 256, 4
 P22_TRAIN_MESH, P22_TRAIN_SHAPE, P22_TRAIN_STEPS = (2, 2), (4, 256), 2
+# phase 23: the paper's prior-work baselines (fig 6) on phase 4's graphs
+P23_NODES = N_NODES
+P23_COLS = 128             # b_col = c_col
+P23_P, P23_WAVES = 8, 4
+P23_LAUNCHES = {"overlapped": P23_P, "atomic": P23_P * P23_WAVES}
+P23_TIMED = 3              # calls timed a path (medians)
+P23_BLOCK, P23_CT = 128, 2048
 GCN_KERNELS = ("spmm_ell", "tile_fused_gemm_spmm_wf0",
                "tile_fused_spmm_spmm_wf0")
 # phase 2: the functions of each kernel in the library's SASS (a part of the
@@ -6534,6 +6555,143 @@ def phase_22(dev) -> dict:
     return launches
 
 
+def phase_23(dev) -> dict:
+    """The paper's overlapped and atomic tiling baselines (Figure 6) on
+    the card: ``fused_ops.overlapped_gemm_spmm`` and ``atomic_gemm_spmm``
+    at ``P23_P`` partitions (``P23_WAVES`` waves) on phase 4's banded and
+    power-law graphs, f32, ``b_col = c_col = P23_COLS``.  Each is held to
+    the same schedule on ``spmm_ell``'s plain version (f32 ``TOL``) and
+    to ``tile_fused_matmul`` (``backend="auto"``, ``MAIN_TOL``), and must
+    launch ``spmm_ell`` once a partition or tile and nothing else.
+    Printed, not held: wall and CUDA-event times (medians of
+    ``P23_TIMED`` calls), the host packing time and the baselines' device
+    work with their partitions packed ahead (``fused_ops.run_*``), fig
+    6's ``vs_atomic`` / ``vs_overlapped`` (a baseline's wall over the
+    fused call's) both ways, ``overlapped_redundancy``,
+    ``fused_compute_ratio`` and the block pattern's nonzeros.  Returns
+    the launches by path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.sparse import block_csr_pattern
+    from repro_torch.core.sparse.random import banded_spd, powerlaw_graph
+    from repro_torch.core.tilefusion import (api, fused_compute_ratio,
+                                             fused_ops)
+    from repro_torch.kernels import ops
+    t23 = time.perf_counter()
+    smi = nvidia_smi()
+    launches = {}
+    baselines = {"overlapped": (fused_ops.overlapped_tiles,
+                                fused_ops.overlapped_gemm_spmm,
+                                fused_ops.pack_overlapped,
+                                fused_ops.run_overlapped),
+                 "atomic": (functools.partial(fused_ops.atomic_tiles,
+                                              n_waves=P23_WAVES),
+                            fused_ops.atomic_gemm_spmm,
+                            fused_ops.pack_atomic, fused_ops.run_atomic)}
+
+    def timed(fn):
+        """(wall ms, event ms): medians of ``P23_TIMED`` calls, each
+        ending in a synchronize; the events include the host's gaps."""
+        walls, events = [], []
+        for _ in range(P23_TIMED):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            events.append(start.elapsed_time(end))
+        return float(np.median(walls)), float(np.median(events))
+
+    rng = np.random.default_rng(230)
+    for name, make in (("banded", banded_spd), ("power-law", powerlaw_graph)):
+        t0 = time.perf_counter()
+        a = make(P23_NODES, 8, seed=0)
+        b = torch.from_numpy(rng.standard_normal(
+            (P23_NODES, P23_COLS), np.float32)).to(dev)
+        c = torch.from_numpy(rng.standard_normal(
+            (P23_COLS, P23_COLS), np.float32)).to(dev)
+        t_graph = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fused = api.tile_fused_matmul(a, b, c)
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        pick = api.select_backend(
+            api.get_schedule(a, b_col=P23_COLS, c_col=P23_COLS), dev)
+        times = {"fused": timed(lambda: api.tile_fused_matmul(a, b, c))}
+        print(f"[23] {name}: graph and operands {t_graph:.2f} s, first "
+              f"tile_fused_matmul (inspection) {t_first:.2f} s", flush=True)
+        ahead = {}
+        for base, (tiles, run, pack, run_packed) in baselines.items():
+            t0 = time.perf_counter()
+            sched = tiles(a, P23_P)
+            t_sched = (time.perf_counter() - t0) * 1e3
+            # a partition with no deps, or a tile with no rows: no call
+            want = (sum(1 for deps, _ in sched if deps.size)
+                    if base == "overlapped" else
+                    sum(1 for wave in sched for jr in wave if jr.size))
+            ops.reset_launch_counts()
+            got = run(a, sched, b, c)
+            torch.cuda.synchronize()
+            counts = launches[f"{name} {base}"] = ops.launch_counts()
+            plain = run(a, sched, b, c, kernel=False)
+            err_plain = rel_err(got, plain)
+            err_fused = rel_err(got, fused)
+            others = {k: n for k, n in counts.items()
+                      if k != "spmm_ell" and n}
+            pack_ms, _ = timed(lambda: pack(a, sched, dev, c.dtype))
+            times[base] = timed(lambda: run(a, sched, b, c))
+            # the device work alone, the partitions packed ahead
+            packs = pack(a, sched, dev, c.dtype)
+            ahead[base] = timed(lambda: run_packed(packs, a.n_rows, b, c))
+            del packs
+            print(f"[23] {name} {base}: spmm_ell launches "
+                  f"{counts['spmm_ell']} (expected {want}, "
+                  f"{P23_LAUNCHES[base]} partitions / tiles); vs its plain "
+                  f"version max abs {err_plain[0]:.3e} rel "
+                  f"{err_plain[1]:.3e} (limit {TOL['float32']:.0e}); vs "
+                  f"tile_fused_matmul ({pick}) rel {err_fused[1]:.3e} "
+                  f"(limit {MAIN_TOL:.0e}); wall {times[base][0]:.3f} ms, "
+                  f"CUDA events {times[base][1]:.3f} ms (medians of "
+                  f"{P23_TIMED}); schedule {t_sched:.3f} ms, host packing "
+                  f"and upload {pack_ms:.3f} ms, packed ahead: wall "
+                  f"{ahead[base][0]:.3f} ms, CUDA events "
+                  f"{ahead[base][1]:.3f} ms; card {smi}", flush=True)
+            if (counts["spmm_ell"] != want or want != P23_LAUNCHES[base]
+                    or others or err_plain[1] > TOL["float32"]
+                    or err_fused[1] > MAIN_TOL):
+                fail(f"phase 23 {name} {base}: launches {counts} (expected "
+                     f"{want}), errors {err_plain}, {err_fused}")
+            del got, plain
+        wall, event = times["fused"]
+        print(f"[23] {name} tile fusion ({pick}): wall {wall:.3f} ms, CUDA "
+              f"events {event:.3f} ms; vs_atomic "
+              f"{times['atomic'][0] / wall:.3f} (events "
+              f"{times['atomic'][1] / event:.3f}), vs_overlapped "
+              f"{times['overlapped'][0] / wall:.3f} (events "
+              f"{times['overlapped'][1] / event:.3f}); packed ahead "
+              f"vs_atomic {ahead['atomic'][0] / wall:.3f} (events "
+              f"{ahead['atomic'][1] / event:.3f}), vs_overlapped "
+              f"{ahead['overlapped'][0] / wall:.3f} (events "
+              f"{ahead['overlapped'][1] / event:.3f}); "
+              f"overlapped_redundancy "
+              f"{fused_ops.overlapped_redundancy(a, P23_P):.4f}, "
+              f"fused_compute_ratio(ct_size={P23_CT}) "
+              f"{fused_compute_ratio(a, ct_size=P23_CT):.4f}, "
+              f"block_csr_pattern(a, {P23_BLOCK}).nnz "
+              f"{block_csr_pattern(a, P23_BLOCK).nnz} (of {a.nnz}); card "
+              f"{smi}", flush=True)
+        del a, b, c, fused
+    gc_collect()
+    print(f"[23] phase 23 took {time.perf_counter() - t23:.1f} s; launches "
+          f"by path {launches}", flush=True)
+    return launches
+
+
 def gc_collect() -> None:
     import gc
 
@@ -6583,6 +6741,8 @@ def main(device: str = "cuda") -> None:
     gc.collect()
     torch.cuda.empty_cache()
     p22_launches = phase_22(torch.device(device))
+    gc_collect()
+    p23_launches = phase_23(torch.device(device))
     records, band_records = run["records"], run["band_records"]
     path_launches, tensor_core_ops = (run["path_launches"],
                                       run["tensor_core_ops"])
@@ -6624,7 +6784,10 @@ def main(device: str = "cuda") -> None:
                              "float32")])
         extra = ({} if name != "spmm_ell" else
                  dict(case=SPMM_RECORD,
-                      replaced_chain_ms=rec["replaced_chain_ms"]))
+                      replaced_chain_ms=rec["replaced_chain_ms"],
+                      # phase 23: the prior-work baselines
+                      baseline_launches={path: c[name] for path, c in
+                                         p23_launches.items()}))
         if name in ("flash_attention", "fused_moe_ffn"):
             # phase 16: the MoE paths' launches (a granite / llama4
             # prefill; the MoE kernel launches on none of them)

@@ -1,4 +1,6 @@
-from .formats import CSR, HybridELL, TileELL, hybrid_width_cap
+from .formats import (CSR, HybridELL, TileELL, block_csr_pattern,
+                      hybrid_width_cap)
 from . import random
 
-__all__ = ["CSR", "HybridELL", "TileELL", "hybrid_width_cap", "random"]
+__all__ = ["CSR", "HybridELL", "TileELL", "block_csr_pattern",
+           "hybrid_width_cap", "random"]

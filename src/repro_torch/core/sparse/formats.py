@@ -314,6 +314,27 @@ class HybridELL:
                 idx(self.spill_cols, torch.int64), vals(self.spill_vals))
 
 
+def block_csr_pattern(a: CSR, block: int) -> CSR:
+    """Collapse a CSR matrix to its block-level sparsity pattern.
+
+    Returns a CSR over the ``(ceil(n / block) x ceil(m / block))`` block
+    grid where ``data[k]`` is the number of scalar nonzeros inside block
+    ``k``: the DAG a scheduler at block granularity runs on."""
+    nb_rows = -(-a.n_rows // block)
+    nb_cols = -(-a.n_cols // block)
+    rows = np.repeat(np.arange(a.n_rows, dtype=np.int64), np.diff(a.indptr))
+    brows = (rows // block).astype(np.int64)
+    bcols = (a.indices.astype(np.int64) // block)
+    key = brows * nb_cols + bcols
+    uniq, counts = np.unique(key, return_counts=True)
+    urows = (uniq // nb_cols).astype(np.int32)
+    ucols = (uniq % nb_cols).astype(np.int32)
+    indptr = np.zeros(nb_rows + 1, dtype=np.int32)
+    np.add.at(indptr, urows + 1, 1)
+    indptr = np.cumsum(indptr).astype(np.int32)
+    return CSR(nb_rows, nb_cols, indptr, ucols, counts.astype(np.float64))
+
+
 def block_diag_csr(mats, *, row_sizes=None, col_sizes=None) -> CSR:
     """Stack CSR matrices block-diagonally into one CSR.
 

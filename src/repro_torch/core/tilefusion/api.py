@@ -105,7 +105,8 @@ from . import cost_model, fused_ops, reorder, sharded
 from .schedule import DeviceSchedule, to_device_schedule
 from .scheduler import (MESH_LAYOUTS, Schedule, build_schedule,
                         resolve_mesh_layout)
-from .spec import FusionSpec
+from .spec import (FusionSpec, reset_legacy_warning,  # noqa: F401 (re-export)
+                   spec_from_legacy_kwargs)
 
 #: Valid ``backend=`` values for tile_fused_matmul.
 BACKENDS = ("auto", "cuda", "torch", "unfused", "sharded")
@@ -223,11 +224,21 @@ def _cache_put(cache, key, value, evict_key: str = "evictions") -> None:
         _stats[evict_key] += 1
 
 
-def _coerce_spec(spec) -> FusionSpec:
+def _coerce_spec(spec, legacy: dict, caller: str) -> FusionSpec:
+    """Resolve the ``spec= | **legacy-kwargs`` surface to one FusionSpec.
+
+    Mixing both raises (two sources of truth for one knob is exactly the
+    bug class the spec removes); bare calls get the default spec."""
+    if legacy:
+        if spec is not None:
+            raise TypeError(
+                f"{caller}() got both spec= and legacy keyword(s) "
+                f"{sorted(legacy)}; put every knob on the FusionSpec")
+        return spec_from_legacy_kwargs(legacy, caller=caller)
     if spec is None:
         return FusionSpec()
     if not isinstance(spec, FusionSpec):
-        raise TypeError(f"spec= expects a FusionSpec, got "
+        raise TypeError(f"{caller}() spec= expects a FusionSpec, got "
                         f"{type(spec).__name__}")
     return spec
 
@@ -415,7 +426,7 @@ def _packed_ell_bytes(a: CSR, dsched: DeviceSchedule, b_is_sparse: bool,
 
 def get_schedule(a: CSR, *, b_col: int, c_col: int,
                  b_is_sparse: bool = False,
-                 spec: FusionSpec | None = None) -> ScheduleEntry:
+                 spec: FusionSpec | None = None, **legacy) -> ScheduleEntry:
     """Run Algorithm 1 once per (content, shapes, resolved spec) and
     memoize; later calls with the same key return the cached entry.
     ``spec.dtype_bytes=None`` defaults to 4 here (``tile_fused_matmul``
@@ -447,8 +458,12 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
     ``spec.mesh`` (a ``models.sharding.Mesh`` of more than one device)
     keys a mesh entry by ``sharded.mesh_key`` and the sharding knobs; it
     shards the mesh-free entry of the same spec (``_mesh_schedule``).  A
-    trivial mesh keys exactly like no mesh."""
-    spec = _coerce_spec(spec)
+    trivial mesh keys exactly like no mesh.
+
+    ``**legacy`` is the historical keyword surface (``p=``, ``ct_size=``,
+    ...): a deprecation shim that builds the spec and warns once per
+    process (``spec.spec_from_legacy_kwargs``)."""
+    spec = _coerce_spec(spec, legacy, "get_schedule")
     _check_mesh(spec)
     spec = dataclasses.replace(
         spec, dtype_bytes=4 if spec.dtype_bytes is None
@@ -557,7 +572,8 @@ def _mesh_schedule(a: CSR, *, b_col: int, c_col: int, b_is_sparse: bool,
 
 def store_bucket_schedule(entry: ScheduleEntry, *, bucket: tuple,
                           patched: bool = False,
-                          spec: FusionSpec | None = None) -> ScheduleEntry:
+                          spec: FusionSpec | None = None,
+                          **legacy) -> ScheduleEntry:
     """Publish a serving-tier entry (headroom-padded at bucket build, or
     patched by the incremental inspector) under its bucket cache key,
     replacing whatever the bucket held.
@@ -571,8 +587,9 @@ def store_bucket_schedule(entry: ScheduleEntry, *, bucket: tuple,
     in ``schedule_cache_stats()``."""
     if entry.content_digest is None:
         raise ValueError("bucket entries need content_digest set")
+    spec = _coerce_spec(spec, legacy, "store_bucket_schedule")
     spec = dataclasses.replace(
-        _coerce_spec(spec), mesh=None, transpose=False, reorder=None,
+        spec, mesh=None, transpose=False, reorder=None,
         dtype_bytes=4 if spec.dtype_bytes is None else int(spec.dtype_bytes))
     key = (("bucket", tuple(bucket)), entry.b_col, entry.c_col,
            entry.b_is_sparse, _spec_key(spec, cap=entry.width_cap))
@@ -753,6 +770,9 @@ def clear_schedule_cache() -> None:
         _ordering_cache.clear()
         for k in _stats:
             _stats[k] = 0
+    # re-arm the once-per-process legacy-kwargs deprecation warning so
+    # warning tests stay order-independent across the suite
+    reset_legacy_warning()
 
 
 def schedule_cache_stats() -> dict:
@@ -1040,7 +1060,8 @@ class _SpmmSpmmFn(torch.autograd.Function):
 
 def tile_fused_matmul(a: CSR, b_or_a1, c: torch.Tensor, *,
                       backend: str = "auto",
-                      spec: FusionSpec | None = None) -> torch.Tensor:
+                      spec: FusionSpec | None = None,
+                      **legacy) -> torch.Tensor:
     """``D = a @ (b_or_a1 @ c)`` through the tile-fusion schedule, on the
     device where the dense operands live.
 
@@ -1060,12 +1081,16 @@ def tile_fused_matmul(a: CSR, b_or_a1, c: torch.Tensor, *,
         the product with the sparse operands transposed; ``spec.mesh``
         (a ``models.sharding.Mesh`` of the operands' device type) spreads
         it over the mesh's devices.
+      **legacy: the historical keyword surface (``p=``, ``ct_size=``,
+        ``mesh=``, ...) — a deprecation shim that builds the spec for you
+        and warns once per process.  Mixing ``spec=`` with legacy
+        keywords raises.
 
     Differentiable in the dense operands: under grad mode, when one of
     them requires grad, the backward runs on the transpose entries (see
     the module docstring).
     """
-    spec = _coerce_spec(spec)
+    spec = _coerce_spec(spec, legacy, "tile_fused_matmul")
     if backend not in BACKENDS:
         raise ValueError(f"backend={backend!r}; expected one of {BACKENDS}")
     if not isinstance(c, torch.Tensor):

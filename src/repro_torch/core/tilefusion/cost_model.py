@@ -10,11 +10,9 @@ cost(T, bCol, cCol) = (nz(T) + uc(T) + t + |J|) * cCol + idx
   |J|   : fused second-op iterations (rows of D written)
   idx   : indexing cost for the sparse operand(s) (int32 per nonzero)
 
-A copy of ``repro.core.tilefusion.cost_model`` (the parts the forward
-and training paths, the reorder transform, the serving tier's buckets and
-the sharded dispatch price with), keeping the reference's constants for
-parity.  The unit is *elements* scaled by dtype bytes so the same model
-serves f32/bf16/f64.
+A copy of ``repro.core.tilefusion.cost_model``, keeping the reference's
+constants for parity, without its TPU VMEM budget.  The unit is
+*elements* scaled by dtype bytes so the same model serves f32/bf16/f64.
 """
 from __future__ import annotations
 
@@ -45,6 +43,24 @@ def operand_dtype_bytes(*operands, default: int = 4) -> int:
             if size is not None:
                 return int(size)
     return int(default)
+
+#: The paper's CPU setting, used by benchmarks that mirror it: L1 + L2 +
+#: L3 a core on the CascadeLake host of its experiments (~2.4 MB).
+DEFAULT_CPU_CACHE_BYTES = int(2.4 * 1024 * 1024)
+
+
+def hybrid_packed_elements(counts: np.ndarray, cap: int | None) -> int:
+    """Value slots a HybridELL pack of rows with nonzero ``counts`` streams:
+    padded body (``n_rows * width``) plus ``SPILL_ELEMENTS`` per spilled
+    entry.  ``cap=None`` means pad-to-max (no spill)."""
+    counts = np.asarray(counts, dtype=np.int64)
+    if counts.size == 0:
+        return 0
+    w_max = max(int(counts.max()), 1)
+    w = w_max if cap is None else max(min(int(cap), w_max), 1)
+    spill = int(np.maximum(counts - w, 0).sum())
+    return int(counts.shape[0]) * w + SPILL_ELEMENTS * spill
+
 
 def _row_counts(a: CSR) -> np.ndarray:
     """Per-row nonzero counts, memoized per CSR instance (immutable, like
@@ -230,6 +246,14 @@ def reorder_gain(base_tm: dict, perm_tm: dict) -> float:
     if base <= 0.0:
         return 0.0
     return 1.0 - float(perm_tm["fused_bytes"]) / base
+
+
+def tile_cost_bytes(a, i_start, i_end, j_rows, b_col, c_col, b_is_sparse,
+                    dtype_bytes: int = 4) -> float:
+    """Eq 3's cost of one tile in bytes: ``tile_cost_elements`` at
+    ``dtype_bytes`` an element."""
+    return tile_cost_elements(a, i_start, i_end, j_rows, b_col, c_col,
+                              b_is_sparse) * dtype_bytes
 
 
 def spmm_bytes(nnz: int, n_rows: int, n_cols: int, c_col: int,

@@ -12,6 +12,13 @@ written in place into ``D``.  ``index_add_`` of spill lanes remains only on
 .add``) and in ``op1_spill``, the dense spill input of the SpMM-SpMM
 kernel.
 
+The prior-work baselines (the paper's overlapped and atomic tilings,
+§4.1.3) run their row products through the same wrapper, one call per
+partition or tile written in place into ``D``; they pack each partition
+as a hybrid ELL inside the call, where the reference pads it to its
+widest row (``pack_*`` / ``run_*`` split a call's host packing from its
+device work).
+
 Every executor runs where its operands live.  The schedule's index and
 value arrays are uploaded once per ``(device, dtype)`` and memoized on the
 (cached) ``DeviceSchedule`` (``schedule_tensors`` / ``op1_tensors``), so a
@@ -445,3 +452,143 @@ def unfused_gemm_spmm(hell_a: HybridTensors, b, c):
 
 def unfused_spmm_spmm(hell_a: HybridTensors, hell_a1: HybridTensors, c):
     return spmm_hybrid(hell_a, spmm_hybrid(hell_a1, c))
+
+
+# --------------------------------------------------------------------------
+# Prior-work baselines (paper §4.1.3 adaptations)
+# --------------------------------------------------------------------------
+def overlapped_tiles(a: CSR, p: int):
+    """CA-style overlapped tiling: equal partitions of J; every partition
+    *replicates* all D1 rows its J rows depend on (no synchronization,
+    redundant compute).  Returns per-partition (dep_rows, j_rows).  The
+    partitions are contiguous, so a partition's dependencies are the
+    unique columns of one slice of ``a.indices``."""
+    parts = np.array_split(np.arange(a.n_rows, dtype=np.int32), p)
+    out = []
+    for jr in parts:
+        if jr.size == 0:
+            continue
+        lo, hi = int(a.indptr[jr[0]]), int(a.indptr[jr[-1] + 1])
+        deps = np.unique(a.indices[lo:hi])
+        out.append((deps.astype(np.int32), jr))
+    return out
+
+
+def _pack_rows(a: CSR, rows: np.ndarray, device, dtype,
+               remap: np.ndarray | None = None) -> HybridTensors:
+    """Rows ``rows`` of ``a`` as a ``HybridELL`` capped at the traffic-
+    optimal width of their own counts (``hybrid_width_cap``), on
+    ``device`` with the spill lanes as the kernel's row tails; ``remap``
+    maps global columns to rows of a replicated table."""
+    hell = HybridELL.from_csr_rows(a, rows)
+    if remap is not None:
+        hell = dataclasses.replace(hell, cols=remap[hell.cols],
+                                   spill_cols=remap[hell.spill_cols])
+    return HybridTensors.upload(hell, device, dtype)
+
+
+def _rows_into(d: torch.Tensor, hell: HybridTensors, table: torch.Tensor,
+               rows: torch.Tensor, kernel: bool) -> None:
+    """``d[rows] = hell · table`` in place: one call of the ``spmm_ell``
+    kernel wrapper (``kernel=False``: its plain version)."""
+    run = kops.spmm_ell if kernel else kref.spmm_ell
+    run(hell.cols, hell.vals, table, tails=hell.tails, out=d,
+        out_rows=rows)
+
+
+def _rows_tensor(rows: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(rows, dtype=torch.int32).to(device)
+
+
+def _barrier(t: torch.Tensor) -> None:
+    """Wait for the card's queued work (the twin of ``block_until_ready``);
+    on the CPU there is nothing queued."""
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def pack_overlapped(a: CSR, parts, device, dtype) -> list:
+    """The overlapped schedule on ``device``: per partition with
+    dependencies, ``(deps, pack, rows)``, the pack's columns remapped to
+    rows of the replicated ``b[deps] @ c``.  A partition whose rows are
+    all empty has none and is left out (D starts at 0)."""
+    packs = []
+    for deps, jr in parts:
+        if deps.size == 0:
+            continue
+        remap = np.zeros(a.n_cols, np.int32)
+        remap[deps] = np.arange(deps.shape[0], dtype=np.int32)
+        packs.append((torch.as_tensor(deps).to(device, torch.int64),
+                      _pack_rows(a, jr, device, dtype, remap),
+                      _rows_tensor(jr, device)))
+    return packs
+
+
+def run_overlapped(packs, n_j: int, b: torch.Tensor, c: torch.Tensor, *,
+                   kernel: bool = True) -> torch.Tensor:
+    """Run ``pack_overlapped``'s partitions: the replicated ``b[deps] @
+    c``, then the partition's rows written in place into D."""
+    d = torch.zeros((n_j, c.shape[1]), dtype=c.dtype, device=c.device)
+    for deps, hell, rows in packs:
+        d1_rep = b[deps] @ c                   # replicated compute
+        _rows_into(d, hell, d1_rep, rows, kernel)
+    return d
+
+
+def overlapped_gemm_spmm(a: CSR, parts, b: torch.Tensor, c: torch.Tensor,
+                         *, kernel: bool = True) -> torch.Tensor:
+    """Executes the overlapped schedule on ``c``'s device: per partition
+    the replicated ``b[deps] @ c``, then its rows through ``spmm_ell``
+    (columns remapped to the replicated rows) written in place into D.
+    Each partition is packed in the call, as in the reference, but as a
+    hybrid ELL (not pad-to-max: a hub row would pad every row of its
+    partition to the hub's width)."""
+    return run_overlapped(pack_overlapped(a, parts, c.device, c.dtype),
+                          a.n_rows, b, c, kernel=kernel)
+
+
+def overlapped_redundancy(a: CSR, p: int) -> float:
+    """Replicated op-1 iterations / |I| (paper's G2_circuit/inline_1 metric)."""
+    parts = overlapped_tiles(a, p)
+    total = sum(int(d.shape[0]) for d, _ in parts)
+    return total / max(a.n_cols, 1)
+
+
+def atomic_tiles(a: CSR, p: int, n_waves: int = 4):
+    """Sparse-tiling-style schedule: J rows partitioned into p*n_waves tiles;
+    each wave is a synchronization barrier (multi-wavefront, vs tile fusion's
+    single barrier).  Models the synchronization overhead, not CPU atomics."""
+    parts = np.array_split(np.arange(a.n_rows, dtype=np.int32), p * n_waves)
+    waves = [parts[w::n_waves] for w in range(n_waves)]
+    return waves
+
+
+def pack_atomic(a: CSR, waves, device, dtype) -> list:
+    """The atomic schedule on ``device``: per wave, ``(pack, rows)`` of
+    each non-empty tile (global columns into D1)."""
+    return [[(_pack_rows(a, jr, device, dtype), _rows_tensor(jr, device))
+             for jr in wave if jr.size] for wave in waves]
+
+
+def run_atomic(packs, n_j: int, b: torch.Tensor, c: torch.Tensor, *,
+               kernel: bool = True) -> torch.Tensor:
+    """Run ``pack_atomic``'s waves: ``D1 = b @ c``, a barrier, then each
+    wave's tiles written in place into D, a barrier after each wave."""
+    d1 = b @ c
+    _barrier(d1)                               # producer barrier
+    d = torch.zeros((n_j, c.shape[1]), dtype=c.dtype, device=c.device)
+    for wave in packs:
+        for hell, rows in wave:
+            _rows_into(d, hell, d1, rows, kernel)
+        _barrier(d)                            # per-wave barrier
+    return d
+
+
+def atomic_gemm_spmm(a: CSR, waves, b: torch.Tensor, c: torch.Tensor, *,
+                     kernel: bool = True) -> torch.Tensor:
+    """Executes the atomic schedule on ``c``'s device: ``D1 = b @ c``, a
+    barrier, then wave by wave one ``spmm_ell`` call per non-empty tile
+    written in place into D, with a barrier after each wave.  The tiles
+    are packed in the call, as hybrid ELLs."""
+    return run_atomic(pack_atomic(a, waves, c.device, c.dtype), a.n_rows,
+                      b, c, kernel=kernel)

@@ -18,13 +18,15 @@ Builds a two-wavefront schedule of fused tiles from the sparsity pattern of
 The schedule is computed once per sparsity pattern (numpy, host side) and
 reused across steps — the amortization argument of paper §4.2.3.
 
-A copy of ``repro.core.tilefusion.scheduler`` (the inspector, and the
-mesh partition helpers the sharded dispatch uses).  The inspector is O(nnz) vectorized: the fusion test ``all deps
-of row j in [i_start, i_end)`` is equivalent to ``row_min[j] >= i_start and
-row_max[j] < i_end`` where the per-row column extents come from one
-``ufunc.reduceat`` pass (``CSR.row_extents``, memoized per matrix).  Step 1
-classifies every candidate row in one shot instead of re-scanning CSR rows
-per tile; step 2's recursive split reuses the same extents.
+A copy of ``repro.core.tilefusion.scheduler``: the inspector, the
+mesh partition helpers the sharded dispatch uses, and Figure 1's
+``fused_compute_ratio``.  The inspector is O(nnz) vectorized: the fusion
+test ``all deps of row j in [i_start, i_end)`` is equivalent to
+``row_min[j] >= i_start and row_max[j] < i_end`` where the per-row column
+extents come from one ``ufunc.reduceat`` pass (``CSR.row_extents``,
+memoized per matrix).  Step 1 classifies every candidate row in one shot
+instead of re-scanning CSR rows per tile; step 2's recursive split reuses
+the same extents.
 """
 from __future__ import annotations
 
@@ -377,3 +379,20 @@ def balanced_mesh_partition(costs: np.ndarray, mesh_shape,
     across depth), so only the row axis enters the balance."""
     n_row, n_repl, n_depth = resolve_mesh_layout(mesh_shape, layout)
     return balanced_contiguous_partition(costs, n_row), n_row, n_repl, n_depth
+
+
+def fused_compute_ratio(a: CSR, ct_size: int = 2048) -> float:
+    """Figure 1's metric: fraction of second-op *computation* (nonzeros) whose
+    dependencies are contained in coarse tiles of size ct_size.
+
+    One vectorized pass: candidate rows j < min(n_cols, n_rows), tile
+    range [ (j//ct)·ct, min((j//ct+1)·ct, n_cols) ), extents containment,
+    then a masked sum of per-row nonzero counts."""
+    row_min, row_max = a.row_extents()
+    j = np.arange(min(a.n_cols, a.n_rows), dtype=np.int64)
+    i0 = (j // ct_size) * ct_size
+    i1 = np.minimum(i0 + ct_size, a.n_cols)
+    m = (row_min[j] >= i0) & (row_max[j] < i1)
+    counts = (a.indptr[1:] - a.indptr[:-1]).astype(np.int64)
+    fused_nnz = int(counts[j[m]].sum())
+    return fused_nnz / max(a.nnz, 1)

@@ -9,13 +9,27 @@ frozen ``FusionSpec`` and pass ``spec=``; the spec's *resolved* form
 canonicalized on trivial meshes) **is** the schedule-cache key tail, so a
 knob can never be part of dispatch without being part of the key.
 
-A copy of ``repro.core.tilefusion.spec.FusionSpec``: the same fields and
-validation.  ``mesh`` takes a ``repro_torch.models.sharding.Mesh`` (``api``
+The legacy keyword surface still works as a deprecation shim:
+``get_schedule(a, ..., p=2, ct_size=32)`` builds a ``FusionSpec`` from the
+kwargs and emits one structured ``DeprecationWarning`` per process (not
+one per call — serving hot loops would drown in them).  New capability
+lands as a spec field (``overlap``, ``n_repl``), not signature growth.
+
+A copy of ``repro.core.tilefusion.spec``: the same fields, validation and
+shim.  ``mesh`` takes a ``repro_torch.models.sharding.Mesh`` (``api``
 raises ``TypeError`` for anything else).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+import warnings
+
+#: Legacy keyword names the shim maps onto spec fields (the historical
+#: twelve plus the knobs added since).  Anything else is a typo and raises.
+LEGACY_KNOBS = ("p", "cache_size", "ct_size", "uniform_split", "autotune",
+                "width_cap", "mesh", "shard_combine", "shard_layout",
+                "bucket", "transpose", "dtype_bytes", "overlap", "n_repl")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,3 +86,37 @@ class FusionSpec:
                              f"None")
         if self.bucket is not None:
             object.__setattr__(self, "bucket", tuple(self.bucket))
+
+
+_warned = False
+_warn_lock = threading.Lock()
+
+
+def spec_from_legacy_kwargs(kwargs: dict, *, caller: str) -> FusionSpec:
+    """Deprecation shim: build a ``FusionSpec`` from the historical keyword
+    surface, warning once per process (structured, category
+    ``DeprecationWarning``) with the caller and the knobs that triggered
+    it.  Unknown keywords raise ``TypeError`` exactly like a real
+    signature would."""
+    global _warned
+    unknown = sorted(set(kwargs) - set(LEGACY_KNOBS))
+    if unknown:
+        raise TypeError(f"{caller}() got unexpected keyword argument(s) "
+                        f"{unknown}; knobs live on FusionSpec (spec=)")
+    with _warn_lock:
+        if not _warned:
+            _warned = True
+            warnings.warn(
+                f"{caller}(**{sorted(kwargs)}): passing tile-fusion knobs "
+                f"as keywords is deprecated; build a FusionSpec and pass "
+                f"spec= (this warning is emitted once per process)",
+                DeprecationWarning, stacklevel=3)
+    return FusionSpec(**kwargs)
+
+
+def reset_legacy_warning() -> None:
+    """Re-arm the once-per-process deprecation warning (test hook, called
+    by ``api.clear_schedule_cache`` so warning tests stay order-independent)."""
+    global _warned
+    with _warn_lock:
+        _warned = False

@@ -50,6 +50,10 @@ def normalize_adjacency(a: CSR) -> CSR:
     return CSR(a.n_rows, a.n_cols, a.indptr, a.indices, data)
 
 
+#: the reference's ``impl=`` names and the port's twins of them
+_LEGACY_IMPLS = {"pallas": "cuda", "xla": "torch"}
+
+
 class GCN(nn.Module):
     """Tile-fused GCN on the port's dispatch API.
 
@@ -132,11 +136,26 @@ class GCN(nn.Module):
                 dtype_bytes=e.dtype_bytes))
         return out
 
-    def forward(self, x: torch.Tensor, *, backend: str = "auto",
+    def forward(self, x: torch.Tensor, *, fused: bool = True,
+                impl: str | None = None, backend: str | None = None,
                 mesh=None) -> torch.Tensor:
         """Logits for node features ``x`` of shape ``(n_nodes, in_dim)``,
         on the weights' device; ``mesh=`` runs each layer over a mesh
-        (``dataclasses.replace(self.spec, mesh=mesh)``)."""
+        (``dataclasses.replace(self.spec, mesh=mesh)``).
+
+        ``backend=`` picks the dispatch arm directly; otherwise the
+        reference's legacy ``(fused, impl)`` pair maps onto it, with the
+        backend names translated: ``fused=False`` → ``"unfused"``,
+        ``impl="pallas"`` → ``"cuda"``, ``impl="xla"`` → ``"torch"``.
+        With neither, ``"auto"``: the reference's default is its XLA arm,
+        whose twin ``"torch"`` the port runs on a CUDA tensor only when
+        asked for."""
+        if backend is None:
+            if impl not in (None, *_LEGACY_IMPLS):
+                raise ValueError(f"impl={impl!r}; expected one of "
+                                 f"{tuple(_LEGACY_IMPLS)} or None")
+            backend = ("unfused" if not fused else
+                       _LEGACY_IMPLS.get(impl, "auto"))
         spec = self._spec(mesh)
         last = len(self.weights) - 1
         for i, w in enumerate(self.weights):

@@ -12,7 +12,9 @@ the cross-attention's shapes with the xLSTM stack, the encoder-decoder and
 the vision stub's ``REDUCED`` models against the same models on the CPU,
 and the LM over meshes of the card (prefill + decode against one device,
 the flash kernel on each member's heads; the MoE layer's mesh path; a
-ZeRO-1 train step).
+ZeRO-1 train step), and the paper's overlapped and atomic tiling
+baselines (one ``spmm_ell`` launch a partition or tile, against the same
+schedule on the plain version).
 
 Every test here carries the ``gpu`` marker and skips, with its reason,
 where there is no CUDA device of compute capability 9.0+ (the decision is
@@ -1836,3 +1838,32 @@ def test_zero1_train_step_on_the_card_matches_one_device(card):
         gap = float(((a.detach() - p0).double() - want).norm() /
                     want.norm().clamp_min(1e-30))
         assert gap <= 1e-2
+
+
+@pytest.mark.parametrize("baseline", ["overlapped", "atomic"])
+@pytest.mark.parametrize("graph", ["banded", "powerlaw"])
+def test_prior_work_baseline_matches_its_plain_version(card, graph,
+                                                       baseline):
+    """The paper's overlapped and atomic tilings on the card: one
+    ``spmm_ell`` launch per partition or tile, against the same schedule
+    on the kernel's plain version (f32 ``TOL``) and the fused path."""
+    a = (gen.banded_spd(16384, 8, seed=0) if graph == "banded"
+         else gen.powerlaw_graph(16384, 8, seed=0))
+    rng = np.random.default_rng(0)
+    b = torch.from_numpy(rng.standard_normal((a.n_rows, 64),
+                                             np.float32)).to(card)
+    c = torch.from_numpy(rng.standard_normal((64, 64), np.float32)).to(card)
+    if baseline == "overlapped":
+        run, sched = fused_ops.overlapped_gemm_spmm, \
+            fused_ops.overlapped_tiles(a, 8)
+    else:
+        run, sched = fused_ops.atomic_gemm_spmm, fused_ops.atomic_tiles(a, 8)
+    ops.reset_launch_counts()
+    got = run(a, sched, b, c)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["spmm_ell"] == (8 if baseline == "overlapped"
+                                               else 32)
+    assert _rel_err(got, run(a, sched, b, c, kernel=False)) <= \
+        TOL[torch.float32]
+    assert _rel_err(got, api.tile_fused_matmul(a, b, c,
+                                               backend="torch")) <= 2e-3
