@@ -15,11 +15,12 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                instructions (``HGMMA``, ``HMMA``) of each kernel's
                functions, printed for every function whose name holds
                ``fused_ffn``, ``flash_attention`` or ``gemm_spmm``; fails
-               when the bf16 FFN kernel, the bf16 flash ``wgmma`` kernel or
-               any instance of the GeMM-SpMM ``wgmma`` kernel or of its
-               wide twin has no ``HGMMA``.  The hybrid SpMM's and the
-               wide GeMM-SpMM's functions print their registers and
-               spills, and the build fails if any hybrid SpMM function
+               when the bf16 or the f32 (3xTF32) FFN kernel, the bf16
+               flash ``wgmma`` kernel or any instance of the GeMM-SpMM
+               ``wgmma`` kernel or of its wide twin has no ``HGMMA``.  The
+               hybrid SpMM's, the wide GeMM-SpMM's and the f32 FFN's
+               functions print their registers and spills, and the build
+               fails if any hybrid SpMM function
                holds a float atomic (``RED`` / ``ATOM*`` on F32, F16, BF16).
   3. kernels — each kernel against its plain PyTorch version at every
                shape the main path gives it (GCN layers 1 and 2, the
@@ -99,7 +100,10 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                carry the models' own K/V heads (read in place), and the
                launcher's record of its dispatch names the device
                function each flash case ran: bf16 at head dim 64 or 128
-               must run ``flash_attention_wgmma_kernel``.
+               must run ``flash_attention_wgmma_kernel``; each FFN / MoE
+               case prints its own (``fused_ffn.last_path``), and must run
+               ``fused_ffn_wgmma_kernel`` in bf16 and
+               ``fused_ffn_tf32_kernel`` (3xTF32) in f32.
   8. LM serving — qwen2.5-3b at full width in bf16 (weights from a seeded
                generator on the card): 4 prompts of 2048 tokens, one
                batched prefill, 32 greedy decode steps through
@@ -480,8 +484,9 @@ Launches made to
 compare a kernel with its plain version, or to time it, are not counted.
 The last three lines are the card's ``nvidia-smi`` name and power limit,
 the kernels' JSON record (with each kernel's tensor-core instruction count
-from phase 2 and the device function its record case ran) and the result
-line.  float32 matrix products run
+from phase 2, the device function its record case ran (the FFN kernels'
+in each dtype) and the LM kernels' f32 case beside the bf16 record) and
+the result line.  float32 matrix products run
 in true f32 (TF32 off).
 """
 from __future__ import annotations
@@ -869,6 +874,10 @@ TC_OPCODES = ("HGMMA", "HMMA")   # wgmma and mma.sync in SASS
 FLOAT_ATOMIC_TYPES = ("F32", "F16", "BF16")
 # the bf16 flash kernel on wgmma (head dim 64 or 128, aligned rows)
 FLASH_WGMMA = "flash_attention_wgmma_kernel"
+# the FFN / MoE-FFN device function each dtype must take at published
+# widths: bf16 on wgmma, f32 as 3xTF32 on wgmma
+FFN_PATHS = {"bfloat16": "fused_ffn_wgmma_kernel",
+             "float32": "fused_ffn_tf32_kernel"}
 # the phase-3 case whose numbers stand for spmm_ell in the JSON record: the
 # power-law GCN's layer-1 hybrid product, body and tails (f32)
 SPMM_RECORD = "spmm_ell (power-law hybrid, 128 columns)"
@@ -1098,6 +1107,7 @@ def phases_1_to_15(device: str) -> dict:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.flash_attention import (
         last_path as flash_last_path)
+    from repro_torch.kernels.fused_ffn import last_path as ffn_last_path
     from repro_torch.kernels.spmm import last_path as spmm_last_path
     from repro_torch.kernels.tile_fused_gemm_spmm import (
         last_path as gemm_last_path)
@@ -1131,7 +1141,8 @@ def phases_1_to_15(device: str) -> dict:
             print(f"[2 build] {line.strip()}")
     sass, float_atomics = sass_scan(build.path)
     for fn, (regs, st, ld) in ptxas_report(build.log).items():
-        if "spmm_hybrid" in fn or GEMM_WIDE in fn:
+        if ("spmm_hybrid" in fn or GEMM_WIDE in fn
+                or FFN_PATHS["float32"] in fn):
             print(f"[2 build] ptxas {fn}: {regs} registers, spill stores "
                   f"{st} bytes, spill loads {ld} bytes")
     spmm_atomics = {f: n for f, n in float_atomics.items()
@@ -1148,7 +1159,9 @@ def phases_1_to_15(device: str) -> dict:
             print(f"[2 build] SASS {fn}: {n} tensor-core instructions "
                   f"({'/'.join(TC_OPCODES)})")
     print(f"[2 build] tensor-core instructions per kernel: {tensor_core_ops}")
-    for label, part in (("FFN", "fused_ffn_wgmma"), ("flash", FLASH_WGMMA),
+    for label, part in (("FFN", FFN_PATHS["bfloat16"]),
+                        ("f32 FFN", FFN_PATHS["float32"]),
+                        ("flash", FLASH_WGMMA),
                         ("GeMM-SpMM", GEMM_WGMMA),
                         ("wide GeMM-SpMM", GEMM_WIDE)):
         counts = [n for f, n in sass.items() if part in f]
@@ -1846,6 +1859,13 @@ def phases_1_to_15(device: str) -> dict:
             if (dtype == torch.bfloat16 and opts["d"] in (64, 128)
                     and ran != FLASH_WGMMA):
                 fail(f"{label} {dname}: ran {ran}, not {FLASH_WGMMA}")
+        else:
+            kern()
+            torch.cuda.synchronize()
+            ran = ffn_last_path()
+            print(f"[7 lm kernels] {label} {dname}: ran {ran}")
+            if ran != FFN_PATHS[dname]:
+                fail(f"{label} {dname}: ran {ran}, not {FFN_PATHS[dname]}")
         bound_bytes = moved / HBM_BYTES_PER_S * 1e3
         bound_ops = n_ops / PEAK_OPS[dname] * 1e3
         ms, plain_ms, lib_ms = time_ms(kern), time_ms(plain), time_ms(lib)
@@ -1853,7 +1873,7 @@ def phases_1_to_15(device: str) -> dict:
                    bound_ms=max(bound_bytes, bound_ops),
                    bound_by="bytes" if bound_bytes >= bound_ops
                    else "operations", library_ms=lib_ms,
-                   max_abs_err=abs_err)
+                   max_abs_err=abs_err, path=ran)
         print(f"[7 lm kernels] {label} {dname}: max_abs={abs_err:.3e} "
               f"row_rel={rel:.3e} kernel={ms:.4f} ms plain={plain_ms:.4f} ms "
               f"bound={rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
@@ -6773,8 +6793,10 @@ def main(device: str = "cuda") -> None:
                  "tile_fused_gemm_spmm_wf0", "float32")]["path"],
              "tile_fused_spmm_spmm_wf0": "tile_fused_spmm_spmm_wf0_kernel",
              "flash_attention": flash_record_path,
-             "fused_ffn": "fused_ffn_wgmma_kernel",
-             "fused_moe_ffn": "fused_ffn_wgmma_kernel"}
+             # the FFN kernels' device function in each dtype (phase 7)
+             **{name: {dname: records[(LM_RECORD[name], dname)]["path"]
+                       for dname in ("bfloat16", "float32")}
+                for name in ("fused_ffn", "fused_moe_ffn")}}
     kernels = []
     for name, (source, replaces) in sources.items():
         # the GCN kernels' records are f32 (the GCN path's dtype), the LM
@@ -6809,10 +6831,14 @@ def main(device: str = "cuda") -> None:
         # phase 22: the split blocks over meshes of the card
         extra["split_block_launches"] = {path: c[name] for path, c in
                                          p22_launches.items()}
+        fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "max_abs_err")
+        if name in LM_RECORD:
+            # phase 7's f32 case beside the record's bf16 one
+            extra["float32"] = {f: records[(LM_RECORD[name], "float32")][f]
+                                for f in fields}
         if name == "flash_attention":
             # phase 7 at the MoE prefills' and minicpm3-4b's shapes (bf16)
-            fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                      "max_abs_err")
             extra["moe_shapes"] = {label: {f: records[(label, "bfloat16")][f]
                                            for f in fields}
                                    for label in LM_MOE_FLASH}

@@ -117,11 +117,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // mbar_wait that traps after about 2^26 tries (each suspends the thread for
 // a while), so a protocol fault ends the launch with an error instead of
-// hanging the card
+// hanging the card (kCluster: mbar_try_wait's cluster-scope acquire)
+template <bool kCluster = false>
 __device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar,
                                                   uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
-  for (uint32_t tries = 0; !mbar_try_wait<false>(addr, parity); ++tries)
+  for (uint32_t tries = 0; !mbar_try_wait<kCluster>(addr, parity); ++tries)
     if (tries == (1u << 26)) __trap();
 }
 
@@ -425,7 +426,8 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
 }
 
 // Register-A wgmmas with a K-major B (each row of B's tile, one output
-// column, holds 128 bytes of k under the 128-byte swizzle), N = 32 or 128:
+// column, holds 128 bytes of k under the 128-byte swizzle), N = 32, 64 (tf32
+// only) or 128:
 //   tf32: D(64 x N, f32) (+)= A(64 x 8) * B(8 x N), 32 bytes of k per step;
 //   bf16: D(64 x N, f32) (+)= A(64 x 16) * B(16 x N), the same 32 bytes.
 // Each warp holds rows 16 w .. 16 w + 15 of A in the m16n8 A-fragment
@@ -441,6 +443,11 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
 #define REPRO_WG_N32_REGS                                                  \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
   "{%16, %17, %18, %19}, %20, p"
+#define REPRO_WG_N64_REGS                                                  \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "                              \
+  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "                     \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "                     \
+  "%30, %31}, {%32, %33, %34, %35}, %36, p"
 #define REPRO_WG_N128_REGS                                                 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "                              \
   "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "                     \
@@ -481,6 +488,20 @@ struct WgmmaKMajorB<32> {
 };
 
 template <>
+struct WgmmaKMajorB<64> {
+  static __device__ __forceinline__ void tf32(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc_b,
+                                              bool accumulate) {
+    asm volatile(REPRO_WG_RS("m64n64k8.f32.tf32.tf32", REPRO_WG_N64_REGS,
+                             ", 1, 1", "%37")
+                 : REPRO_WG_D16(0), REPRO_WG_D16(16)
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                   "r"((int)accumulate));
+  }
+};
+
+template <>
 struct WgmmaKMajorB<128> {
   static __device__ __forceinline__ void tf32(float (&d)[64],
                                               const uint32_t (&a)[4],
@@ -508,6 +529,7 @@ struct WgmmaKMajorB<128> {
 
 #undef REPRO_WG_D16
 #undef REPRO_WG_N32_REGS
+#undef REPRO_WG_N64_REGS
 #undef REPRO_WG_N128_REGS
 #undef REPRO_WG_RS
 

@@ -36,7 +36,7 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 _F = ctypes.c_float
 #: argtypes of every launcher (each returns the cudaError_t of its launch)
-#: and of the three dispatch records (``*_last_path``)
+#: and of the four dispatch records (``*_last_path``)
 SIGNATURES = {
     "spmm_ell_launch": (_P,) * 12 + (_I64,) + (_I,) * 6 + (_P,),
     "spmm_ell_last_path": (),
@@ -48,6 +48,7 @@ SIGNATURES = {
     "flash_attention_last_path": (),
     "fused_ffn_launch": (_P,) * 4 + (_I,) * 5 + (_P,),
     "fused_moe_ffn_launch": (_P,) * 4 + (_I,) * 6 + (_P,),
+    "fused_ffn_last_path": (),
 }
 
 

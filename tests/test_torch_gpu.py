@@ -47,7 +47,7 @@ from repro_torch.core.sparse import random as gen
 from repro_torch.core.sparse.formats import CSR
 from repro_torch.core.tilefusion import (api, fused_ops, hetero, reorder,
                                          serving)
-from repro_torch.kernels import flash_attention, ops, ref, spmm
+from repro_torch.kernels import flash_attention, fused_ffn, ops, ref, spmm
 from repro_torch.kernels import tile_fused_gemm_spmm as gemm_wf0
 from repro_torch.launch import serve
 from repro_torch.models import transformer as T
@@ -1000,8 +1000,19 @@ def test_flash_attention_dispatch_path(card, dtype, d, aligned, path):
 
 
 # bf16 runs clusters of C = ceil(min(d, 2048) / 256) CTAs, 128 token rows
-# each, and walks f in chunks of 32 C; TMA where d and f are multiples of
-# 8, element-wise staging where not
+# each, and walks f in chunks of 64 C; TMA where d and f are multiples of
+# 8, element-wise staging where not.  f32 runs the same clusters over 64
+# token rows (3xTF32, 32-deep blocks of d, chunks of 64 C columns of H)
+# where d is a multiple of 4 and x and the output are 16-byte aligned, the
+# CUDA-core kernel where not.
+def _ffn_path(dtype, d, aligned=True):
+    if dtype == torch.bfloat16:
+        return "fused_ffn_wgmma_kernel"
+    if d % 4 == 0 and aligned:
+        return "fused_ffn_tf32_kernel"
+    return "fused_ffn_kernel"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,d,f,act", [
     (256, 64, 512, "gelu"),               # C = 1
@@ -1011,7 +1022,12 @@ def test_flash_attention_dispatch_path(card, dtype, d, aligned, path):
     (200, 1536, 500, "silu"),             # C = 6; f, m ragged to the chunk
     (300, 2048, 1000, "gelu"),            # C = 8; f, m ragged
     (130, 4096, 300, "gelu"),             # two full cluster groups
-    (77, 100, 90, "gelu")])               # d % 8 != 0: staged, not TMA
+    (77, 100, 90, "gelu"),                # bf16: staged, not TMA
+    # f32 edges: m ragged to 64 rows, f past several chunks and ragged to
+    # a 32-deep panel, the second group's CTAs past d (no output columns)
+    (333, 1024, 1100, "gelu"),            # C = 4, chunks of 256
+    (65, 2560, 640, "silu"),              # two groups, the second ragged
+    (50, 66, 40, "silu")])                # f32: d % 4 != 0, CUDA cores
 def test_fused_ffn_kernel(card, m, d, f, act, dtype):
     g = torch.Generator().manual_seed(m + d + f)
     x = torch.randn(m, d, generator=g).to(card, dtype)
@@ -1021,6 +1037,7 @@ def test_fused_ffn_kernel(card, m, d, f, act, dtype):
     got = ops.fused_ffn(x, w1, w2, act=act)
     torch.cuda.synchronize()
     assert ops.fused_ffn.launches == before + 1
+    assert fused_ffn.last_path() == _ffn_path(dtype, d)
     assert _row_rel_err(got, ref.ffn(x, w1, w2, act=act)) <= FFN_TOL[dtype]
 
 
@@ -1030,7 +1047,9 @@ def test_fused_ffn_kernel(card, m, d, f, act, dtype):
     (2, 64, 32, 128, "none"),
     (3, 40, 1536, 512, "silu"),           # C = 6, cap 40
     (2, 200, 2048, 700, "gelu"),          # C = 8, cap and f ragged
-    (2, 40, 100, 90, "silu")])            # d % 8 != 0: staged, not TMA
+    (2, 40, 100, 90, "silu"),             # bf16: staged, not TMA
+    (3, 129, 1536, 512, "silu"),          # granite's widths, cap ragged
+    (2, 33, 30, 50, "gelu")])             # f32: d % 4 != 0, CUDA cores
 def test_fused_moe_ffn_kernel(card, e, cap, d, f, act, dtype):
     g = torch.Generator().manual_seed(e * cap + f)
     x = torch.randn(e, cap, d, generator=g).to(card, dtype)
@@ -1040,8 +1059,24 @@ def test_fused_moe_ffn_kernel(card, e, cap, d, f, act, dtype):
     got = ops.fused_moe_ffn(x, w1, w2, act=act)
     torch.cuda.synchronize()
     assert ops.fused_moe_ffn.launches == before + 1
+    assert fused_ffn.last_path() == _ffn_path(dtype, d)
     assert (_row_rel_err(got, ref.moe_ffn(x, w1, w2, act=act))
             <= FFN_TOL[dtype])
+
+
+def test_fused_ffn_f32_unaligned_takes_the_cuda_cores(card):
+    """f32 x that does not start on a 16-byte boundary cannot be read as
+    16-byte vectors: the CUDA-core kernel takes it."""
+    g = torch.Generator().manual_seed(9)
+    x = _misaligned(torch.randn(70, 256, generator=g).to(card))
+    w1 = (torch.randn(256, 300, generator=g) / 16).to(card)
+    w2 = (torch.randn(300, 256, generator=g) / 300 ** 0.5).to(card)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    got = ops.fused_ffn(x, w1, w2, act="gelu")
+    torch.cuda.synchronize()
+    assert fused_ffn.last_path() == _ffn_path(torch.float32, 256, False)
+    assert (_row_rel_err(got, ref.ffn(x, w1, w2, act="gelu"))
+            <= FFN_TOL[torch.float32])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

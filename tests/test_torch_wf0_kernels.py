@@ -20,15 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from _tf32 import tf32 as _tf32
 from repro_torch.kernels import config, ref
 from repro_torch.kernels import tile_fused_gemm_spmm as gemm
-
-
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """f32 → the nearest TF32 value (10 mantissa bits; ties away from zero,
-    as ``cvt.rna``): add half of the dropped 13 bits, then clear them."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
