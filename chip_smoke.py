@@ -15,11 +15,12 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                instructions (``HGMMA``, ``HMMA``) of each kernel's
                functions, printed for every function whose name holds
                ``fused_ffn``, ``flash_attention`` or ``gemm_spmm``; fails
-               when the bf16 or the f32 (3xTF32) FFN kernel, the bf16
-               flash ``wgmma`` kernel or any instance of the GeMM-SpMM
-               ``wgmma`` kernel or of its wide twin has no ``HGMMA``.  The
-               hybrid SpMM's, the wide GeMM-SpMM's and the f32 FFN's
-               functions print their registers and spills, and the build
+               when the bf16 or the f32 (3xTF32) FFN kernel, the bf16 or
+               the f32 (3xTF32) flash ``wgmma`` kernel or any instance of
+               the GeMM-SpMM ``wgmma`` kernel or of its wide twin has no
+               ``HGMMA``.  The hybrid SpMM's, the wide GeMM-SpMM's, the
+               f32 FFN's and the f32 flash kernel's functions print their
+               registers and spills, and the build
                fails if any hybrid SpMM function
                holds a float atomic (``RED`` / ``ATOM*`` on F32, F16, BF16).
   3. kernels — each kernel against its plain PyTorch version at every
@@ -99,8 +100,9 @@ Phases, in order (any failure exits non-zero; no exception is caught):
                ``matmul → act → matmul`` / ``bmm`` chains).  Flash K/V
                carry the models' own K/V heads (read in place), and the
                launcher's record of its dispatch names the device
-               function each flash case ran: bf16 at head dim 64 or 128
-               must run ``flash_attention_wgmma_kernel``; each FFN / MoE
+               function each flash case ran: at head dim 64 or 128 bf16
+               must run ``flash_attention_wgmma_kernel`` and f32
+               ``flash_attention_tf32_kernel`` (3xTF32); each FFN / MoE
                case prints its own (``fused_ffn.last_path``), and must run
                ``fused_ffn_wgmma_kernel`` in bf16 and
                ``fused_ffn_tf32_kernel`` (3xTF32) in f32.
@@ -872,8 +874,11 @@ KERNEL_FUNCTIONS = {"spmm_ell": "spmm_hybrid", "tile_fused_gemm_spmm_wf0":
                     "fused_ffn": "fused_ffn", "fused_moe_ffn": "fused_ffn"}
 TC_OPCODES = ("HGMMA", "HMMA")   # wgmma and mma.sync in SASS
 FLOAT_ATOMIC_TYPES = ("F32", "F16", "BF16")
-# the bf16 flash kernel on wgmma (head dim 64 or 128, aligned rows)
+# the flash device function each dtype must take at head dim 64 or 128
+# with aligned rows: bf16 on wgmma, f32 as 3xTF32 on wgmma
 FLASH_WGMMA = "flash_attention_wgmma_kernel"
+FLASH_PATHS = {"bfloat16": FLASH_WGMMA,
+               "float32": "flash_attention_tf32_kernel"}
 # the FFN / MoE-FFN device function each dtype must take at published
 # widths: bf16 on wgmma, f32 as 3xTF32 on wgmma
 FFN_PATHS = {"bfloat16": "fused_ffn_wgmma_kernel",
@@ -1142,7 +1147,8 @@ def phases_1_to_15(device: str) -> dict:
     sass, float_atomics = sass_scan(build.path)
     for fn, (regs, st, ld) in ptxas_report(build.log).items():
         if ("spmm_hybrid" in fn or GEMM_WIDE in fn
-                or FFN_PATHS["float32"] in fn):
+                or FFN_PATHS["float32"] in fn
+                or FLASH_PATHS["float32"] in fn):
             print(f"[2 build] ptxas {fn}: {regs} registers, spill stores "
                   f"{st} bytes, spill loads {ld} bytes")
     spmm_atomics = {f: n for f, n in float_atomics.items()
@@ -1162,6 +1168,7 @@ def phases_1_to_15(device: str) -> dict:
     for label, part in (("FFN", FFN_PATHS["bfloat16"]),
                         ("f32 FFN", FFN_PATHS["float32"]),
                         ("flash", FLASH_WGMMA),
+                        ("f32 flash", FLASH_PATHS["float32"]),
                         ("GeMM-SpMM", GEMM_WGMMA),
                         ("wide GeMM-SpMM", GEMM_WIDE)):
         counts = [n for f, n in sass.items() if part in f]
@@ -1836,7 +1843,6 @@ def phases_1_to_15(device: str) -> dict:
             fail(f"phase 7: {k} never launched through its entry point")
     path_launches.update(fused_ffn=counts["fused_ffn"],
                          fused_moe_ffn=counts["fused_moe_ffn"])
-    flash_record_path = "none"
     for (label, kernel, opts, dtype, args), got in zip(lm_cases, entry_out):
         dname = str(dtype).split(".")[1]
         kern, plain, lib, moved, n_ops = lm_calls(kernel, args, opts)
@@ -1854,11 +1860,8 @@ def phases_1_to_15(device: str) -> dict:
             torch.cuda.synchronize()
             ran = flash_last_path()
             print(f"[7 lm kernels] {label} {dname}: ran {ran}")
-            if (label, dname) == (LM_RECORD["flash_attention"], "bfloat16"):
-                flash_record_path = ran
-            if (dtype == torch.bfloat16 and opts["d"] in (64, 128)
-                    and ran != FLASH_WGMMA):
-                fail(f"{label} {dname}: ran {ran}, not {FLASH_WGMMA}")
+            if opts["d"] in (64, 128) and ran != FLASH_PATHS[dname]:
+                fail(f"{label} {dname}: ran {ran}, not {FLASH_PATHS[dname]}")
         else:
             kern()
             torch.cuda.synchronize()
@@ -3862,7 +3865,7 @@ def phases_1_to_15(device: str) -> dict:
     return dict(records=records, band_records=band_records,
                 path_launches=path_launches,
                 tensor_core_ops=tensor_core_ops,
-                flash_record_path=flash_record_path, device_kind=device_kind,
+                device_kind=device_kind,
                 t_start=t_start)
 
 
@@ -6766,8 +6769,7 @@ def main(device: str = "cuda") -> None:
     records, band_records = run["records"], run["band_records"]
     path_launches, tensor_core_ops = (run["path_launches"],
                                       run["tensor_core_ops"])
-    flash_record_path, device_kind = (run["flash_record_path"],
-                                      run["device_kind"])
+    device_kind = run["device_kind"]
     t_start = run["t_start"]
 
     sources = {
@@ -6792,11 +6794,10 @@ def main(device: str = "cuda") -> None:
              "tile_fused_gemm_spmm_wf0": records[(
                  "tile_fused_gemm_spmm_wf0", "float32")]["path"],
              "tile_fused_spmm_spmm_wf0": "tile_fused_spmm_spmm_wf0_kernel",
-             "flash_attention": flash_record_path,
-             # the FFN kernels' device function in each dtype (phase 7)
+             # the LM kernels' device function in each dtype (phase 7)
              **{name: {dname: records[(LM_RECORD[name], dname)]["path"]
                        for dname in ("bfloat16", "float32")}
-                for name in ("fused_ffn", "fused_moe_ffn")}}
+                for name in LM_RECORD}}
     kernels = []
     for name, (source, replaces) in sources.items():
         # the GCN kernels' records are f32 (the GCN path's dtype), the LM

@@ -8,7 +8,8 @@ or over a mesh.  ``tile_fused_matmul(a, b_or_a1, c)`` computes ``D = a @
 
   1. **Inspector amortization (paper §4.2.3).**  Algorithm 1 runs once per
      (matrix content, shapes, resolved spec) and the ``DeviceSchedule`` is
-     memoized in a content-keyed LRU cache; the device copies of its arrays
+     memoized in a content-keyed LRU cache (``REPRO_SCHEDULE_CACHE_ENTRIES``
+     entries, 128 by default); the device copies of its arrays
      are memoized on it per (device, dtype), so a repeated call neither
      re-inspects nor re-uploads.
 
@@ -88,6 +89,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import threading
 import time
 
@@ -133,8 +135,10 @@ AUTOTUNE_CT_GRID = (512, 1024, 2048, 4096)
 #: half budget (step 2 splits earlier, trading padding for locality).
 AUTOTUNE_CACHE_SCALES = (1.0, 0.5)
 
-#: Entries each of the schedule cache and the ELL cache keeps (LRU).
-CACHE_ENTRIES = 128
+#: Env var capping the schedule cache, the ELL cache and the ordering
+#: cache (entries each).
+CACHE_ENTRIES_ENV = "REPRO_SCHEDULE_CACHE_ENTRIES"
+DEFAULT_CACHE_ENTRIES = 128
 
 # --------------------------------------------------------------------------
 # Inspector cache
@@ -207,6 +211,15 @@ _lock = threading.Lock()
 _ell_lock = threading.Lock()
 
 
+def _cache_budget() -> int:
+    """Per-cache entry cap from ``REPRO_SCHEDULE_CACHE_ENTRIES`` (>= 1)."""
+    raw = os.environ.get(CACHE_ENTRIES_ENV, "")
+    try:
+        return max(int(raw), 1)
+    except ValueError:
+        return DEFAULT_CACHE_ENTRIES
+
+
 def _cache_get(cache, key):
     """LRU lookup; caller holds the cache's lock."""
     value = cache.get(key)
@@ -219,7 +232,8 @@ def _cache_put(cache, key, value, evict_key: str = "evictions") -> None:
     """LRU insert with oldest-first eviction; caller holds the cache's lock."""
     cache[key] = value
     cache.move_to_end(key)
-    while len(cache) > CACHE_ENTRIES:
+    budget = _cache_budget()
+    while len(cache) > budget:
         cache.popitem(last=False)
         _stats[evict_key] += 1
 

@@ -23,25 +23,31 @@
 // keys and get the mean of V as the reference gives them.
 //
 // Bound on the H100: operations.  Each (query, key) pair costs 4*D flops
-// for 2 bytes of K and V per head dimension shared by a block of queries,
-// far above the card's balance.  Three paths, chosen by dtype, head dim and
-// alignment (dispatch below):
+// for 2 (bf16) or 4 (f32) bytes of K and V per head dimension shared by a
+// block of queries, far above the card's balance; f32 counts as three TF32
+// products (its f32-accurate rate on the tensor cores, 165 TFLOP/s).  Four
+// paths, chosen by dtype, head dim and alignment (dispatch below):
 //  - bf16 with D = 64 or 128 and 16-byte aligned q, k, v (every model the
 //    repo configures): flash_attention_wgmma_kernel, both products on
 //    wgmma with K/V tiles arriving by TMA through a ring in shared memory;
-//    described at the kernel.
+//    described at the kernel.  P is rounded to bf16 for the PV product, as
+//    the Pallas kernel rounds it to V's dtype, while l sums the f32 values.
+//  - f32 with D = 64 or 128 and 16-byte aligned q, k, v (every f32 model):
+//    flash_attention_tf32_kernel, both products as 3xTF32 on wgmma (each
+//    operand split into tf32 hi and lo, lo*lo dropped), K and V split
+//    (and V transposed) in shared memory under the products; described at
+//    the kernel.  P stays f32 to 2^-22.
 //  - other bf16 head dims up to 128 (or unaligned rows): both products on
 //    mma.sync.m16n8k16, described at flash_attention_mma_kernel.
-//  - f32, and bf16 with D up to 256, run on the CUDA cores in f32 (bf16 is
-//    converted as it is staged), so the f32 FMA pipe bounds them: 256
-//    threads each hold a 4 x 4 register tile of scores (rows rg + 16i, keys
-//    cg + 16j) and a 4 x (DMAX/16) tile of the accumulator, so every
-//    shared-memory load feeds 2-4 FMAs; Q and K rows are padded to an odd
-//    stride so the 16 keys (or 2 rows) a warp reads at once fall in
-//    distinct banks; the row max and sum are reduced with shuffles inside
-//    the 16 lanes that share a row.  P stays f32.
-// On the tensor cores P is rounded to bf16 for the PV product, as the
-// Pallas kernel rounds it to V's dtype, while l sums the f32 values.
+//  - every other shape (f32 at other head dims or unaligned, bf16 with D
+//    up to 256) on the CUDA cores in f32 (bf16 is converted as it is
+//    staged), so the f32 FMA pipe bounds it: 256 threads each hold a 4 x 4
+//    register tile of scores (rows rg + 16i, keys cg + 16j) and a 4 x
+//    (DMAX/16) tile of the accumulator, so every shared-memory load feeds
+//    2-4 FMAs; Q and K rows are padded to an odd stride so the 16 keys (or
+//    2 rows) a warp reads at once fall in distinct banks; the row max and
+//    sum are reduced with shuffles inside the 16 lanes that share a row.
+//    P stays f32.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -568,6 +574,81 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// The online softmax of one kv block's scores, held in a warpgroup's
+// accumulator layout: element i of `s` is (row row0 + 8 ((i >> 1) & 1), key
+// k0 + 8 (i / 4) + 2 t + (i & 1)), and warp_row is the warp's first row.
+// The scores become the f32 weights 2^(s c - m) in place (c = sm_scale *
+// log2 e), the running max m and this lane's part of the row sums l are
+// updated, and alpha is the factor the accumulator is to be rescaled by.
+// Masks are applied only in blocks that cross the causal diagonal, the
+// window edge or the Sk edge (or when c <= 0).
+template <int N>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[N], float (&m)[2], float (&l)[2], float (&alpha)[2], int k0,
+    int warp_row, int row0, int t, int sk, int causal, int window,
+    float scale_log2) {
+  constexpr int BK = 2 * N;   // keys of the block
+  const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > warp_row) ||
+                    (window > 0 && warp_row + 15 - k0 >= window);
+  float mx[2] = {kMasked, kMasked};
+  if (!edge && scale_log2 > 0.f) {
+    // no mask: the row max of the raw scores, scaled once, and
+    // p = 2^(s c - m) in one FFMA per score
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      alpha[r] = fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = fast_exp2(fmaf(s[i], scale_log2, -m[r]));
+      rs[r] += s[i];
+    }
+    l[0] = l[0] * alpha[0] + rs[0];
+    l[1] = l[1] * alpha[1] + rs[1];
+    return;
+  }
+  // a block that crosses a mask edge (or sm_scale <= 0): scale, mask,
+  // then the row max
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int kp = k0 + 8 * (i / 4) + 2 * t + (i & 1);
+    const int qp = row0 + 8 * ((i >> 1) & 1);
+    bool ok = true;
+    if (causal) ok = ok && kp <= qp;
+    if (window > 0) ok = ok && (qp - kp) < window;
+    float x = ok ? s[i] * scale_log2 : kMasked;
+    if (kp >= sk) x = -INFINITY;  // past the ragged edge: no key
+    s[i] = x;
+    mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = fast_exp2(s[i] - m[r]);
+    rs[r] += s[i];
+  }
+  l[0] = l[0] * alpha[0] + rs[0];
+  l[1] = l[1] * alpha[1] + rs[1];
+}
+
 struct WgArgs {
   __nv_bfloat16* out;  // (B, H, Sq, D)
   int h, hkv, sq, sk, causal, window;
@@ -714,66 +795,8 @@ __global__ void __launch_bounds__(kWgThreads, kMinBlocks)
   };
   // scores of the kv block at k0 -> f32 weights in s; returns alpha
   auto softmax = [&](int k0, float (&alpha)[2]) {
-    const bool edge =
-        k0 + BK > a.sk || (a.causal && k0 + BK - 1 > warp_row) ||
-        (a.window > 0 && warp_row + 15 - k0 >= a.window);
-    float mx[2] = {kMasked, kMasked};
-    if (!edge && a.scale_log2 > 0.f) {
-      // no mask: the row max of the raw scores, scaled once, and
-      // p = 2^(s c - m) in one FFMA per score
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i)
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r] * a.scale_log2);
-        alpha[r] = fast_exp2(m[r] - m_new);
-        m[r] = m_new;
-      }
-      float rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        const int r = (i >> 1) & 1;
-        s[i] = fast_exp2(fmaf(s[i], a.scale_log2, -m[r]));
-        rs[r] += s[i];
-      }
-      l[0] = l[0] * alpha[0] + rs[0];
-      l[1] = l[1] * alpha[1] + rs[1];
-      return;
-    }
-    // a block that crosses a mask edge (or sm_scale <= 0): scale, mask,
-    // then the row max
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      const int kp = k0 + 8 * (i / 4) + 2 * t + (i & 1);
-      const int qp = row0 + 8 * ((i >> 1) & 1);
-      bool ok = true;
-      if (a.causal) ok = ok && kp <= qp;
-      if (a.window > 0) ok = ok && (qp - kp) < a.window;
-      float x = ok ? s[i] * a.scale_log2 : kMasked;
-      if (kp >= a.sk) x = -INFINITY;  // past the ragged edge: no key
-      s[i] = x;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = fast_exp2(m[r] - m_new);
-      m[r] = m_new;
-    }
-    float rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      const int r = (i >> 1) & 1;
-      s[i] = fast_exp2(s[i] - m[r]);
-      rs[r] += s[i];
-    }
-    l[0] = l[0] * alpha[0] + rs[0];
-    l[1] = l[1] * alpha[1] + rs[1];
+    online_softmax(s, m, l, alpha, k0, warp_row, row0, t, a.sk, a.causal,
+                   a.window, a.scale_log2);
   };
   auto rescale_and_pack = [&](const float (&alpha)[2]) {
 #pragma unroll
@@ -898,8 +921,398 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The wgmma kernel takes bf16 with D = 64 or 128 and 16-byte aligned q, k
-// and v (TMA reads rows of D * 2 bytes, a multiple of 16).
+// ---------------------------------------------------------------------------
+// f32 with D = 64 or 128: flash_attention_tf32_kernel.
+//
+// Both products as 3xTF32 on wgmma, as fused_ffn.cu's f32 path: each
+// operand v is split into tf32 hi = rna(v) and lo = rna(v - hi), and each
+// 8-deep k step issues lo*hi, hi*lo, then hi*hi (lo*lo is dropped), so the
+// result keeps f32's accuracy at a third of the TF32 rate.  A CTA owns 128
+// queries of one (batch, head), two warpgroups 64 rows each, as the bf16
+// kernel; warp 0 also issues the TMA.  What changes against bf16:
+//   - TF32 wgmma reads K-major operands only, and TMA cannot split or
+//     transpose, so K and V arrive raw by TMA (f32 rows of 32 floats a
+//     128-byte swizzled panel) through a ring of kStages stages, and the
+//     CTA's 256 threads split each block into the tiles the wgmmas read:
+//     K hi / lo in K's own layout (S = Q K^T has D contiguous in both
+//     operands), V^T hi / lo with a row per head dim and the block's keys
+//     along it (O += P V needs V K-major in the keys).
+//   - Q is split once: hi into registers (the A fragments of Q hi K lo and
+//     Q hi K hi), lo written over the raw tile in place (the shared-memory
+//     A of Q lo K hi, tf32_ss), so no register holds Q lo.
+//   - P is split in registers.  The S accumulator gives thread t the keys
+//     2t and 2t + 1 of each 8, and the tf32 A fragment wants words t and
+//     t + 4, so V^T holds each 8 keys in the order 0, 2, 4, 6, 1, 3, 5, 7
+//     (tf32_key) and P's words go in as they lie (the sum is unchanged).
+//   - Accuracy: the tensor cores' own accumulation rounds toward zero
+//     (tile_fused_gemm_spmm.cu), and O lives across the whole kv walk, so
+//     each block's P V goes into fresh accumulators (64 columns at a
+//     time) that are added to the f32 O in registers; S is fresh each
+//     block.
+//   - Overlap: the splits run under the products.  Per kv block j, each
+//     warpgroup issues S = Q K_j^T, the CTA splits V_j while it runs,
+//     then the softmax; after a CTA barrier (V_j^T stored, K_j read, stage
+//     free: warp 0 refills it) each warpgroup issues P V_j while the CTA
+//     splits K_{j+1}; a second barrier (K_{j+1} stored, V_j^T read) ends
+//     the block.
+// Shared memory (TfLayout): Q (128 rows, lo after the split), the K hi /
+// lo and V^T hi / lo tiles of one block, and the raw ring: at D = 128 with
+// 32-key blocks and 2 stages 192 KB, at D = 64 with 64-key blocks 160 KB.
+// Registers, D = 128: O 64, Q hi 64, the P V accumulators 32, S and P's
+// split 48; ptxas spills none at either head dim.
+// What sets the pace (benchmarks_torch/flash_attention_variants.py on an
+// H100, qwen2.5-3b's prefill: 0.85 ms against a 0.42 ms bound): the
+// products themselves (without Q K^T 0.60 ms, without P V 0.69-0.74),
+// then the softmax and the two CTA barriers a block, at which both
+// warpgroups wait together.  The splits run mostly under the products
+// (without the V^T split 0.76-0.82 ms, without the K split 0.79) and the
+// copies are hidden (never reloading K / V 0.82-0.83).  A third stage
+// changes nothing; 32-key blocks at D = 64 run ~10 % slower.
+constexpr int kTfPanel = 32;   // f32 values in a 128-byte swizzled row
+
+template <int D, int BK, int kStages>
+struct TfLayout {
+  static constexpr int kPanels = D / kTfPanel;      // panels a Q / K / V row
+  static constexpr int kQPanel = kWgBQ * 128;       // bytes of a Q panel
+  static constexpr int kKPanel = BK * 128;          // of a K / V panel
+  static constexpr int kVtPanel = D * 128;          // of a V^T panel (32 keys)
+  static constexpr int kTile = BK * D * 4;          // a K, V or V^T tile
+  static constexpr int kKhOff = kPanels * kQPanel;  // after Q
+  static constexpr int kKlOff = kKhOff + kTile;
+  static constexpr int kVhOff = kKlOff + kTile;
+  static constexpr int kVlOff = kVhOff + kTile;
+  static constexpr int kRingOff = kVlOff + kTile;
+  static constexpr int kStage = 2 * kTile;          // raw K, then raw V
+  static constexpr int kBarOff = kRingOff + kStages * kStage;
+  static constexpr int kBytes = kBarOff + (kStages + 1) * 8 + 1024;
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(BK == 32 || BK == 64, "kv block 32 or 64");
+  static_assert(kStages >= 1, "a ring of at least one stage");
+  static_assert(kBytes <= 232448, "more shared memory than a block has");
+};
+
+struct TfArgs {
+  float* out;          // (B, H, Sq, D)
+  int h, hkv, sq, sk, causal, window;
+  float scale_log2;    // sm_scale * log2(e)
+};
+
+// byte offset of f32 column c (< 32) of `row` in a tile with rows of 128
+// bytes under the 128-byte swizzle
+__device__ __forceinline__ int sw128_f32(int row, int c) {
+  return row * 128 + (((c >> 2) ^ (row & 7)) << 4) + (c & 3) * 4;
+}
+
+// tf32 hi = rna(v) (returned) and lo = rna(v - hi)
+__device__ __forceinline__ uint32_t split_tf32(float v, uint32_t& lo) {
+  const uint32_t hi = to_tf32(v);
+  lo = to_tf32(v - __uint_as_float(hi));
+  return hi;
+}
+
+// The key (of its 8) that word position w of a k step of V^T holds: the
+// keys a thread's S accumulator holds (2t, 2t + 1) are the A fragment's
+// words t and t + 4.
+__host__ __device__ constexpr int tf32_key(int w) {
+  return w < 4 ? 2 * w : 2 * (w - 4) + 1;
+}
+
+template <int D, int BK, int kStages>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_attention_tf32_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const TfArgs a) {
+  using L = TfLayout<D, BK, kStages>;
+  using WK = WgmmaKMajorB<BK>;   // S = Q K^T, N = BK
+  using WV = WgmmaKMajorB<64>;   // O += P V, 64 columns of O at a time
+  constexpr int S = kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* q_s = base;
+  uint8_t* kh_s = base + L::kKhOff;
+  uint8_t* kl_s = base + L::kKlOff;
+  uint8_t* vh_s = base + L::kVhOff;
+  uint8_t* vl_s = base + L::kVlOff;
+  uint8_t* ring = base + L::kRingOff;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::kBarOff);
+  uint64_t* qbar = full + S;
+
+  const int bh = blockIdx.x;  // b * h + head
+  const int qb = a.causal ? (int)gridDim.y - 1 - (int)blockIdx.y
+                          : (int)blockIdx.y;
+  const int q0 = qb * kWgBQ;
+  const int bhk = (int)kv_head(bh / a.h, bh % a.h, a.h, a.hkv);
+  int kb_lo, kb_hi;
+  kv_range(q0, kWgBQ, BK, a.sq, a.sk, a.causal, a.window, kb_lo, kb_hi);
+  const int n_items = kb_hi - kb_lo;
+
+  const int tid = threadIdx.x;
+  // warp-uniform as far as ptxas can tell (see mbar_arrive)
+  const int warp_id = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int wg = warp_id / 4;
+  const int warp = warp_id % 4;
+  const int lane = tid % 32;
+  const bool issuer_warp = warp_id == 0;
+
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) mbar_init(&full[i], 1);
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  // item i (kv block kb_lo + i) into stage i % S: raw K, then raw V
+  auto issue_kv = [&](int item) {
+    if (!issuer_warp) return;
+    const int st = item % S;
+    uint8_t* kd = ring + st * L::kStage;
+    const int k0 = (kb_lo + item) * BK;
+    mbar_expect_tx(&full[st], L::kStage, lane == 0);
+#pragma unroll
+    for (int pn = 0; pn < L::kPanels; ++pn) {
+      tma_load(kd + pn * L::kKPanel, &tk, &full[st], kTfPanel * pn, k0, bhk,
+               lane == 0);
+      tma_load(kd + L::kTile + pn * L::kKPanel, &tv, &full[st],
+               kTfPanel * pn, k0, bhk, lane == 0);
+    }
+  };
+  if (issuer_warp) {
+    mbar_expect_tx(qbar, L::kPanels * L::kQPanel, lane == 0);
+#pragma unroll
+    for (int pn = 0; pn < L::kPanels; ++pn)
+      tma_load(q_s + pn * L::kQPanel, &tq, qbar, kTfPanel * pn, q0, bh,
+               lane == 0);
+  }
+  for (int i = 0; i < S && i < n_items; ++i) issue_kv(i);
+
+  // this thread's rows of the accumulators: row0 and row0 + 8 (of the Q
+  // tile: row_l, row_l + 8); columns 8 n + 2 t + {0, 1} of every 8
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int row_l = 64 * wg + 16 * warp + g;
+  const int warp_row = q0 + 64 * wg + 16 * warp;
+  const int row0 = warp_row + g;
+
+  // Q: the A fragments of Q hi into registers (k step kk: rows row_l,
+  // row_l + 8 at words t and t + 4), Q lo over the raw tile in place
+  uint32_t qh[D / 8][4];
+  mbar_wait_or_trap(qbar, 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* p = reinterpret_cast<float*>(
+          q_s + (kk / 4) * L::kQPanel +
+          sw128_f32(row_l + 8 * (i & 1), 8 * (kk % 4) + t + 4 * (i >> 1)));
+      uint32_t lo;
+      qh[kk][i] = split_tf32(*p, lo);
+      *p = __uint_as_float(lo);
+    }
+
+  // raw K of stage st -> K hi / lo (the same layout), part `part` of D /
+  // 64 (one under each 64 columns of P V), 16 bytes a thread at a time
+  auto split_k = [&](int st, int part) {
+    const uint8_t* src = ring + st * L::kStage;
+    constexpr int kUnits = L::kTile / 16 / (D / 64);
+    static_assert(kUnits % kWgThreads == 0, "whole units a thread");
+#pragma unroll
+    for (int i = 0; i < kUnits / kWgThreads; ++i) {
+      const int u = part * kUnits + tid + kWgThreads * i;
+      const float4 v = *reinterpret_cast<const float4*>(src + 16 * u);
+      uint4 hi, lo;
+      hi.x = split_tf32(v.x, lo.x);
+      hi.y = split_tf32(v.y, lo.y);
+      hi.z = split_tf32(v.z, lo.z);
+      hi.w = split_tf32(v.w, lo.w);
+      *reinterpret_cast<uint4*>(kh_s + 16 * u) = hi;
+      *reinterpret_cast<uint4*>(kl_s + 16 * u) = lo;
+    }
+  };
+  // raw V of stage st -> V^T hi / lo: 16 bytes of row n (positions 4 v ..
+  // 4 v + 3 of panel kp) a thread at a time; a warp takes 32 consecutive n,
+  // so it reads 32 consecutive floats of one raw row per load
+  auto split_v = [&](int st) {
+    const uint8_t* src = ring + st * L::kStage + L::kTile;
+    constexpr int kUnits = D * BK / 4;
+    static_assert(kUnits % kWgThreads == 0, "whole units a thread");
+#pragma unroll
+    for (int i = 0; i < kUnits / kWgThreads; ++i) {
+      const int q = tid + kWgThreads * i;
+      const int n = q % D;
+      const int kp = q / D / 8;
+      const int v = q / D % 8;
+      const uint8_t* col = src + (n / kTfPanel) * L::kKPanel;
+      float w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[j] = *reinterpret_cast<const float*>(
+            col + sw128_f32(kTfPanel * kp + 8 * (v / 2) +
+                                tf32_key(4 * (v & 1) + j),
+                            n % kTfPanel));
+      uint4 hi, lo;
+      hi.x = split_tf32(w[0], lo.x);
+      hi.y = split_tf32(w[1], lo.y);
+      hi.z = split_tf32(w[2], lo.z);
+      hi.w = split_tf32(w[3], lo.w);
+      const int off = kp * L::kVtPanel + n * 128 + ((v ^ (n & 7)) << 4);
+      *reinterpret_cast<uint4*>(vh_s + off) = hi;
+      *reinterpret_cast<uint4*>(vl_s + off) = lo;
+    }
+  };
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float s[BK / 2];
+  float acc[32];
+  uint32_t ph[BK / 8][4], pl[BK / 8][4];   // P's A fragments, hi and lo
+  float m[2] = {kMasked, kMasked};
+  float l[2] = {0.f, 0.f};   // this lane's part of the row sums
+  // descriptors of the tiles' first k step (a step adds 32 bytes: 2)
+  const uint64_t dql = desc(q_s + wg * 64 * 128, 16, 1024);
+  const uint64_t dkh = desc(kh_s, 16, 1024);
+  const uint64_t dkl = desc(kl_s, 16, 1024);
+  const uint64_t dvh = desc(vh_s, 16, 1024);
+  const uint64_t dvl = desc(vl_s, 16, 1024);
+
+  // S = Q K^T over D: Q lo K hi, Q hi K lo, Q hi K hi a k step
+  auto issue_qk = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t qo = ((kk / 4) * L::kQPanel + (kk % 4) * 32) >> 4;
+      const uint32_t ko = ((kk / 4) * L::kKPanel + (kk % 4) * 32) >> 4;
+      WK::tf32_ss(s, dql + qo, dkh + ko, kk > 0);
+      WK::tf32(s, qh[kk], dkl + ko, true);
+      WK::tf32(s, qh[kk], dkh + ko, true);
+    }
+  };
+  // acc = P V[:, 64 c .. 64 c + 63] over the block's keys, fresh
+  auto issue_pv = [&](int c) {
+#pragma unroll
+    for (int ks = 0; ks < BK / 8; ++ks) {
+      const uint32_t vo =
+          ((ks / 4) * L::kVtPanel + c * 64 * 128 + (ks % 4) * 32) >> 4;
+      WV::tf32(acc, pl[ks], dvh + vo, ks > 0);
+      WV::tf32(acc, ph[ks], dvl + vo, true);
+      WV::tf32(acc, ph[ks], dvh + vo, true);
+    }
+  };
+
+  if (n_items > 0) {
+    mbar_wait_or_trap(&full[0], 0);
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) split_k(0, c);
+    fence_proxy_async();   // generic writes (Q lo, K 0), read by wgmma
+    __syncthreads();
+    for (int j = 0; j < n_items; ++j) {
+      const int st = j % S;
+      // 1. S_j = Q K_j^T, and V_j split under it
+      wgmma_fence();
+      issue_qk();
+      wgmma_commit();
+      split_v(st);
+      wgmma_wait<0>();
+      pin(s);
+      // 2. the softmax of S_j; O rescaled; P_j split
+      float alpha[2];
+      online_softmax(s, m, l, alpha, (kb_lo + j) * BK, warp_row, row0, t,
+                     a.sk, a.causal, a.window, a.scale_log2);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+      for (int ks = 0; ks < BK / 8; ++ks) {
+        const float x[4] = {s[4 * ks], s[4 * ks + 2], s[4 * ks + 1],
+                            s[4 * ks + 3]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ph[ks][i] = split_tf32(x[i], pl[ks][i]);
+      }
+      // V_j^T is stored, every warp is done with K_j, stage st is free
+      fence_proxy_async();
+      __syncthreads();
+      if (j + S < n_items) issue_kv(j + S);
+      // 3. O += P_j V_j, 64 columns at a time into fresh accumulators,
+      //    and K_{j+1} split under it
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        wgmma_fence();
+        issue_pv(c);
+        wgmma_commit();
+        if (j + 1 < n_items) {
+          if (c == 0)
+            mbar_wait_or_trap(&full[(j + 1) % S], ((j + 1) / S) & 1);
+          split_k((j + 1) % S, c);
+        }
+        wgmma_wait<0>();
+        pin(acc);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[32 * c + i] += acc[i];
+      }
+#pragma unroll
+      for (int ks = 0; ks < BK / 8; ++ks) {
+        pin(ph[ks]);
+        pin(pl[ks]);
+      }
+      // K_{j+1} is stored; every warp is done with V_j^T
+      fence_proxy_async();
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) pin(qh[kk]);
+
+  // out = O / l; rows past Sq are not stored
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  float* og = a.out + (int64_t)bh * a.sq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= a.sq) continue;
+    const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+    float* orow = og + (int64_t)row * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
+  }
+}
+
+template <int D, int BK, int kStages>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        void* out, int b, int h, int hkv, int sq, int sk,
+                        float scale, int causal, int window,
+                        cudaStream_t stream) {
+  using L = TfLayout<D, BK, kStages>;
+  const int n_qb = (sq + kWgBQ - 1) / kWgBQ;
+  if (n_qb > 65535) return cudaErrorInvalidConfiguration;
+  constexpr CUtensorMapDataType kF32Map = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap tq{}, tk{}, tv{};
+  if (encode_tiled() == nullptr ||
+      !tensor_map(&tq, q, b * h, sq, D, kWgBQ, kTfPanel,
+                  CU_TENSOR_MAP_SWIZZLE_128B, kF32Map) ||
+      !tensor_map(&tk, k, b * hkv, sk, D, BK, kTfPanel,
+                  CU_TENSOR_MAP_SWIZZLE_128B, kF32Map) ||
+      !tensor_map(&tv, v, b * hkv, sk, D, BK, kTfPanel,
+                  CU_TENSOR_MAP_SWIZZLE_128B, kF32Map))
+    return cudaErrorNotSupported;
+  auto kernel = flash_attention_tf32_kernel<D, BK, kStages>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+  if (err != cudaSuccess) return err;
+  const TfArgs args{static_cast<float*>(out), h, hkv, sq, sk, causal,
+                    window, scale * kLog2e};
+  kernel<<<dim3((unsigned)(b * h), (unsigned)n_qb), kWgThreads, L::kBytes,
+           stream>>>(tq, tk, tv, args);
+  return cudaGetLastError();
+}
+
+// The wgmma kernels take D = 64 or 128 and 16-byte aligned q, k and v
+// (TMA reads rows of D * 2 or D * 4 bytes, a multiple of 16).
 bool takes_wgmma(const void* q, const void* k, const void* v, int d) {
   return (d == 64 || d == 128) && aligned16(q) && aligned16(k) &&
          aligned16(v);
@@ -910,6 +1323,7 @@ constexpr int kPathNone = -1;      // nothing launched (no query or no key)
 constexpr int kPathWgmma = 0;      // flash_attention_wgmma_kernel
 constexpr int kPathMma = 1;        // flash_attention_mma_kernel
 constexpr int kPathCudaCores = 2;  // flash_attention_kernel
+constexpr int kPathTf32 = 3;       // flash_attention_tf32_kernel
 int last_path = kPathNone;
 
 template <typename T>
@@ -917,6 +1331,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out,
                      int b, int h, int hkv, int sq, int sk, int d,
                      float scale, int causal, int window, cudaStream_t s) {
   last_path = kPathCudaCores;
+  if constexpr (std::is_same<T, float>::value) {
+    if (takes_wgmma(q, k, v, d)) {
+      last_path = kPathTf32;
+      if (d == 64)
+        return launch_tf32<64, 64, 2>(q, k, v, out, b, h, hkv, sq, sk,
+                                      scale, causal, window, s);
+      return launch_tf32<128, 32, 2>(q, k, v, out, b, h, hkv, sq, sk, scale,
+                                     causal, window, s);
+    }
+  }
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     last_path = kPathWgmma;
     if (takes_wgmma(q, k, v, d)) {
@@ -982,5 +1406,6 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 }
 
 // Which kernel the last flash_attention_launch on this host ran: 0 the
-// wgmma kernel, 1 the mma.sync kernel, 2 the CUDA-core kernel, -1 none.
+// bf16 wgmma kernel, 1 the mma.sync kernel, 2 the CUDA-core kernel, 3 the
+// f32 (3xTF32) wgmma kernel, -1 none.
 extern "C" int flash_attention_last_path() { return repro_torch::last_path; }

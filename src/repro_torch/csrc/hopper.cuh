@@ -435,6 +435,8 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
 // g, word t), a[1] (row g + 8, word t), a[2] (row g, word t + 4), a[3]
 // (row g + 8, word t + 4) of the step's 8 words, g = lane / 4, t = lane %
 // 4.  The registers of `a` must not change until the wgmma has retired.
+// tf32_ss (N = 32, 64) reads A from shared memory instead, K-major like B
+// (64 rows of 128 bytes under the 128-byte swizzle, 32 bytes a step).
 #define REPRO_WG_D16(o)                                                    \
   "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]),          \
       "+f"(d[o + 4]), "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7]),      \
@@ -456,6 +458,15 @@ __device__ __forceinline__ void pin(uint32_t (&r)[N]) {
   "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "                     \
   "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "                     \
   "%60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p"
+#define REPRO_WG_N32_SS                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, " \
+  "%16, %17, p"
+#define REPRO_WG_N64_SS                                                    \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "                              \
+  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "                     \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "                     \
+  "%30, %31}, %32, %33, p"
+// the instruction, register-A or shared-memory-A
 #define REPRO_WG_RS(shape_types, regs, tail, pred)                         \
   "{\n.reg .pred p;\nsetp.ne.b32 p, " pred ", 0;\n"                        \
   "wgmma.mma_async.sync.aligned." shape_types " " regs tail ";\n}\n"
@@ -474,6 +485,15 @@ struct WgmmaKMajorB<32> {
                  : REPRO_WG_D16(0)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
                    "r"((int)accumulate));
+  }
+  static __device__ __forceinline__ void tf32_ss(float (&d)[16],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b,
+                                                 bool accumulate) {
+    asm volatile(REPRO_WG_RS("m64n32k8.f32.tf32.tf32", REPRO_WG_N32_SS,
+                             ", 1, 1", "%18")
+                 : REPRO_WG_D16(0)
+                 : "l"(desc_a), "l"(desc_b), "r"((int)accumulate));
   }
   static __device__ __forceinline__ void bf16(float (&d)[16],
                                               const uint32_t (&a)[4],
@@ -498,6 +518,15 @@ struct WgmmaKMajorB<64> {
                  : REPRO_WG_D16(0), REPRO_WG_D16(16)
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
                    "r"((int)accumulate));
+  }
+  static __device__ __forceinline__ void tf32_ss(float (&d)[32],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b,
+                                                 bool accumulate) {
+    asm volatile(REPRO_WG_RS("m64n64k8.f32.tf32.tf32", REPRO_WG_N64_SS,
+                             ", 1, 1", "%34")
+                 : REPRO_WG_D16(0), REPRO_WG_D16(16)
+                 : "l"(desc_a), "l"(desc_b), "r"((int)accumulate));
   }
 };
 
@@ -531,6 +560,8 @@ struct WgmmaKMajorB<128> {
 #undef REPRO_WG_N32_REGS
 #undef REPRO_WG_N64_REGS
 #undef REPRO_WG_N128_REGS
+#undef REPRO_WG_N32_SS
+#undef REPRO_WG_N64_SS
 #undef REPRO_WG_RS
 
 // ------------------------------------------------------------ host ----
@@ -554,18 +585,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a map of a row-major (depth, rows, cols) bf16 tensor, boxes of
-// (1, box_rows, box_cols); out-of-range elements read as zero
-inline bool tensor_map(CUtensorMap* map, const void* base, int depth,
-                       int rows, int cols, int box_rows, int box_cols,
-                       CUtensorMapSwizzle swizzle) {
+// a map of a row-major (depth, rows, cols) tensor of bf16 (or f32, with
+// `type` CU_TENSOR_MAP_DATA_TYPE_FLOAT32), boxes of (1, box_rows,
+// box_cols); out-of-range elements read as zero
+inline bool tensor_map(
+    CUtensorMap* map, const void* base, int depth, int rows, int cols,
+    int box_rows, int box_cols, CUtensorMapSwizzle swizzle,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
+  const cuuint64_t elem = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)depth};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
-                                 (cuuint64_t)rows * cols * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)cols * elem,
+                                 (cuuint64_t)rows * cols * elem};
   const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encode_tiled()(map, type, 3,
                         const_cast<void*>(base), dims, strides, box, unit,
                         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

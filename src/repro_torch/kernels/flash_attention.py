@@ -4,13 +4,17 @@ heads.
 The hand-written CUDA kernel (``csrc/flash_attention.cu``) that replaces
 the TPU kernel ``repro.kernels.flash_attention._flash_attention``.  One
 block per (batch, head, q block) walks the kv blocks that the masks leave
-open, with the online-softmax state in registers.  bf16 with a head dim of
-64 or 128 (every model the repo configures) runs on Hopper's ``wgmma``
-with K/V tiles arriving by TMA through a ring in shared memory
-(``flash_attention_wgmma_kernel``); other bf16 head dims up to 128 run on
-``mma.sync``, f32 and wider heads on the CUDA cores.  Query head ``h``
-reads K/V head ``h // (H // Hkv)`` in place, so grouped-query attention
-needs no repeated copy of K and V.  The kernel masks the ragged
+open, with the online-softmax state in registers.  Four device functions,
+picked by dtype, head dim and alignment: bf16 with a head dim of 64 or 128
+(every model the repo configures) and 16-byte aligned rows runs on
+Hopper's ``wgmma`` with K/V tiles arriving by TMA through a ring in shared
+memory (``flash_attention_wgmma_kernel``); f32 at those head dims runs both
+products as 3xTF32 on ``wgmma`` (``flash_attention_tf32_kernel``); other
+bf16 head dims up to 128 run on ``mma.sync``
+(``flash_attention_mma_kernel``); every other shape on the CUDA cores
+(``flash_attention_kernel``).  Query head ``h`` reads K/V head
+``h // (H // Hkv)`` in place, so grouped-query attention needs no
+repeated copy of K and V.  The kernel masks the ragged
 ``Sq``/``Sk`` edges itself, so any length runs (Whisper's 1500 frames fit
 no block), and any head dim up to 256.
 
@@ -31,16 +35,19 @@ from . import config, ref
 MAX_HEAD_DIM = 256
 #: the device function of each path the launcher reports
 PATHS = {0: "flash_attention_wgmma_kernel", 1: "flash_attention_mma_kernel",
-         2: "flash_attention_kernel", -1: "none"}
+         2: "flash_attention_kernel", 3: "flash_attention_tf32_kernel",
+         -1: "none"}
 
 
 def last_path() -> str:
     """The device function that the last launch on the card ran (the
     launcher records its dispatch): ``"flash_attention_wgmma_kernel"`` for
     bf16 at head dim 64 or 128 with 16-byte aligned rows,
-    ``"flash_attention_mma_kernel"`` for other bf16 head dims up to 128,
-    ``"flash_attention_kernel"`` (CUDA cores) for f32 and wider heads,
-    ``"none"`` before any launch or for an empty one."""
+    ``"flash_attention_tf32_kernel"`` (3xTF32) for f32 at head dim 64 or
+    128 with 16-byte aligned rows, ``"flash_attention_mma_kernel"`` for
+    other bf16 head dims up to 128, ``"flash_attention_kernel"`` (CUDA
+    cores) for every other shape, ``"none"`` before any launch or for an
+    empty one."""
     return PATHS[config.kernel_library("cuda").flash_attention_last_path()]
 
 

@@ -32,7 +32,7 @@ the first rows are the largest), f32 within 1e-4 and bf16 within 2^-6:
 two units in the last place for flash attention (P and the output are
 rounded); for the FFN and MoE kernels one rounding of the output plus
 the bf16 rounding of H summed over f (test_torch_lm_kernels.py grounds
-that limit at published widths).
+that limit at published widths, and the f32 kernels' 3xTF32 arithmetic).
 """
 import dataclasses
 import os
@@ -922,8 +922,8 @@ def test_patched_request_gives_the_same_bits_twice(card):
     (1, 1, 70, 40, 16, True, 7), (1, 4, 512, 512, 128, True, 0),
     (1, 1, 96, 96, 200, True, 0), (1, 2, 64, 1000, 256, False, 0),
     (1, 2, 70, 90, 20, False, 9),         # d % 8 != 0: scalar staging
-    # bf16 at D 64 / 128 runs the wgmma kernel (128 queries a CTA, K/V
-    # through the TMA ring)
+    # D 64 / 128 runs the wgmma kernels (128 queries a CTA, K/V through
+    # the TMA ring; f32 as 3xTF32)
     (2, 3, 1500, 1500, 64, False, 0),     # Sq not a multiple of 128
     (1, 2, 1500, 1500, 128, False, 0),
     (1, 2, 200, 700, 128, True, 0),       # Sq < Sk
@@ -941,8 +941,29 @@ def test_flash_attention_kernel(card, b, h, sq, sk, d, causal, window,
     got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert ops.flash_attention.launches == before + 1
+    if dtype == torch.float32 and d in (64, 128):
+        assert flash_attention.last_path() == "flash_attention_tf32_kernel"
     want = ref.attention(q, k, v, causal=causal, window=window)
     assert _row_rel_err(got, want) <= ATTN_TOL[dtype]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,window", [
+    (1, 2, 128, 8192, 128, False, 0),     # 256 kv blocks of 32 keys
+    (1, 2, 4096, 4096, 64, True, 1024)])  # up to 17 kv blocks of 64
+def test_flash_attention_f32_long_walk(card, b, h, sq, sk, d, causal,
+                                       window):
+    """f32 on the 3xTF32 kernel over a long kv walk: the tensor cores'
+    accumulation rounds toward zero, so each block's P V goes into fresh
+    accumulators added to O in f32; the rows stay within 1e-4."""
+    g = torch.Generator().manual_seed(sk + d)
+    q = torch.randn(b, h, sq, d, generator=g).to(card)
+    k, v = (torch.randn(b, h, sk, d, generator=g).to(card)
+            for _ in range(2))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.last_path() == "flash_attention_tf32_kernel"
+    want = ref.attention(q, k, v, causal=causal, window=window)
+    assert _row_rel_err(got, want) <= ATTN_TOL[torch.float32]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -983,7 +1004,10 @@ def _misaligned(t: torch.Tensor) -> torch.Tensor:
     (torch.bfloat16, 64, False, "flash_attention_mma_kernel"),
     (torch.bfloat16, 96, True, "flash_attention_mma_kernel"),
     (torch.bfloat16, 200, True, "flash_attention_kernel"),
-    (torch.float32, 64, True, "flash_attention_kernel")])
+    (torch.float32, 64, True, "flash_attention_tf32_kernel"),
+    (torch.float32, 128, True, "flash_attention_tf32_kernel"),
+    (torch.float32, 64, False, "flash_attention_kernel"),
+    (torch.float32, 96, True, "flash_attention_kernel")])
 def test_flash_attention_dispatch_path(card, dtype, d, aligned, path):
     """Each dispatch path runs its own kernel, as the launcher records it,
     and agrees with the plain version."""

@@ -11,9 +11,10 @@ Pallas FFNs round H and the running output to the operand dtype, while the
 port's versions keep f32 and round once.  The CUDA kernels are held to
 these plain versions on the card (``test_torch_gpu.py``,
 ``chip_smoke.py``); the FFN kernels' own arithmetic (bf16: H rounded to
-bf16; f32: both products as 3xTF32) is emulated here, against an f64 FFN
-at published widths and against the Pallas kernels, to ground the
-tolerances the card holds them to.
+bf16; f32: both products as 3xTF32) and the f32 flash kernel's (3xTF32
+on both products, fresh P·V accumulators a kv block) are emulated here,
+against an f64 FFN or attention at published widths and against the
+Pallas kernels, to ground the tolerances the card holds them to.
 """
 import jax
 import jax.numpy as jnp
@@ -413,6 +414,117 @@ def test_f32_kernel_arithmetic_matches_pallas(moe, shape, block, act):
                                     block_f=block[1], act=act,
                                     interpret=True)
     _close(_emulate_f32_kernel(tx, t1, t2, act), want, FFN_TOL["f32"])
+
+
+#: row-wise limit of the f32 flash kernel on the card against the plain
+#: version (``test_torch_gpu.py``, ``chip_smoke.py``)
+ATTN_F32_ROW_TOL = 1e-4
+#: the keys of each 8 in the order V^T holds them (``csrc/flash_attention.cu``
+#: tf32_key): a thread's S accumulator keys 2t, 2t + 1 are words t, t + 4
+TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def _kv_range(q0, bq, bk, sq, sk, causal, window):
+    """The kv blocks ``[lo, hi)`` the kernel walks for the q block at
+    ``q0`` (``csrc/flash_attention.cu`` kv_range)."""
+    n_kb = -(-sk // bk)
+    q_last = min(q0 + bq, sq) - 1
+    if window > 0 and q_last >= sk + window - 1:
+        return 0, n_kb
+    hi = min(n_kb, q_last // bk + 1) if causal else n_kb
+    lo = max(0, q0 - window + 1) // bk if window > 0 else 0
+    return lo, hi
+
+
+def _emulate_f32_flash(q, k, v, *, causal, window, bq=128):
+    """The arithmetic of ``csrc/flash_attention.cu``'s
+    ``flash_attention_tf32_kernel`` in plain torch: q blocks of 128 rows,
+    kv blocks of 32 keys at D 128 (64 otherwise) over the blocks the masks
+    leave open; S = Q K^T as 3xTF32, fresh each block; the online softmax
+    in base 2 with the masked scores at -1e30 and keys past Sk at -inf;
+    P V as 3xTF32 with the keys of each 8 in V^T's order, into fresh
+    accumulators added to the f32 O; O / l (l == 0 divides by 1).  The
+    tensor cores' own rounding inside an accumulation is not emulated."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    bk = 32 if d == 128 else 64
+    pad = -sk % bk   # TMA reads zeros past Sk
+    k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
+    c = d ** -0.5 * float(np.log2(np.e))
+    order = (torch.arange(bk).view(-1, 8)[:, list(TF32_KEY_ORDER)]
+             .flatten())
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, bq):
+        qb = q[:, :, q0:q0 + bq]
+        rows = torch.arange(q0, q0 + qb.shape[2])[:, None]
+        m = torch.full(qb.shape[:3] + (1,), -1e30)
+        l = torch.zeros(qb.shape[:3] + (1,))
+        o = torch.zeros(qb.shape)
+        for kb in range(*_kv_range(q0, bq, bk, sq, sk, causal, window)):
+            keys = torch.arange(kb * bk, (kb + 1) * bk)[None, :]
+            kt = k[:, :, kb * bk:(kb + 1) * bk].transpose(-1, -2)
+            vb = v[:, :, kb * bk:(kb + 1) * bk]
+            s = _three_tf32(qb, kt, fresh=d)
+            ok = torch.ones_like(keys <= rows)
+            if causal:
+                ok = ok & (keys <= rows)
+            if window > 0:
+                ok = ok & (rows - keys < window)
+            x = torch.where(ok, s * c, torch.tensor(-1e30))
+            x = torch.where(keys >= sk, torch.tensor(-float("inf")), x)
+            m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+            alpha = torch.exp2(m - m_new)
+            p = torch.exp2(x - m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            o = o * alpha + _three_tf32(p[..., order], vb[:, :, order],
+                                        fresh=bk)
+            m = m_new
+        out[:, :, q0:q0 + bq] = o / torch.where(l == 0, 1.0, l)
+    return out
+
+
+def _attention_f64(q, k, v, *, causal, window):
+    q, k, v = (t.double() for t in (q, k, v))
+    s = q @ k.transpose(-1, -2) * q.shape[-1] ** -0.5
+    mask = ref.attention_mask(q.shape[2], k.shape[2], causal=causal,
+                              window=window)
+    return torch.softmax(s.masked_fill(~mask, -1e30), -1) @ v
+
+
+@pytest.mark.usefixtures("_one_thread")
+@pytest.mark.parametrize("sq,sk,d,causal,window", [
+    (512, 512, 128, True, 0),       # a qwen2.5-3b head, 512 causal queries
+    (2048, 2048, 64, True, 1024)])  # a hymba-1.5b head, window 1024
+def test_f32_flash_kernel_arithmetic_grounds_the_tolerance(sq, sk, d, causal,
+                                                           window):
+    """3xTF32 on both products, fresh P V accumulators a block and V^T's
+    key order stay within 1e-5 of an f64 attention row by row, while one
+    TF32 product each misses the 1e-4 the card holds the kernel to."""
+    q, k, v = (torch.from_numpy(a.astype(np.float32)) for a in _arrays(
+        sq + d, (1, 1, sq, d), (1, 1, sk, d), (1, 1, sk, d)))
+    exact = _attention_f64(q, k, v, causal=causal, window=window)
+    got = _emulate_f32_flash(q, k, v, causal=causal, window=window)
+    mask = ref.attention_mask(sq, sk, causal=causal, window=window)
+    s = (tf32(q) @ tf32(k).transpose(-1, -2)) * d ** -0.5
+    p = torch.softmax(s.masked_fill(~mask, -1e30), -1)
+    one = tf32(p) @ tf32(v)
+    assert _row_rel_err(got, exact) <= 1e-5
+    assert _row_rel_err(one, exact) > ATTN_F32_ROW_TOL
+
+
+@pytest.mark.usefixtures("_one_thread")
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 32)])
+@pytest.mark.parametrize("s,dh", [(128, 32), (256, 64)])
+def test_f32_flash_kernel_arithmetic_matches_pallas(causal, window, s, dh):
+    """The f32 flash emulation against the TPU kernel in interpret mode at
+    f32, at the shapes and tolerance of test_flash_attention_matches_pallas."""
+    arrs = _arrays(s + dh, *[(2, 2, s, dh)] * 3)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, "f32") for a in arrs)
+    want = pallas_flash.flash_attention(jq, jk, jv, block_q=64, block_k=64,
+                                        causal=causal, window=window,
+                                        interpret=True)
+    got = _emulate_f32_flash(tq, tk, tv, causal=causal, window=window)
+    _close(got, want, ATTN_TOL["f32"])
 
 
 # ----------------------------------------------------------- wrappers ----
