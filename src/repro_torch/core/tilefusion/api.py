@@ -84,6 +84,14 @@ CPU tensors, ``"cuda"`` or ``"unfused"`` by Eq 3 for CUDA tensors (the
 reference drops to its XLA executor there; the port never runs the plain
 path on a CUDA tensor unasked).  A mesh whose device type is not the
 operands' raises ``ValueError``.
+
+**Spans** (``repro_torch.tracing``).  ``tile_fusion.call`` covers a call
+from entry to return; inside it ``tile_fusion.get_schedule`` (with
+``tile_fusion.inspect`` around a miss's build), ``tile_fusion.select_backend``,
+``tile_fusion.unfused``, and the kernel arm's ``tile_fusion.pad`` /
+``wf0`` / ``scatter`` / ``wf1``.  The Functions' backward is
+``tile_fusion.backward``, the GeMM-SpMM's ``dC`` in
+``tile_fusion.backward.dc`` and its ``dB`` a nested call.
 """
 from __future__ import annotations
 
@@ -98,6 +106,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ... import tracing
 from ...kernels import ops as kops
 from ...kernels.config import kernel_library
 from ..sparse.formats import (CSR, DEFAULT_WIDTH_QUANTILE,
@@ -204,7 +213,7 @@ _ell_cache: "collections.OrderedDict" = collections.OrderedDict()
 _ordering_cache: "collections.OrderedDict" = collections.OrderedDict()
 _stats = {"hits": 0, "misses": 0, "evictions": 0, "ell_evictions": 0,
           "ordering_evictions": 0, "autotune_sweeps": 0,
-          "incremental_patches": 0}
+          "incremental_patches": 0, "inspect_s": 0.0}
 _lock = threading.Lock()
 #: The ELL cache has its own lock so a full-matrix pack never stalls
 #: schedule-cache hits.  Lock order where both are held: _lock, _ell_lock.
@@ -477,36 +486,53 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
     ``**legacy`` is the historical keyword surface (``p=``, ``ct_size=``,
     ...): a deprecation shim that builds the spec and warns once per
     process (``spec.spec_from_legacy_kwargs``)."""
-    spec = _coerce_spec(spec, legacy, "get_schedule")
-    _check_mesh(spec)
-    spec = dataclasses.replace(
-        spec, dtype_bytes=4 if spec.dtype_bytes is None
-        else int(spec.dtype_bytes))
-    mk = sharded.mesh_key(spec.mesh)
-    sk = _shard_knobs_key(mk, spec.shard_combine, spec.shard_layout)
-    bucket = spec.bucket
-    if bucket is not None:
-        _check_bucket(spec, mk)
-    a_eff = a.transpose() if spec.transpose else a
-    cap = _resolve_width_cap(a_eff, spec.width_cap)
-    if mk is not None:
-        return _mesh_schedule(a, b_col=b_col, c_col=c_col,
-                              b_is_sparse=b_is_sparse, spec=spec, cap=cap,
-                              mk=mk, sk=sk)
-    if spec.autotune:
-        return _autotune_schedule(a, b_col=b_col, c_col=c_col,
+    with tracing.span("tile_fusion.get_schedule"):
+        spec = _coerce_spec(spec, legacy, "get_schedule")
+        _check_mesh(spec)
+        spec = dataclasses.replace(
+            spec, dtype_bytes=4 if spec.dtype_bytes is None
+            else int(spec.dtype_bytes))
+        mk = sharded.mesh_key(spec.mesh)
+        sk = _shard_knobs_key(mk, spec.shard_combine, spec.shard_layout)
+        bucket = spec.bucket
+        if bucket is not None:
+            _check_bucket(spec, mk)
+        a_eff = a.transpose() if spec.transpose else a
+        cap = _resolve_width_cap(a_eff, spec.width_cap)
+        if mk is not None:
+            return _mesh_schedule(a, b_col=b_col, c_col=c_col,
                                   b_is_sparse=b_is_sparse, spec=spec,
-                                  cap=cap)
-    digest = csr_content_digest(a)
-    keybase = ("bucket", bucket) if bucket is not None else digest
-    key = (keybase, b_col, c_col, b_is_sparse, _spec_key(spec, cap=cap))
-    with _lock:
-        entry = _cache_get(_schedule_cache, key)
-        if entry is not None and (bucket is None
-                                  or entry.content_digest == digest):
-            entry.hits += 1
-            _stats["hits"] += 1
-            return entry
+                                  cap=cap, mk=mk, sk=sk)
+        if spec.autotune:
+            return _autotune_schedule(a, b_col=b_col, c_col=c_col,
+                                      b_is_sparse=b_is_sparse, spec=spec,
+                                      cap=cap)
+        digest = csr_content_digest(a)
+        keybase = ("bucket", bucket) if bucket is not None else digest
+        key = (keybase, b_col, c_col, b_is_sparse, _spec_key(spec, cap=cap))
+        with _lock:
+            entry = _cache_get(_schedule_cache, key)
+            if entry is not None and (bucket is None
+                                      or entry.content_digest == digest):
+                entry.hits += 1
+                _stats["hits"] += 1
+                return entry
+        with tracing.span("tile_fusion.inspect"):
+            entry = _inspect(a_eff, b_col=b_col, c_col=c_col,
+                             b_is_sparse=b_is_sparse, spec=spec, cap=cap)
+        entry.content_digest, entry.bucket = digest, bucket
+        with _lock:
+            _stats["misses"] += 1
+            _stats["inspect_s"] += entry.inspector_s
+            _cache_put(_schedule_cache, key, entry)
+        return entry
+
+
+def _inspect(a_eff: CSR, *, b_col: int, c_col: int, b_is_sparse: bool,
+             spec: FusionSpec, cap) -> ScheduleEntry:
+    """Algorithm 1 on ``a_eff`` (the transpose under ``spec.transpose``),
+    with ``spec.reorder``'s priced permutation and the traffic model: a
+    new entry, ``inspector_s`` its wall time."""
     t0 = time.perf_counter()
     sched = build_schedule(a_eff, b_col=b_col, c_col=c_col, p=spec.p,
                            cache_size=spec.cache_size, ct_size=spec.ct_size,
@@ -524,18 +550,13 @@ def get_schedule(a: CSR, *, b_col: int, c_col: int,
             applied, perm, inv, a_sched, sched, dsched, tm = picked
     tm["packed_ell_bytes"] = _packed_ell_bytes(a_sched, dsched, b_is_sparse,
                                                spec.dtype_bytes)
-    entry = ScheduleEntry(sched=sched, dsched=dsched, b_col=b_col,
-                          c_col=c_col, b_is_sparse=b_is_sparse,
-                          inspector_s=time.perf_counter() - t0,
-                          traffic_model=tm, width_cap=cap,
-                          transpose=spec.transpose,
-                          dtype_bytes=spec.dtype_bytes, reorder=applied,
-                          reorder_perm=perm, reorder_inv=inv,
-                          content_digest=digest, bucket=bucket)
-    with _lock:
-        _stats["misses"] += 1
-        _cache_put(_schedule_cache, key, entry)
-    return entry
+    return ScheduleEntry(sched=sched, dsched=dsched, b_col=b_col,
+                         c_col=c_col, b_is_sparse=b_is_sparse,
+                         inspector_s=time.perf_counter() - t0,
+                         traffic_model=tm, width_cap=cap,
+                         transpose=spec.transpose,
+                         dtype_bytes=spec.dtype_bytes, reorder=applied,
+                         reorder_perm=perm, reorder_inv=inv)
 
 
 def _mesh_schedule(a: CSR, *, b_col: int, c_col: int, b_is_sparse: bool,
@@ -548,7 +569,9 @@ def _mesh_schedule(a: CSR, *, b_col: int, c_col: int, b_is_sparse: bool,
     sharded on the permuted matrix it was inspected under.  The key is the
     content key (``"autotune"``-prefixed under ``spec.autotune``) with the
     mesh key and shard knobs in its tail; building the entry counts as a
-    miss, and ``inspector_s`` adds the shard build to the inspection's."""
+    miss, and ``inspector_s`` adds the shard build to the inspection's
+    (``inspect_s`` counts the shard build alone: the base's is counted
+    where the base is built)."""
     prefix = ("autotune",) if spec.autotune else ()
     key = prefix + (csr_content_digest(a), b_col, c_col, b_is_sparse,
                     _spec_key(spec, cap=cap, mk=mk, sk=sk))
@@ -560,26 +583,28 @@ def _mesh_schedule(a: CSR, *, b_col: int, c_col: int, b_is_sparse: bool,
             return entry
     base = get_schedule(a, b_col=b_col, c_col=c_col, b_is_sparse=b_is_sparse,
                         spec=dataclasses.replace(spec, mesh=None))
-    t0 = time.perf_counter()
-    a_eff = a.transpose() if spec.transpose else a
-    a_sched = (_ordering(a_eff, base.reorder)[1]
-               if base.reorder is not None else a_eff)
-    shard = _shard_for_mesh(a_sched, base.sched, base.dsched, mk,
-                            b_col=b_col, c_col=c_col,
-                            b_is_sparse=b_is_sparse,
-                            width_cap=base.width_cap, shard_combine=sk[0],
-                            shard_layout=sk[1],
-                            dtype_bytes=spec.dtype_bytes,
-                            overlap=spec.overlap, n_repl=spec.n_repl,
-                            serial_bytes=base.traffic_model["fused_bytes"])
-    tm = dict(base.traffic_model)
-    if shard is not None:
-        tm["sharded"] = shard.comm_model
+    with tracing.span("tile_fusion.inspect"):
+        t0 = time.perf_counter()
+        a_eff = a.transpose() if spec.transpose else a
+        a_sched = (_ordering(a_eff, base.reorder)[1]
+                   if base.reorder is not None else a_eff)
+        shard = _shard_for_mesh(
+            a_sched, base.sched, base.dsched, mk, b_col=b_col, c_col=c_col,
+            b_is_sparse=b_is_sparse, width_cap=base.width_cap,
+            shard_combine=sk[0], shard_layout=sk[1],
+            dtype_bytes=spec.dtype_bytes, overlap=spec.overlap,
+            n_repl=spec.n_repl,
+            serial_bytes=base.traffic_model["fused_bytes"])
+        tm = dict(base.traffic_model)
+        if shard is not None:
+            tm["sharded"] = shard.comm_model
+        shard_s = time.perf_counter() - t0
     entry = dataclasses.replace(
         base, hits=0, mesh_key=mk, shard=shard, traffic_model=tm,
-        inspector_s=base.inspector_s + time.perf_counter() - t0)
+        inspector_s=base.inspector_s + shard_s)
     with _lock:
         _stats["misses"] += 1
+        _stats["inspect_s"] += shard_s
         _cache_put(_schedule_cache, key, entry)
     return entry
 
@@ -798,8 +823,11 @@ def schedule_cache_stats() -> dict:
     ``bucket_entries`` the live shape-bucket entries of the serving tier
     (N patterns in K buckets hold it at K), ``autotune_sweeps`` the sweeps
     published and ``incremental_patches`` the patched bucket entries
-    published.  ``mesh_entries`` counts the live entries built for a
-    non-trivial mesh, by the layout the dispatch resolved: ``layout_1d``
+    published.  ``inspect_s`` sums the seconds of every build counted as a
+    miss (each entry's ``inspector_s``; a mesh entry's shard build alone,
+    its base being counted where it is built).  ``mesh_entries`` counts
+    the live entries built for a non-trivial mesh, by the layout the
+    dispatch resolved: ``layout_1d``
     (row shards), ``layout_15d`` (column replicas too), ``layout_25d``
     (depth layers too) and ``layout_fallback`` (mesh-keyed entries that run
     on one device: a non-uniform grid, or a layout priced worse than
@@ -832,9 +860,10 @@ def select_backend(entry: ScheduleEntry, device) -> str:
     live on ``device``: ``"sharded"`` for an entry built for a mesh and
     partitioned (the mesh outranks every single-device arm, the unfused
     one included, as in the reference), else ``_single_device_backend``."""
-    if entry.shard is not None:
-        return "sharded"
-    return _single_device_backend(entry, device)
+    with tracing.span("tile_fusion.select_backend"):
+        if entry.shard is not None:
+            return "sharded"
+        return _single_device_backend(entry, device)
 
 
 def _single_device_backend(entry: ScheduleEntry, device) -> str:
@@ -872,12 +901,17 @@ def _gemm_spmm_cuda(entry: ScheduleEntry, b: torch.Tensor,
     t, n_t = ds.t_pad, ds.n_tiles0
     if b.shape[0] != ds.n_i:
         raise ValueError(f"b has {b.shape[0]} rows, schedule expects {ds.n_i}")
-    st = fused_ops.schedule_tensors(ds, c.device, c.dtype)
-    if n_t * t != b.shape[0]:       # only the last tile can be short
-        b = F.pad(b, (0, 0, 0, n_t * t - b.shape[0]))
-    d1, rows0 = kops.tile_fused_gemm_spmm_wf0(st.cols0, st.vals0, b, c, t=t)
-    d = fused_ops.scatter_rows(ds.n_j, st.j_rows0, rows0)
-    return fused_ops._wf1(st, d, d1[: ds.n_i], kernel=True)[: ds.n_j]
+    with tracing.span("tile_fusion.pad"):
+        if n_t * t != b.shape[0]:       # only the last tile can be short
+            b = F.pad(b, (0, 0, 0, n_t * t - b.shape[0]))
+    with tracing.span("tile_fusion.wf0"):
+        st = fused_ops.schedule_tensors(ds, c.device, c.dtype)
+        d1, rows0 = kops.tile_fused_gemm_spmm_wf0(st.cols0, st.vals0, b, c,
+                                                  t=t)
+    with tracing.span("tile_fusion.scatter"):
+        d = fused_ops.scatter_rows(ds.n_j, st.j_rows0, rows0)
+    with tracing.span("tile_fusion.wf1"):
+        return fused_ops._wf1(st, d, d1[: ds.n_i], kernel=True)[: ds.n_j]
 
 
 def _spmm_spmm_cuda(entry: ScheduleEntry, a1: CSR,
@@ -894,13 +928,17 @@ def _spmm_spmm_cuda(entry: ScheduleEntry, a1: CSR,
     if c.shape[0] != a1.n_cols:
         raise ValueError(
             f"c has {c.shape[0]} rows, op-1 has {a1.n_cols} columns")
-    st = fused_ops.schedule_tensors(ds, c.device, c.dtype)
-    ot = fused_ops.op1_tensors(a1, ds, c.device, c.dtype)
-    d1_spill = fused_ops.op1_spill(ot, c, n_t * t)
-    d1, rows0 = kops.tile_fused_spmm_spmm_wf0(ot.cols, ot.vals, d1_spill,
-                                              st.cols0, st.vals0, c, t=t)
-    d = fused_ops.scatter_rows(ds.n_j, st.j_rows0, rows0)
-    return fused_ops._wf1(st, d, d1[: ds.n_i], kernel=True)[: ds.n_j]
+    with tracing.span("tile_fusion.pad"):    # op 1 over the padded tiles
+        ot = fused_ops.op1_tensors(a1, ds, c.device, c.dtype)
+        d1_spill = fused_ops.op1_spill(ot, c, n_t * t)
+    with tracing.span("tile_fusion.wf0"):
+        st = fused_ops.schedule_tensors(ds, c.device, c.dtype)
+        d1, rows0 = kops.tile_fused_spmm_spmm_wf0(
+            ot.cols, ot.vals, d1_spill, st.cols0, st.vals0, c, t=t)
+    with tracing.span("tile_fusion.scatter"):
+        d = fused_ops.scatter_rows(ds.n_j, st.j_rows0, rows0)
+    with tracing.span("tile_fusion.wf1"):
+        return fused_ops._wf1(st, d, d1[: ds.n_i], kernel=True)[: ds.n_j]
 
 
 # --------------------------------------------------------------------------
@@ -918,14 +956,17 @@ def _dispatch(a: CSR, b_or_a1, c: torch.Tensor, *, backend: str,
               else b_or_a1)
 
     def run_unfused():
-        hell_a = _csr_ell(a_run, _resolve_width_cap(a_run, spec.width_cap),
-                          c.device, c.dtype)
-        if b_is_sparse:
-            hell_a1 = _csr_ell(a1_run,
-                               _resolve_width_cap(a1_run, spec.width_cap),
-                               c.device, c.dtype)
-            return fused_ops.unfused_spmm_spmm(hell_a, hell_a1, c)
-        return fused_ops.unfused_gemm_spmm(hell_a, b_or_a1, c)
+        with tracing.span("tile_fusion.unfused"):
+            hell_a = _csr_ell(a_run,
+                              _resolve_width_cap(a_run, spec.width_cap),
+                              c.device, c.dtype)
+            if b_is_sparse:
+                hell_a1 = _csr_ell(a1_run,
+                                   _resolve_width_cap(a1_run,
+                                                      spec.width_cap),
+                                   c.device, c.dtype)
+                return fused_ops.unfused_spmm_spmm(hell_a, hell_a1, c)
+            return fused_ops.unfused_gemm_spmm(hell_a, b_or_a1, c)
 
     if backend == "unfused":
         return run_unfused()          # no inspection needed for the baseline
@@ -1037,20 +1078,23 @@ class _GemmSpmmFn(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dd):
-        b, c = ctx.saved_tensors
-        spec = _bwd_spec(ctx.spec)
-        # the kernels take contiguous tensors; a cotangent may come strided
-        # (``D.sum()`` expands a scalar with stride 0): one copy for both
-        dd = dd.contiguous()
-        db = dc = None
-        if ctx.needs_input_grad[0]:
-            db = tile_fused_matmul(ctx.a, dd, c.t(), backend=ctx.backend,
-                                   spec=spec)
-        if ctx.needs_input_grad[1]:
-            dc = b.t() @ _transpose_spmm(ctx.a, dd, transpose=spec.transpose,
-                                         width_cap=spec.width_cap,
-                                         backend=ctx.backend)
-        return db, dc, None, None, None
+        with tracing.span("tile_fusion.backward"):
+            b, c = ctx.saved_tensors
+            spec = _bwd_spec(ctx.spec)
+            # the kernels take contiguous tensors; a cotangent may come
+            # strided (``D.sum()`` expands a scalar with stride 0): one
+            # copy for both
+            dd = dd.contiguous()
+            db = dc = None
+            if ctx.needs_input_grad[0]:
+                db = tile_fused_matmul(ctx.a, dd, c.t(), backend=ctx.backend,
+                                       spec=spec)
+            if ctx.needs_input_grad[1]:
+                with tracing.span("tile_fusion.backward.dc"):
+                    dc = b.t() @ _transpose_spmm(
+                        ctx.a, dd, transpose=spec.transpose,
+                        width_cap=spec.width_cap, backend=ctx.backend)
+            return db, dc, None, None, None
 
 
 class _SpmmSpmmFn(torch.autograd.Function):
@@ -1067,8 +1111,9 @@ class _SpmmSpmmFn(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, dd):
-        dc = tile_fused_matmul(ctx.a1, ctx.a, dd, backend=ctx.backend,
-                               spec=_bwd_spec(ctx.spec))
+        with tracing.span("tile_fusion.backward"):
+            dc = tile_fused_matmul(ctx.a1, ctx.a, dd, backend=ctx.backend,
+                                   spec=_bwd_spec(ctx.spec))
         return dc, None, None, None, None
 
 
@@ -1104,25 +1149,28 @@ def tile_fused_matmul(a: CSR, b_or_a1, c: torch.Tensor, *,
     them requires grad, the backward runs on the transpose entries (see
     the module docstring).
     """
-    spec = _coerce_spec(spec, legacy, "tile_fused_matmul")
-    if backend not in BACKENDS:
-        raise ValueError(f"backend={backend!r}; expected one of {BACKENDS}")
-    if not isinstance(c, torch.Tensor):
-        raise TypeError(f"c must be a torch.Tensor, got {type(c).__name__}")
-    _check_mesh(spec, c.device)
-    c = c.contiguous()
-    if isinstance(b_or_a1, CSR):
-        if torch.is_grad_enabled() and c.requires_grad:
-            return _SpmmSpmmFn.apply(c, a, b_or_a1, backend, spec)
-        return _dispatch(a, b_or_a1, c, backend=backend, spec=spec)
-    if not isinstance(b_or_a1, torch.Tensor):
-        raise TypeError(f"b_or_a1 must be a torch.Tensor or a CSR, got "
-                        f"{type(b_or_a1).__name__}")
-    if b_or_a1.device != c.device or b_or_a1.dtype != c.dtype:
-        raise ValueError(
-            f"b ({b_or_a1.dtype} on {b_or_a1.device}) and c ({c.dtype} "
-            f"on {c.device}) must share a dtype and a device")
-    b = b_or_a1.contiguous()
-    if torch.is_grad_enabled() and (b.requires_grad or c.requires_grad):
-        return _GemmSpmmFn.apply(b, c, a, backend, spec)
-    return _dispatch(a, b, c, backend=backend, spec=spec)
+    with tracing.span("tile_fusion.call"):
+        spec = _coerce_spec(spec, legacy, "tile_fused_matmul")
+        if backend not in BACKENDS:
+            raise ValueError(
+                f"backend={backend!r}; expected one of {BACKENDS}")
+        if not isinstance(c, torch.Tensor):
+            raise TypeError(
+                f"c must be a torch.Tensor, got {type(c).__name__}")
+        _check_mesh(spec, c.device)
+        c = c.contiguous()
+        if isinstance(b_or_a1, CSR):
+            if torch.is_grad_enabled() and c.requires_grad:
+                return _SpmmSpmmFn.apply(c, a, b_or_a1, backend, spec)
+            return _dispatch(a, b_or_a1, c, backend=backend, spec=spec)
+        if not isinstance(b_or_a1, torch.Tensor):
+            raise TypeError(f"b_or_a1 must be a torch.Tensor or a CSR, got "
+                            f"{type(b_or_a1).__name__}")
+        if b_or_a1.device != c.device or b_or_a1.dtype != c.dtype:
+            raise ValueError(
+                f"b ({b_or_a1.dtype} on {b_or_a1.device}) and c ({c.dtype} "
+                f"on {c.device}) must share a dtype and a device")
+        b = b_or_a1.contiguous()
+        if torch.is_grad_enabled() and (b.requires_grad or c.requires_grad):
+            return _GemmSpmmFn.apply(b, c, a, backend, spec)
+        return _dispatch(a, b, c, backend=backend, spec=spec)

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import tracing
 from ..models import sharding
 from ..models import transformer as T
 from ..optim import adamw
@@ -63,7 +64,9 @@ def make_train_step(model, opt_cfg: adamw.OptConfig, *, impl: str = "cuda",
     which ``adamw.update`` takes as zeros, as ``jax.grad`` gives them.
     ``metrics`` holds ``loss`` and ``grad_norm`` (0-d tensors; reading them
     waits for the device) and ``lr`` (a float).  Start from
-    ``adamw.init(model.parameters())``.
+    ``adamw.init(model.parameters())``.  Its spans
+    (``repro_torch.tracing``), on a mesh or not: ``train_step`` around
+    ``train_step.forward``, ``.backward`` and ``.update``.
 
     With ``rules`` on a mesh the step places copies of the parameters
     when it is made (``step.executor``; a later change to the model's
@@ -79,13 +82,18 @@ def make_train_step(model, opt_cfg: adamw.OptConfig, *, impl: str = "cuda",
     decay = model.decay_mask()
 
     def train_step(opt_state, batch):
-        for p in params:
-            p.grad = None
-        loss, _ = loss_fn(batch)
-        loss.backward()
-        opt_state, om = adamw.update(opt_cfg, [p.grad for p in params],
-                                     opt_state, params, decay)
-        return opt_state, {"loss": loss.detach(), **om}
+        with tracing.step():
+            with tracing.span("train_step.forward"):
+                for p in params:
+                    p.grad = None
+                loss, _ = loss_fn(batch)
+            with tracing.span("train_step.backward"):
+                loss.backward()
+            with tracing.span("train_step.update"):
+                opt_state, om = adamw.update(
+                    opt_cfg, [p.grad for p in params], opt_state, params,
+                    decay)
+            return opt_state, {"loss": loss.detach(), **om}
     return train_step
 
 
@@ -100,16 +108,20 @@ def make_gcn_train_step(model, *, lr: float = 0.3, backend: str = "auto",
     the weights in place, ``w ← w − lr·g``.  ``mesh=`` runs the forward
     and the backward's fused products over a mesh.  The loss returned is
     the one at the weights before the update (a tensor; reading it waits
-    for the device)."""
+    for the device).  Its spans (``repro_torch.tracing``): ``train_step``
+    around ``train_step.forward``, ``.backward`` and ``.update``."""
     def step(x, y):
-        for w in model.weights:
-            w.grad = None
-        loss = model.loss(x, y, backend=backend, mesh=mesh)
-        loss.backward()
-        with torch.no_grad():
-            for w in model.weights:
-                w.sub_(lr * w.grad)
-        return loss.detach()
+        with tracing.step():
+            with tracing.span("train_step.forward"):
+                for w in model.weights:
+                    w.grad = None
+                loss = model.loss(x, y, backend=backend, mesh=mesh)
+            with tracing.span("train_step.backward"):
+                loss.backward()
+            with tracing.span("train_step.update"), torch.no_grad():
+                for w in model.weights:
+                    w.sub_(lr * w.grad)
+            return loss.detach()
     return step
 
 
@@ -313,23 +325,27 @@ def _mesh_train_step(model, opt_cfg, impl, rules):
     leaves = [t for row in ex.pieces.values() for t in row]
 
     def train_step(opt_state, batch):
-        if not isinstance(opt_state, MeshOptState):
-            opt_state = zero.place(opt_state)
-        for t in leaves:
-            t.grad = None
-        logits = ex.shard_logits(batch, impl=impl, train=True)
-        rows = ex.mem.rows(batch["labels"].shape[0])
-        n = ex.mem.n_data
-        parts = []
-        for j, lg in enumerate(logits):
-            with sharding.turn((j, 0)):
-                parts.append(cross_entropy(
-                    lg, batch["labels"][rows[j]].to(lg.device)) / n)
-        loss = sharding.psum(parts, [lg.device for lg in logits],
-                             [(j, 0) for j in range(n)])[0]
-        loss.backward()
-        opt_state, om = zero.update(opt_cfg, opt_state, decay)
-        ex.write_back()
-        return opt_state, {"loss": loss.detach(), **om}
+        with tracing.step():
+            with tracing.span("train_step.forward"):
+                if not isinstance(opt_state, MeshOptState):
+                    opt_state = zero.place(opt_state)
+                for t in leaves:
+                    t.grad = None
+                logits = ex.shard_logits(batch, impl=impl, train=True)
+                rows = ex.mem.rows(batch["labels"].shape[0])
+                n = ex.mem.n_data
+                parts = []
+                for j, lg in enumerate(logits):
+                    with sharding.turn((j, 0)):
+                        parts.append(cross_entropy(
+                            lg, batch["labels"][rows[j]].to(lg.device)) / n)
+                loss = sharding.psum(parts, [lg.device for lg in logits],
+                                     [(j, 0) for j in range(n)])[0]
+            with tracing.span("train_step.backward"):
+                loss.backward()
+            with tracing.span("train_step.update"):
+                opt_state, om = zero.update(opt_cfg, opt_state, decay)
+                ex.write_back()
+            return opt_state, {"loss": loss.detach(), **om}
     train_step.executor, train_step.zero = ex, zero
     return train_step
